@@ -1,0 +1,35 @@
+"""Dispatch entry points the models call.
+
+The kernel is chosen by the tensor's device alone: a CPU tensor takes the
+plain PyTorch version, a CUDA tensor the hand-written kernel (see each
+wrapper).  There is no environment switch and no fallback.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quantizer import QuantizedTensor, dequantize_groupwise
+from .flash_decode import flash_decode
+from .quant_matmul import quant_matmul as _quant_matmul_kernel
+
+
+def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """``(x / act_scale) @ dequant(qt)`` for arbitrary leading x dims."""
+    if qt.act_scale is not None:
+        x = x / qt.act_scale.to(x.dtype)
+    if not qt.packed or qt.spec.bits > 4:
+        return x @ dequantize_groupwise(qt, dtype=x.dtype)
+    lead = x.shape[:-1]
+    out = _quant_matmul_kernel(x.reshape(-1, x.shape[-1]), qt.codes,
+                               qt.scale, qt.zero)
+    return out.reshape(lead + (qt.codes.shape[-1],))
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-position attention: q (B, 1, H, hd) against dense caches in
+    their native (B, KH, S, hd) layout, cache_len (B,) int32."""
+    return flash_decode(q, k_cache, v_cache, cache_len, window=window)

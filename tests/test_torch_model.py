@@ -1,0 +1,132 @@
+"""DenseLM in the port against repro's DenseLM on the same weights.
+
+The JAX tiny llama3-8b (4 layers, d_model 128, head_dim 32, f32) is
+initialized once; its parameters cross to the port through
+``repro_torch.bridge`` as numpy arrays — float, and FAQ-packed int4.
+Tolerance: atol = rtol = 1e-4 for whole-model logits, site statistics and
+KV caches (XLA and PyTorch sum in different orders over 4 layers).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS
+from repro.core import QuantSpec as JSpec
+from repro.core import quantize_model as j_quantize_model
+from repro.core import run_calibration as j_run_calibration
+from repro.models.registry import build_model as j_build
+from repro_torch.bridge import from_numpy_tree
+from repro_torch.core.quantizer import QuantizedTensor
+from repro_torch.models.registry import build_model as t_build
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg = ARCHS["llama3-8b"].tiny()
+    jm = j_build(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": jnp.asarray(rng.integers(0, cfg.vocab_size, (2, 32)),
+                                   jnp.int32)}
+    stats = j_run_calibration(jm.forward, jp, [batch])
+    jq, _ = j_quantize_model(jp, jm.quant_site_map(), stats, method="faq",
+                             spec=JSpec(bits=4, group_size=64),
+                             mode="packed")
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+    return {
+        "cfg": cfg, "jm": jm, "tm": t_build(cfg),
+        "float": (jp, from_numpy_tree(to_np(jp), "cpu")),
+        "packed": (jq, from_numpy_tree(to_np(jq), "cpu")),
+    }
+
+
+def test_bridge_keeps_structure_and_values(models):
+    jq, tq = models["packed"]
+    assert isinstance(tq["blocks"]["wq"], QuantizedTensor)
+    j_leaf, t_leaf = jq["blocks"]["w_down"], tq["blocks"]["w_down"]
+    np.testing.assert_array_equal(_np(t_leaf.codes), np.asarray(j_leaf.codes))
+    assert t_leaf.codes.shape[0] == models["cfg"].n_layers   # (L, ...) kept
+    assert t_leaf.n_in == j_leaf.n_in and t_leaf.packed
+    assert t_leaf.spec.group_size == 64 and t_leaf.act_scale is not None
+    jp, tp = models["float"]
+    np.testing.assert_array_equal(_np(tp["embed"]), np.asarray(jp["embed"]))
+
+
+@pytest.mark.parametrize("kind", ["float", "packed"])
+def test_forward_logits_and_stats_match(models, kind):
+    jp, tp = models[kind]
+    cfg = models["cfg"]
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24)) \
+        .astype(np.int32)
+    jl, jaux = models["jm"].forward(jp, {"tokens": jnp.asarray(toks)},
+                                    collect_stats=True)
+    tl, taux = models["tm"].forward(tp, {"tokens": torch.as_tensor(toks)},
+                                    collect_stats=True)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    assert set(taux["stats"]) == set(jaux["stats"])
+    for site, st in jaux["stats"].items():
+        for key, ref in st.items():
+            got = taux["stats"][site][key]
+            assert got.shape == ref.shape, (site, key)
+            np.testing.assert_allclose(_np(got), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["float", "packed"])
+def test_prefill_and_decode_step_match(models, kind):
+    jp, tp = models[kind]
+    cfg, jm, tm = models["cfg"], models["jm"], models["tm"]
+    rng = np.random.default_rng(2)
+    b, t, s = 3, 16, 32
+    toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    plen = np.array([16, 5, 11], np.int32)
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(b, s),
+                        prompt_len=jnp.asarray(plen))
+    tl, tc = tm.prefill(tp, torch.as_tensor(toks),
+                        tm.init_cache(b, s, device="cpu"),
+                        prompt_len=torch.as_tensor(plen))
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    np.testing.assert_array_equal(_np(tc["len"]), np.asarray(jc["len"]))
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_np(tc[key]), np.asarray(jc[key]), **TOL)
+    # two decode steps continue each row from its own length
+    nxt = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    for _ in range(2):
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.as_tensor(nxt))
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+        np.testing.assert_array_equal(_np(tc["len"]), np.asarray(jc["len"]))
+        nxt = np.array(jnp.argmax(jl[:, 0], -1), np.int32)[:, None]
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_np(tc[key]), np.asarray(jc[key]), **TOL)
+
+
+def test_full_length_prefill_matches(models):
+    jp, tp = models["float"]
+    cfg, jm, tm = models["cfg"], models["jm"], models["tm"]
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 9)) \
+        .astype(np.int32)
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(1, 16))
+    tl, tc = tm.prefill(tp, torch.as_tensor(toks),
+                        tm.init_cache(1, 16, device="cpu"))
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    assert int(tc["len"][0]) == 9
+
+
+def test_unported_model_options_raise(models):
+    cfg = models["cfg"]
+    with pytest.raises(NotImplementedError):
+        t_build(cfg.scaled(kv_cache_bits=8))
+    tp = models["float"][1]
+    cache = models["tm"].init_cache(1, 8, device="cpu")
+    with pytest.raises(NotImplementedError):
+        models["tm"].decode_step(tp, cache, torch.zeros(1, 2,
+                                                        dtype=torch.int32))
