@@ -8,11 +8,13 @@ Phases (any failure exits non-zero; nothing is caught):
 1. device   — the card, its power limit, torch and CUDA versions;
 2. build    — ``nvcc`` builds every kernel in ``src/repro_torch/csrc``
               (one process per source, all started together);
-3. kernels  — each kernel against its plain PyTorch version on the same
-              inputs, at the main path's shapes (bf16) and at the odd
-              shapes the reference's own kernel tests pin (f32); then its
-              time, the plain version's, one library call's where one
-              computes the same function, and its bound;
+3. kernels  — each of the seven kernels against its plain PyTorch
+              version on the same inputs, at the main path's shapes (bf16)
+              and at odd shapes (f32); the paged decode kernels bit for bit
+              against the dense ones on the same logical cache (page 0,
+              where unused table entries point, is NaN); then each
+              kernel's time, the plain version's, one library call's where
+              one computes the same function, and its bound;
 4. reference — a tiny llama3-8b on the card (kernels) against the same
               model on the CPU (plain versions): logits and greedy tokens;
 5. main path — llama3-8b at full width and depth (d_model 4096, 32 heads,
@@ -29,8 +31,17 @@ Phases (any failure exits non-zero; nothing is caught):
               ``TIE_TOL`` (bf16 logits of a batch-4 bucket-padded and a
               batch-1 exact-length run may round differently at a tie:
               torch's row reductions and cuBLAS pick their summation
-              order by shape).  The launch counters are zeroed just
-              before this phase and read just after it;
+              order by shape).  Then, on the same packed weights: the
+              paged engine serves the same requests and must give the
+              dense engine's tokens bit for bit; 8 requests sharing a
+              256-token prefix are served twice (prefix hits, the second
+              serve all hits, no page leaked); a 115-page pool (of 257)
+              preempts and resumes; the int8 KV cache serves dense and
+              paged with equal tokens; layer 0's alpha search runs through
+              the fused quant-error kernel and must reproduce the plain
+              search's losses (rel 1e-5) and choices.  The launch counters
+              are zeroed just before each of these paths and read just
+              after it;
 6. profile  — torch.profiler over one short serve: device busy time
               against wall time, and the top kernels.
 
@@ -41,7 +52,8 @@ keeps its full 128256-entry embedding and head.
 
 Tolerances (max abs error, kernel vs plain version on the same inputs):
 bf16 ``1e-2 * max|plain|``; f32 ``1e-4 * max(1, max|plain|)`` — the
-kernels sum in another order than the plain version's library calls.
+kernels sum in another order than the plain version's library calls;
+quant_error ``1e-5 * max|plain|`` (one sum of k * n terms per candidate).
 
 Output: per-phase lines, then the card's ``nvidia-smi`` name and power
 limit, then one ``{"kernels": [...]}`` JSON line, and last
@@ -62,6 +74,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
 LAYERS = 32                        # llama3-8b's full depth (no cut)
 PROMPT_LENS = (12, 40, 100, 200, 300, 450, 600, 700)
 NEW_TOKENS = 32
@@ -117,9 +130,9 @@ def time_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return statistics.median(samples)
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -133,12 +146,55 @@ def tolerance(ref) -> float:
     return 1e-2 * peak if ref.dtype == torch.bfloat16 else 1e-4 * max(1.0, peak)
 
 
-def held(name, got, ref) -> float:
+def held(name, got, ref, tol=None) -> float:
     torch.cuda.synchronize()
-    err, tol = max_err(got, ref), tolerance(ref)
+    err = max_err(got, ref)
+    tol = tolerance(ref) if tol is None else tol
     print(f"  {name}: max_abs_err={err:.3e} (tol {tol:.3e})", flush=True)
     check(err <= tol, f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def same_bits(name, got, ref):
+    torch.cuda.synchronize()
+    same = torch.equal(got, ref)
+    print(f"  {name}: bit for bit {same}", flush=True)
+    check(same, f"{name}: not bit for bit")
+
+
+def q8_cache(cache):
+    """(B, KH, S, hd) -> int8 codes and (B, KH, S, 1) f32 scales, by the
+    model's own quantize_kv."""
+    from repro_torch.models.common import quantize_kv
+    codes, scale = quantize_kv(cache.transpose(1, 2))
+    return (codes.transpose(1, 2).contiguous(),
+            scale.transpose(1, 2).contiguous())
+
+
+def paged_table(lens, s, ps, gen, dev):
+    """A seeded permutation of physical pages 1..B*S/ps as (B, NP) table,
+    (logical page i of slot b at perm[b, i]), with the entries past each
+    slot's length pointing at page 0."""
+    b, n_logical = len(lens), s // ps
+    perm = (torch.randperm(b * n_logical, generator=gen, device=dev) + 1) \
+        .reshape(b, n_logical).to(torch.int32)
+    cl = torch.as_tensor(lens, device=dev)
+    live = torch.arange(n_logical, device=dev)[None] * ps < cl[:, None]
+    return perm, torch.where(live, perm, torch.zeros_like(perm))
+
+
+def paged_store(cache, ps, perm):
+    """The same logical cache (B, KH, S, d) as a page store (1 + B*S/ps,
+    KH, ps, d) behind ``perm``; page 0 is NaN (-128 for int8 codes), so a
+    stray read of an unmapped page shows."""
+    b, kh, s, d = cache.shape
+    pages = cache.reshape(b, kh, s // ps, ps, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b * (s // ps), kh, ps, d)
+    store = torch.empty((1 + pages.shape[0], kh, ps, d), dtype=cache.dtype,
+                        device=cache.device)
+    store[0] = -128 if cache.dtype == torch.int8 else float("nan")
+    store[perm.reshape(-1).long()] = pages
+    return store
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +308,8 @@ def kernel_phase(dev):
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                      bound_by=b_by, library_ms=lib))
 
+    rows += decode_variant_rows(dev, gen, randn)
+
     # -- flash_attention ---------------------------------------------------
     phase("kernel flash_attention")
     for bkh, g, t, hd, dt in [(64, 4, 512, 128, torch.bfloat16),
@@ -289,11 +347,161 @@ def kernel_phase(dev):
                            f"{hd}), causal",
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                      bound_by=b_by, library_ms=lib))
+    rows.append(quant_error_row(dev, gen, randn))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}", flush=True)
     return rows
+
+
+def decode_variant_rows(dev, gen, randn):
+    """flash_decode_q8, flash_decode_paged and flash_decode_paged_q8: each
+    against its plain version (bf16 at the main path's shapes, f32 at odd
+    ones), the paged kernels bit for bit against the dense kernels on the
+    same logical cache, then timed at the main path's decode shape."""
+    from repro_torch.kernels import flash_decode as fd
+
+    phase("kernel flash_decode_q8 / flash_decode_paged / "
+          "flash_decode_paged_q8")
+    for b, h, kh, s, hd, lens, win, ps, dt in [
+            (4, 32, 8, 1024, 128, [44, 140, 332, 732], None, 16,
+             torch.bfloat16),
+            (4, 32, 8, 1024, 128, [0, 1, 1024, 517], 48, 16, torch.bfloat16),
+            (3, 4, 4, 200, 32, [0, 1, 197], None, 8, torch.float32),
+            (3, 8, 2, 200, 32, [0, 13, 200], 48, 8, torch.float32),
+            (2, 8, 2, 64, 64, [5, 64], 48, 8, torch.float32)]:
+        q = randn(b, 1, h, hd, dtype=dt)
+        k, v = randn(b, kh, s, hd, dtype=dt), randn(b, kh, s, hd, dtype=dt)
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        (kc, ks), (vc, vs) = q8_cache(k), q8_cache(v)
+        perm, table = paged_table(lens, s, ps, gen, dev)
+        st = [paged_store(x, ps, perm) for x in (k, v)]
+        st8 = [paged_store(x, ps, perm) for x in (kc, ks, vc, vs)]
+        tag = (f"B={b} H={h} KH={kh} S={s} lens={lens} window={win} ps={ps} "
+               f"{str(dt)[6:]}")
+        dense = fd.flash_decode(q, k, v, cl, window=win)
+        dense8 = fd.flash_decode_q8(q, kc, ks, vc, vs, cl, window=win)
+        paged = fd.flash_decode_paged(q, *st, table, cl, window=win)
+        paged8 = fd.flash_decode_paged_q8(q, *st8, table, cl, window=win)
+        held(f"q8 {tag}", dense8, fd.decode_attention_q8_ref(
+            q, kc, ks, vc, vs, cl, window=win))
+        held(f"paged {tag}", paged, fd.paged_decode_attention_ref(
+            q, *st, table, cl, window=win))
+        held(f"paged q8 {tag}", paged8, fd.paged_decode_attention_q8_ref(
+            q, *st8, table, cl, window=win))
+        same_bits(f"paged == dense {tag}", paged, dense)
+        same_bits(f"paged q8 == dense q8 {tag}", paged8, dense8)
+
+    b, h, kh, s, hd, ps = 4, 32, 8, 1024, 128, 16
+    lens = [44, 140, 332, 732]          # prompts 12/100/300/700 + 32 tokens
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = randn(b, 1, h, hd)
+    sets = []                            # 8 sets: > L2, so each call is cold
+    for _ in range(8):
+        k, v = randn(b, kh, s, hd), randn(b, kh, s, hd)
+        perm, table = paged_table(lens, s, ps, gen, dev)
+        q8 = (*q8_cache(k), *q8_cache(v))
+        sets.append(dict(
+            q8=q8, paged=(paged_store(k, ps, perm), paged_store(v, ps, perm),
+                          table),
+            paged_q8=(*(paged_store(x, ps, perm) for x in q8), table)))
+    live = sum(lens)
+    qo_bytes = 2 * b * h * hd * 2 + b * 4
+    table_bytes = b * (s // ps) * 4
+    bf16_rows = live * kh * hd * 2 * 2
+    q8_rows = live * kh * (hd + 4) * 2
+    flops = 4 * live * h * hd
+    variants = [
+        ("flash_decode_q8", fd.flash_decode_q8, fd.decode_attention_q8_ref,
+         "q8", qo_bytes + q8_rows, "src/repro/kernels/flash_decode.py:250",
+         "codes (4,8,1024,128) int8 + f32 scales"),
+        ("flash_decode_paged", fd.flash_decode_paged,
+         fd.paged_decode_attention_ref, "paged",
+         qo_bytes + bf16_rows + table_bytes,
+         "src/repro/kernels/flash_decode.py:286",
+         "stores (257,8,16,128) bf16, table (4,64)"),
+        ("flash_decode_paged_q8", fd.flash_decode_paged_q8,
+         fd.paged_decode_attention_q8_ref, "paged_q8",
+         qo_bytes + q8_rows + table_bytes,
+         "src/repro/kernels/flash_decode.py:323",
+         "code stores (257,8,16,128) int8 + f32 scale stores, table (4,64)"),
+    ]
+    rows = []
+    for name, kern, plain_fn, key, bytes_moved, replaces, shape in variants:
+        args0 = sets[0][key]
+        err = held(f"{name} timed shape", kern(q, *args0, cl),
+                   plain_fn(q, *args0, cl))
+        ms = time_ms(lambda i: kern(q, *sets[i % 8][key], cl))
+        plain = time_ms(lambda i: plain_fn(q, *sets[i % 8][key], cl))
+        b_ms, b_by = bound(bytes_moved, flops)
+        rows.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+            replaces=replaces,
+            shape=f"q ({b},1,{h},{hd}) bf16, {shape}, lens {lens}",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            library_note="none: no single PyTorch call reads int8 codes with "
+                         "folded scales or a paged store"))
+    return rows
+
+
+def quant_error_row(dev, gen, randn):
+    """quant_error against its plain version (the main path's gate
+    projection in bf16, odd shapes in f32), then timed."""
+    from repro_torch.core import QuantSpec
+    from repro_torch.core.methods import DEFAULT_ALPHA_GRID, candidate_scale
+    from repro_torch.kernels import quant_error as qe
+
+    phase("kernel quant_error")
+
+    def rel_held(name, got, ref):
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        tol = 1e-5 * float(ref.abs().max())
+        print(f"  {name}: max_abs_err={err:.3e} (tol {tol:.3e}, 1e-5 of the "
+              f"largest loss)", flush=True)
+        check(err <= tol, f"{name}: kernel disagrees with its plain version")
+        return err
+
+    for k, n, g, sym, dt in [(300, 100, 100, True, torch.float32),
+                             (256, 130, 64, False, torch.float32),
+                             (320, 33, 64, True, torch.float32),
+                             (128, 1600, 128, False, torch.float32)]:
+        w = randn(k, n, dtype=dt)
+        scales = torch.rand(5, k, generator=gen, device=dev) + 0.5
+        msq = torch.rand(k, generator=gen, device=dev)
+        spec = QuantSpec(4, g, symmetric=sym)
+        rel_held(f"k={k} n={n} g={g} sym={sym} {str(dt)[6:]}",
+                 qe.quant_error(w, scales, msq, spec),
+                 qe.quant_error_ref(w, scales, msq, spec))
+    # w_gate of llama3-8b: 4096 -> 14336, 21 alpha candidates + the ones
+    k, n, g = 4096, 14336, 64
+    spec = QuantSpec(4, g)
+    ws = [randn(k, n) * 0.02 for _ in range(2)]
+    a_stat = torch.rand(k, generator=gen, device=dev) + 0.1
+    scales = torch.stack([candidate_scale(a_stat, a) for a in
+                          DEFAULT_ALPHA_GRID] +
+                         [torch.ones(k, device=dev)])
+    msq = torch.rand(k, generator=gen, device=dev)
+    a = scales.shape[0]
+    err = rel_held("timed shape", qe.quant_error(ws[0], scales, msq, spec),
+                   qe.quant_error_ref(ws[0], scales, msq, spec))
+    ms = time_ms(lambda i: qe.quant_error(ws[i % 2], scales, msq, spec),
+                 reps=5, inner=2)
+    plain = time_ms(lambda i: qe.quant_error_ref(ws[i % 2], scales, msq,
+                                                 spec), reps=3, inner=1)
+    # 16 f32 operations per element per candidate (csrc/quant_error.cu)
+    b_ms, b_by = bound(k * n * 2 + a * k * 4 + k * 4 + a * 4,
+                       16 * k * n * a, F32_FLOPS_PER_S)
+    return dict(name="quant_error", route="cuda",
+                source="src/repro_torch/csrc/quant_error.cu",
+                replaces="src/repro/kernels/quant_error.py:66",
+                shape=f"w ({k},{n}) bf16, {a} candidate scales, g={g} asym",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                library_note="none: no single PyTorch call quantizes group-"
+                             "wise and sums the weighted error")
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +569,7 @@ def main_path_phase(dev, kernels):
     from repro_torch.configs import ARCHS
     from repro_torch.core import (QuantSpec, quantize_model, report_summary,
                                   run_calibration)
+    from repro_torch.core.methods import site_stat_for_method
     from repro_torch.data.synthetic import calibration_batches
     from repro_torch.launch.serve import data_for
     from repro_torch.models.registry import build_model
@@ -403,6 +612,14 @@ def main_path_phase(dev, kernels):
                                      mode="packed")
     summary = report_summary(report)
     times["faq_pack"] = time.perf_counter() - t0
+    # layer 0's weights and its diagonal-loss statistics, kept for the alpha
+    # search through the fused quant-error kernel after serving
+    layer0 = {"spec": QuantSpec(bits=4, group_size=64), "sites": {
+        "/".join(path): (params["blocks"][path[1]][0].clone(),
+                         site_stat_for_method("faq", stats[site]["mean_abs"])
+                         [0].clone(),
+                         stats[site]["mean_sq"][0].clone())
+        for path, site in model.quant_site_map().items()}}
     for path, rep in report.items():
         # alpha = 0 (no smoothing) is in the grid, so FAQ never loses to RTN
         check(bool((rep["loss"] <= rep["rtn_loss"] * (1 + 1e-5)).all()),
@@ -450,14 +667,8 @@ def main_path_phase(dev, kernels):
     # both must be greedy decodes of a teacher-forced exact-length
     # forward: each chosen token within TIE_TOL of that position's top
     for name, toks in (("engine", results[0]), ("generate", alone)):
-        seq = np.concatenate([reqs[0].prompt, toks[:-1]]).astype(np.int32)
-        logits = model.forward(qparams, {"tokens": torch.as_tensor(
-            seq, device=dev)[None]})[0][0, len(reqs[0].prompt) - 1:].float()
-        top2 = logits.topk(2, dim=-1).values
-        chosen = logits.gather(1, torch.as_tensor(
-            toks, device=dev, dtype=torch.long)[:, None])[:, 0]
-        margin = (top2[:, 0] - chosen).cpu().numpy()
-        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        margin, gap = teacher_forced(model, qparams, reqs[0].prompt, toks,
+                                     dev)
         print(f"  {name}: max margin to the reference top logit "
               f"{margin.max():.4f} (token {int(margin.argmax())}); top-2 gap "
               f"there {gap[int(margin.argmax())]:.4f}; reference argmax "
@@ -479,8 +690,238 @@ def main_path_phase(dev, kernels):
     print(f"  max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  launches on the main path: {launches}", flush=True)
+    for path, counts in slice2_paths(dev, kernels, cfg, model, qparams, data,
+                                     reqs, results, layer0).items():
+        print(f"  launches on the {path} path: {counts}", flush=True)
+        for sym, n in counts.items():
+            launches[sym] += n
+    print(f"  max_memory_allocated over all paths: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_phase(eng, data, Request)
     return launches
+
+
+def teacher_forced(model, qparams, prompt, toks, dev):
+    """Per generated token: how far its logit lies below the top logit of
+    a teacher-forced exact-length forward over prompt + tokens (0 where it
+    is the argmax), and that position's top-2 gap."""
+    seq = np.concatenate([prompt, toks[:-1]]).astype(np.int32)
+    logits = model.forward(qparams, {"tokens": torch.as_tensor(
+        seq, device=dev)[None]})[0][0, len(prompt) - 1:].float()
+    top2 = logits.topk(2, dim=-1).values
+    chosen = logits.gather(1, torch.as_tensor(
+        toks, device=dev, dtype=torch.long)[:, None])[:, 0]
+    return ((top2[:, 0] - chosen).cpu().numpy(),
+            (top2[:, 0] - top2[:, 1]).cpu().numpy())
+
+
+def check_teacher_forced(name, model, qparams, reqs, results, dev):
+    """Every request's tokens are greedy up to TIE_TOL."""
+    worst = 0.0
+    for r in reqs:
+        margin, _ = teacher_forced(model, qparams, r.prompt, results[r.rid],
+                                   dev)
+        worst = max(worst, float(margin.max()))
+        check(float(margin.max()) <= TIE_TOL,
+              f"{name} request {r.rid}: token off the reference argmax by "
+              f"{margin.max():.4f} > {TIE_TOL}")
+    print(f"  {name}: every request greedy up to ties (worst margin "
+          f"{worst:.4f} <= {TIE_TOL})", flush=True)
+
+
+def counted(kernels, fn):
+    """Run ``fn`` with every launch counter set to 0 just before it; returns
+    (its result, the counts read just after)."""
+    for kern in kernels:
+        kern.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.symbol: k.launches for k in kernels}
+
+
+_CUMULATIVE = ("tokens_generated", "decode_steps", "prefill_batches",
+               "prefix_hits", "prefix_hit_tokens", "cow_copies", "preempted",
+               "resumed", "pressure_events")
+
+
+def report_serve(name, before, m, seconds):
+    """Print one serve's numbers: the engine's cumulative counters as
+    deltas over this serve (``before`` -> ``m``); returns those deltas
+    (with the pool's peak so far).  ``pages_peak`` is the peak so far."""
+    m = dict(m, **{k: m[k] - before.get(k, 0) for k in _CUMULATIVE
+                   if k in m})
+    line = (f"  {name}: {m['tokens_generated']} tokens in {seconds:.2f} s = "
+            f"{m['tokens_generated'] / seconds:.1f} tok/s, "
+            f"{m['decode_steps']} decode steps, {m['prefill_batches']} "
+            f"prefill batches")
+    if m["paged"]:
+        line += (f", prefix hits {m['prefix_hits']} ({m['prefix_hit_tokens']}"
+                 f" tokens), COW copies {m['cow_copies']}, pages_peak "
+                 f"{m['pages_peak']}/{m['pages_total']}, peak_cache_bytes "
+                 f"{m['peak_cache_bytes']}, preempted {m['preempted']}, "
+                 f"resumed {m['resumed']}, pressure events "
+                 f"{m['pressure_events']}")
+    print(line, flush=True)
+    return m
+
+
+def slice2_paths(dev, kernels, cfg, model, qparams, data, reqs, results,
+                 layer0):
+    """The paged and int8 KV paths and the alpha search through the fused
+    quant-error kernel, each with the launch counters zeroed just before
+    it and read just after.  Returns {path: launch counts}."""
+    from repro_torch.core.methods import (DEFAULT_ALPHA_GRID,
+                                          candidate_scale, quant_error,
+                                          search_alpha)
+    from repro_torch.kernels.ops import quant_error_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    counts = {}
+    kw = dict(n_slots=4, max_len=1024, device=dev)
+
+    def fresh(rs):
+        return [Request(rid=r.rid, prompt=r.prompt,
+                        max_new_tokens=r.max_new_tokens) for r in rs]
+
+    def serve(name, eng, rs):
+        before = eng.metrics()
+        t0 = time.perf_counter()
+        out = eng.serve(fresh(rs))
+        torch.cuda.synchronize()
+        m = report_serve(name, before, eng.metrics(),
+                         time.perf_counter() - t0)
+        check(sorted(out) == sorted(r.rid for r in rs), f"{name}: results")
+        for r in rs:
+            check(len(out[r.rid]) == r.max_new_tokens,
+                  f"{name} request {r.rid}: {len(out[r.rid])} tokens")
+        return out, m
+
+    # 1. paged bf16: the same requests, the dense engine's bits
+    phase("main path: paged KV cache (bf16), the same 8 requests")
+    eng_p = ServeEngine(model, qparams, paged=True, page_size=16, **kw)
+    (paged, _), counts["paged bf16 serve"] = counted(
+        kernels, lambda: serve("paged serve", eng_p, reqs))
+    same = [np.array_equal(paged[r.rid], results[r.rid]) for r in reqs]
+    print(f"  paged tokens equal the dense engine's bit for bit: "
+          f"{sum(same)}/{len(reqs)} requests", flush=True)
+    check(all(same), "paged serve tokens differ from the dense engine's")
+    del eng_p
+
+    # 2. shared prefix: 256 tokens (16 pages) + tails of 20..200, twice
+    phase("main path: shared 256-token prefix, 8 requests served twice")
+    prefix = data.sequence(42_000_000, 256)
+    tails = np.linspace(20, 200, 8).astype(int)
+    shared = [Request(rid=200 + i, prompt=np.concatenate(
+                  [prefix, data.sequence(42_000_001 + i, int(n))]),
+                      max_new_tokens=NEW_TOKENS)
+              for i, n in enumerate(tails)]
+    eng_s = ServeEngine(model, qparams, paged=True, page_size=16, **kw)
+
+    def shared_twice():
+        out1, m1 = serve("shared-prefix serve 1", eng_s, shared)
+        check(m1["prefix_hits"] > 0, "no prefix hit in the first serve")
+        check(eng_s.pool.pages_in_use() == len(eng_s.pool.index),
+              "pages leaked after the first shared-prefix serve")
+        out2, m2 = serve("shared-prefix serve 2", eng_s, shared)
+        check(m2["prefix_hits"] == len(shared),
+              f"second serve: {m2['prefix_hits']} of {len(shared)} "
+              f"requests admitted by a prefix hit")
+        check(eng_s.pool.pages_in_use() == len(eng_s.pool.index),
+              "pages leaked after the second shared-prefix serve")
+        return out1, out2
+
+    (out1, out2), counts["shared-prefix serves"] = counted(kernels,
+                                                          shared_twice)
+    print(f"  pages in use after both serves = index blocks = "
+          f"{len(eng_s.pool.index)}; second serve tokens equal the first's "
+          f"for {sum(np.array_equal(out1[r.rid], out2[r.rid]) for r in shared)}"
+          f"/{len(shared)} requests", flush=True)
+    check_teacher_forced("shared-prefix serve 1", model, qparams, shared,
+                         out1, dev)
+    check_teacher_forced("shared-prefix serve 2", model, qparams, shared,
+                         out2, dev)
+    del eng_s
+
+    # 3. pressure: a pool of 115 pages (the default is 257) preempts and
+    # resumes; 80 pages would livelock, in the reference's protocol too
+    # (tests/test_torch_pages.py holds both)
+    phase("main path: paged engine with 115 of 257 pages (pressure)")
+    eng_x = ServeEngine(model, qparams, paged=True, page_size=16,
+                        n_pages=115, **kw)
+    (pressed, m_x), counts["pressure serve"] = counted(
+        kernels, lambda: serve("pressure serve", eng_x, reqs))
+    check(m_x["pressure_events"] > 0 and m_x["preempted"] > 0,
+          "the small pool saw no pressure")
+    check(m_x["resumed"] == m_x["preempted"],
+          f"resumed {m_x['resumed']} != preempted {m_x['preempted']}")
+    agree = sum(int((pressed[r.rid] == results[r.rid]).sum()) for r in reqs)
+    print(f"  tokens equal to the unpressured run: {agree}/"
+          f"{len(reqs) * NEW_TOKENS}", flush=True)
+    check_teacher_forced("pressure serve", model, qparams, reqs, pressed,
+                         dev)
+    del eng_x
+
+    # 4. int8 KV: dense and paged, bit for bit
+    phase("main path: int8 KV cache, dense and paged")
+    model8 = build_model(cfg.scaled(kv_cache_bits=8))
+
+    def int8_serves():
+        out_d, _ = serve("int8 dense serve",
+                         ServeEngine(model8, qparams, **kw), reqs)
+        out_p, _ = serve("int8 paged serve",
+                         ServeEngine(model8, qparams, paged=True,
+                                     page_size=16, **kw), reqs)
+        return out_d, out_p
+
+    (q8_dense, q8_paged), counts["int8 serves"] = counted(kernels,
+                                                         int8_serves)
+    same = [np.array_equal(q8_dense[r.rid], q8_paged[r.rid]) for r in reqs]
+    print(f"  int8 dense == int8 paged bit for bit: {sum(same)}/{len(reqs)} "
+          f"requests", flush=True)
+    check(all(same), "int8 dense and paged tokens differ")
+    agree = sum(int((q8_dense[r.rid] == results[r.rid]).sum()) for r in reqs)
+    print(f"  int8 tokens equal to the bf16 run: {agree}/"
+          f"{len(reqs) * NEW_TOKENS} (int8 KV is lossy; not asserted)",
+          flush=True)
+
+    # 5. the alpha search of layer 0 through the fused quant-error kernel
+    phase("main path: layer-0 alpha search through quant_error_batch")
+    spec = layer0["spec"]
+
+    def alpha_search():
+        rows = []
+        for path, (w, a_stat, msq) in layer0["sites"].items():
+            scales = torch.stack(
+                [candidate_scale(a_stat, a) for a in DEFAULT_ALPHA_GRID]
+                + [torch.ones_like(a_stat)])
+            rows.append((path, w, a_stat, msq,
+                         quant_error_batch(w, scales, msq, spec)))
+        return rows
+
+    rows, counts["alpha search"] = counted(kernels, alpha_search)
+    for path, w, a_stat, msq, got in rows:
+        plain = torch.stack(
+            [quant_error(w, spec, candidate_scale(a_stat, a), mean_sq=msq)
+             for a in DEFAULT_ALPHA_GRID] +
+            [quant_error(w, spec, None, mean_sq=msq)])
+        res = search_alpha(w, a_stat, spec, DEFAULT_ALPHA_GRID, mean_sq=msq)
+        rel = float(((got - plain).abs() / plain.abs()).max())
+        pick = int(torch.argmin(got[:-1]))
+        want = int(torch.argmin(plain[:-1]))
+        tie = abs(float(got[pick] - got[want])) <= 1e-6 * float(got[want])
+        print(f"  {path}: kernel vs search losses max rel diff {rel:.2e}; "
+              f"alpha {DEFAULT_ALPHA_GRID[pick]:.2f} (search "
+              f"{float(res.alpha):.2f}), loss {float(got[pick]):.6e} vs RTN "
+              f"{float(got[-1]):.6e}", flush=True)
+        check(rel <= 1e-5, f"{path}: quant_error_batch losses differ from "
+                           f"the search's by {rel:.2e}")
+        check(float(res.alpha) == DEFAULT_ALPHA_GRID[want],
+              f"{path}: the plain losses' argmin is not search_alpha's")
+        check(pick == want or tie, f"{path}: kernel picks alpha "
+                                   f"{DEFAULT_ALPHA_GRID[pick]}, the search "
+                                   f"{DEFAULT_ALPHA_GRID[want]}")
+    return counts
 
 
 def profile_phase(eng, data, Request):
@@ -522,6 +963,7 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_error as qe
     from repro_torch.kernels import quant_matmul as qm
 
     t_start = time.perf_counter()
@@ -548,8 +990,16 @@ def main():
                 if "Used" in ln and "registers" in ln]
         print(f"  {src_name}: {'; '.join(sorted(set(regs)))}", flush=True)
 
-    kernels = (qm.KERNEL, fd.KERNEL, fa.KERNEL)
-    rows = kernel_phase(dev)
+    # every kernel, in the order of the TPU kernel table (PERF.md)
+    by_name = {"quant_matmul": qm.KERNEL, "flash_decode": fd.KERNEL,
+               "flash_decode_q8": fd.KERNEL_Q8, "flash_attention": fa.KERNEL,
+               "flash_decode_paged": fd.KERNEL_PAGED,
+               "flash_decode_paged_q8": fd.KERNEL_PAGED_Q8,
+               "quant_error": qe.KERNEL}
+    kernels = tuple(by_name.values())
+    rows = {r["name"]: r for r in kernel_phase(dev)}
+    check(sorted(rows) == sorted(by_name), f"kernel rows {sorted(rows)}")
+    rows = [rows[name] for name in by_name]
     phase("reference: tiny model, card against CPU")
     reference_phase(dev)
     phase("main path: llama3-8b calibrate -> FAQ -> int4 pack -> serve")

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels (``csrc/``): one wrapper module per kernel
-(:mod:`.quant_matmul`, :mod:`.flash_decode`, :mod:`.flash_attention`),
-their plain PyTorch versions (:mod:`.ref`) and the dispatch the models
-call (:mod:`.ops`)."""
+"""Hand-written CUDA kernels (``csrc/``): one wrapper module per source
+(:mod:`.quant_matmul`, :mod:`.flash_decode` with its dense / int8 / paged /
+paged-int8 variants, :mod:`.flash_attention`, :mod:`.quant_error`), their
+plain PyTorch versions (:mod:`.ref`) and the dispatch the models call
+(:mod:`.ops`)."""

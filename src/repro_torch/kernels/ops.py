@@ -11,7 +11,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quantizer import QuantizedTensor, dequantize_groupwise
-from .flash_decode import flash_decode
+from .flash_decode import (flash_decode, flash_decode_paged,
+                           flash_decode_paged_q8, flash_decode_q8)
+from .quant_error import quant_error
 from .quant_matmul import quant_matmul as _quant_matmul_kernel
 
 
@@ -33,3 +35,35 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-position attention: q (B, 1, H, hd) against dense caches in
     their native (B, KH, S, hd) layout, cache_len (B,) int32."""
     return flash_decode(q, k_cache, v_cache, cache_len, window=window)
+
+
+def decode_attention_q8(q, k_codes, k_scale, v_codes, v_scale, cache_len, *,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """int8-KV decode attention: codes (B, KH, S, hd) int8 and scales
+    (B, KH, S, 1) f32, the scales folded inside the consumer."""
+    return flash_decode_q8(q, k_codes, k_scale, v_codes, v_scale, cache_len,
+                           window=window)
+
+
+def paged_decode_attention(q, k_store, v_store, page_table, cache_len, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention against the shared page stores (P, KH, ps, hd)
+    through ``page_table`` (B, NP) int32."""
+    return flash_decode_paged(q, k_store, v_store, page_table, cache_len,
+                              window=window)
+
+
+def paged_decode_attention_q8(q, k_codes, k_scale, v_codes, v_scale,
+                              page_table, cache_len, *,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """Paged int8-KV decode attention (scale stores paged beside the
+    codes)."""
+    return flash_decode_paged_q8(q, k_codes, k_scale, v_codes, v_scale,
+                                 page_table, cache_len, window=window)
+
+
+def quant_error_batch(w: torch.Tensor, scales: torch.Tensor,
+                      mean_sq: torch.Tensor, spec) -> torch.Tensor:
+    """Fused multi-candidate quant error (the alpha search's diagonal loss
+    for every candidate scale in ``scales`` (A, k)); returns (A,) f32."""
+    return quant_error(w, scales, mean_sq, spec)

@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quantizer import quant_dequant
+
 NEG_INF = -1e30
 
 
@@ -37,6 +39,39 @@ def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
     return (x.float() @ w).to(x.dtype)
 
 
+def _decode_core(q, k, v, cache_len, window, k_fold=None, v_fold=None):
+    """Masked single-position attention shared by the dense, int8, and
+    paged plain versions.  k/v: (B, KH, S, hd) in any type (upcast to f32);
+    ``k_fold``/``v_fold`` (B, KH, S) multiply the scores / the probabilities
+    after the softmax sum (the int8 scale folds)."""
+    b, _, h, hd = q.shape
+    kh, s = k.shape[1], k.shape[2]
+    g = h // kh
+    qg = q.float().reshape(b, kh, g, hd)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * hd ** -0.5
+    if k_fold is not None:
+        scores = scores * k_fold[:, :, None, :]
+    lens = cache_len.to(device=q.device, dtype=torch.int64).reshape(-1) \
+        .expand(b)
+    kpos = torch.arange(s, device=q.device)
+    mask = kpos[None, :] < lens[:, None]                     # (B, S)
+    if window is not None:
+        mask &= kpos[None, :] >= (lens[:, None] - window)
+    mask4 = mask[:, None, None, :]
+    scores = torch.where(mask4, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask4, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_fold is not None:
+        p = torch.where(mask4, p * v_fold[:, :, None, :], 0.0)
+    # masked rows are never read by the kernels; zero them here so stale or
+    # NaN contents (an unmapped page) cannot leak through 0 * NaN
+    vf = torch.where(mask[:, None, :, None], v.float(), 0.0)
+    out = torch.einsum("bkgs,bksd->bkgd", p, vf)
+    out = out / torch.clamp(l, min=1e-30)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, cache_len: torch.Tensor,
                          window: Optional[int] = None) -> torch.Tensor:
@@ -48,24 +83,66 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     ``kh``.  Masked positions get probability exactly zero, so a slot with
     ``cache_len == 0`` yields 0 — as the split-KV kernel does.
     """
-    b, _, h, hd = q.shape
-    kh, s = k_cache.shape[1], k_cache.shape[2]
-    g = h // kh
-    qg = q.float().reshape(b, kh, g, hd)
-    scores = torch.einsum("bkgd,bksd->bkgs", qg, k_cache.float()) * hd ** -0.5
-    lens = cache_len.to(torch.int64).reshape(-1).expand(b)
-    kpos = torch.arange(s, device=q.device)
-    mask = kpos[None, :] < lens[:, None]                     # (B, S)
-    if window is not None:
-        mask &= kpos[None, :] >= (lens[:, None] - window)
-    mask = mask[:, None, None, :]
-    scores = torch.where(mask, scores, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(scores - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
-    out = out / torch.clamp(l, min=1e-30)
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    return _decode_core(q, k_cache, v_cache, cache_len, window)
+
+
+def decode_attention_q8_ref(q: torch.Tensor, k_codes: torch.Tensor,
+                            k_scale: torch.Tensor, v_codes: torch.Tensor,
+                            v_scale: torch.Tensor, cache_len: torch.Tensor,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """:func:`decode_attention_ref` against an int8 cache: codes (B, KH, S,
+    hd) int8, scales (B, KH, S, 1) f32.  The K scale multiplies the scores,
+    the V scale the probabilities (after their sum), so the codes are
+    consumed as they are."""
+    return _decode_core(q, k_codes, v_codes, cache_len, window,
+                        k_fold=k_scale[..., 0], v_fold=v_scale[..., 0])
+
+
+def gather_pages(store: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Each slot's logical cache from the shared page store.
+
+    store: (P, KH, ps, d); page_table: (B, NP) physical ids per logical
+    block.  Returns (B, KH, NP * ps, d), the dense native layout.  Unmapped
+    entries point at the trash page 0, whose contents sit at positions
+    >= the slot's cache length, which attention masks.
+    """
+    g = store[page_table.to(device=store.device, dtype=torch.long)]
+    b, n_pages, kh, ps, d = g.shape                 # (B, NP, KH, ps, d)
+    return g.permute(0, 2, 1, 3, 4).reshape(b, kh, n_pages * ps, d)
+
+
+def paged_decode_attention_ref(q, k_store, v_store, page_table, cache_len,
+                               window=None):
+    """:func:`decode_attention_ref` against paged stores (P, KH, ps, hd):
+    gather the pages through the table, then the masked attention."""
+    return decode_attention_ref(q, gather_pages(k_store, page_table),
+                                gather_pages(v_store, page_table), cache_len,
+                                window=window)
+
+
+def paged_decode_attention_q8_ref(q, k_codes, k_scale, v_codes, v_scale,
+                                  page_table, cache_len, window=None):
+    """:func:`decode_attention_q8_ref` against paged int8 stores: the scale
+    stores (P, KH, ps, 1) are paged beside the codes."""
+    return decode_attention_q8_ref(
+        q, gather_pages(k_codes, page_table), gather_pages(k_scale, page_table),
+        gather_pages(v_codes, page_table), gather_pages(v_scale, page_table),
+        cache_len, window=window)
+
+
+def quant_error_ref(w: torch.Tensor, scales: torch.Tensor,
+                    mean_sq: torch.Tensor, spec) -> torch.Tensor:
+    """Weighted quantization error of ``w`` (k, n) for each candidate
+    smoothing scale ``scales[a]`` (A, k): ``err[a] = sum(mean_sq[:, None] *
+    (deq(Q(w * s_a)) / s_a - w) ** 2) / n``, in f32 — the diagonal loss of
+    the alpha search, one candidate at a time.  Returns (A,) f32."""
+    w32 = w.float()
+    msq = mean_sq.float()[:, None]
+    out = []
+    for a in range(scales.shape[0]):
+        dw = quant_dequant(w32, spec, act_scale=scales[a].float()) - w32
+        out.append(torch.sum(msq * dw * dw) / w.shape[1])
+    return torch.stack(out)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -72,6 +72,15 @@ def main(argv=None):
                     help="decode batch width (continuous-batching slots)")
     ap.add_argument("--max-len", type=int, default=128,
                     help="per-slot KV-cache capacity (prompt + new tokens)")
+    ap.add_argument("--paged", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="paged KV cache with shared-prefix reuse; "
+                         "--no-paged keeps the dense per-slot cache")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per physical KV page (paged mode)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="page-pool capacity; default sizes it so every "
+                         "slot can hold a full max_len sequence")
     ap.add_argument("--prefill-chunk", type=parse_chunk, default="auto",
                     metavar="auto|N|0",
                     help="chunked prefill: 'auto' picks the second-largest "
@@ -96,8 +105,12 @@ def main(argv=None):
     del params
     eng = ServeEngine(model, qparams,
                       n_slots=min(args.n_slots, args.requests),
-                      max_len=args.max_len, prefill_chunk=args.prefill_chunk,
-                      device=device)
+                      max_len=args.max_len, paged=args.paged,
+                      page_size=args.page_size, n_pages=args.n_pages,
+                      prefill_chunk=args.prefill_chunk, device=device)
+    if args.paged and not eng.paged:
+        print("note: model cache layout does not support paging; serving "
+              "from the dense cache")
     reqs = [Request(rid=i, prompt=data.sequence(40_000_000 + i, 12),
                     max_new_tokens=args.new_tokens)
             for i in range(args.requests)]
@@ -114,6 +127,11 @@ def main(argv=None):
           f"chunk {m['prefill_chunk'] or 'off'}, "
           f"{m['chunked_admissions']} chunked), "
           f"decode: {m['decode_steps']} steps")
+    if m["paged"]:
+        print(f"paged: page_size={m['page_size']}, peak {m['pages_peak']}/"
+              f"{m['pages_total']} pages ({m['peak_cache_bytes'] / 1e6:.2f} "
+              f"MB), prefix hits {m['prefix_hits']}, cow copies "
+              f"{m['cow_copies']}, preempted {m['preempted']}")
     return results
 
 

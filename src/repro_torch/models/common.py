@@ -217,3 +217,39 @@ def update_cache_at(cache: torch.Tensor, new: torch.Tensor,
     cache[torch.arange(b, device=cache.device), :, pos] = \
         new[:, :, 0].to(cache.dtype)
     return cache
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of fresh K/V entries.
+
+    x: (B, T, KH, hd) -> (codes int8 of x's shape, scale (B, T, KH, 1)
+    f32); codes round half to even and clip to +-127.  The int8 KV cache
+    (``cfg.kv_cache_bits = 8``) halves the cache's memory and traffic."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    codes = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (serve/pages.py holds the host-side allocator; this is the
+# device-side write; the read side is the paged flash-decode kernel)
+# ---------------------------------------------------------------------------
+
+def update_pages_at(store: torch.Tensor, new: torch.Tensor,
+                    page_ids: torch.Tensor,
+                    offsets: torch.Tensor) -> torch.Tensor:
+    """Write each slot's fresh KV entry into its current physical page, in
+    place (one indexed copy).
+
+    store: (P, KH, ps, d); new: (B, KH, 1, d); page_ids/offsets: (B,).  The
+    engine makes every written page exclusively owned first (copy-on-write
+    on the host), and inactive slots' tables point at the trash page 0, so
+    only the trash page can take two writes, and nothing reads it.
+    Returns ``store``."""
+    if new.shape[2] != 1:
+        raise NotImplementedError(
+            "multi-position page writes arrive with speculative decoding")
+    store[page_ids.long(), :, offsets.long()] = new[:, :, 0].to(store.dtype)
+    return store

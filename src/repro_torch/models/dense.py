@@ -6,7 +6,11 @@ the reference's layout — so :func:`repro_torch.core.quantize_model` can
 swap float leaves for packed :class:`QuantizedTensor` stacks and the same
 entry points serve both.  ``forward`` / ``prefill`` / ``decode_step``
 loop over layers.  KV cache layout is ``(L, B, KH, S, hd)``; prefill and
-decode write it in place and return it.
+decode write it in place and return it.  With ``cfg.kv_cache_bits = 8``
+the cache holds int8 codes with f32 per-(token, head) scales
+``(L, B, KH, S, 1)`` beside them.  ``decode_step_paged`` runs against the
+paged store ``(L, P, KH, ps, hd)`` of :meth:`init_paged_cache` through a
+per-slot page table (the serving engine owns the table and the lengths).
 """
 from __future__ import annotations
 
@@ -16,10 +20,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import decode_attention
+from repro_torch.kernels.ops import (decode_attention, decode_attention_q8,
+                                    paged_decode_attention,
+                                    paged_decode_attention_q8)
 from .common import (apply_rope, chunked_attention, embed_tokens,
                      last_valid_hidden, logits_from_hidden, padded_vocab,
-                     qlinear, rms_norm, update_cache_at)
+                     qlinear, quantize_kv, rms_norm, update_cache_at,
+                     update_pages_at)
 
 
 def _layer(blocks: dict, l: int) -> dict:
@@ -29,9 +36,6 @@ def _layer(blocks: dict, l: int) -> dict:
 
 class DenseLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.kv_cache_bits != 16:
-            raise NotImplementedError("the int8 KV cache arrives with the "
-                                      "q8 flash-decode kernel")
         if cfg.mrope_sections or cfg.sliding_window:
             raise NotImplementedError("M-RoPE and sliding-window attention "
                                       "arrive with their model families")
@@ -96,9 +100,14 @@ class DenseLM:
 
     # -- block -------------------------------------------------------------
     def _attn(self, p, x, positions, *, cache=None, cache_len=None,
-              kv_lens=None):
-        """Attention sub-block.  Returns (out, (k, v), o_pre): k/v as
-        produced (prefill cache capture) or the updated caches (decode)."""
+              kv_lens=None, paged=None):
+        """Attention sub-block.  Returns (out, kv, o_pre): kv is k/v as
+        produced (prefill cache capture) or the updated caches (decode).
+
+        ``cache`` holds this layer's dense caches — ``(k, v)``, or ``(k,
+        k_scale, v, v_scale)`` for the int8 cache — or, with ``paged`` (a
+        ``(page_table, page_ids, offsets)`` triple), its page stores in the
+        same order."""
         cfg = self.cfg
         hd = cfg.head_dim_
         b, t, _ = x.shape
@@ -107,26 +116,44 @@ class DenseLM:
         v = qlinear(x, p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        q8 = cfg.kv_cache_bits == 8
         if cache is None:
             o = chunked_attention(q, k, v, causal=True, kv_lens=kv_lens)
+            kv = (k, v)
         else:
-            k_cache, v_cache = cache                 # (B, KH, S, hd)
-            pos = cache_len - t
-            update_cache_at(k_cache, k.transpose(1, 2), pos)
-            update_cache_at(v_cache, v.transpose(1, 2), pos)
-            o = decode_attention(q, k_cache, v_cache, cache_len)
-            k, v = k_cache, v_cache
+            if q8:
+                kq, ks = quantize_kv(k)
+                vq, vs = quantize_kv(v)
+                fresh = (kq, ks, vq, vs)
+            else:
+                fresh = (k, v)
+            fresh = tuple(f.transpose(1, 2) for f in fresh)  # (B, KH, 1, .)
+            if paged is not None:
+                table, page_ids, offsets = paged
+                for st, new in zip(cache, fresh):
+                    update_pages_at(st, new, page_ids, offsets)
+                attend = (paged_decode_attention_q8 if q8
+                          else paged_decode_attention)
+                o = attend(q, *cache, table, cache_len)
+            else:
+                pos = cache_len - t
+                for c, new in zip(cache, fresh):
+                    update_cache_at(c, new, pos)
+                attend = decode_attention_q8 if q8 else decode_attention
+                o = attend(q, *cache, cache_len)
+            kv = cache
         o = o.reshape(b, t, cfg.n_heads * hd)
-        return qlinear(o, p["wo"]), (k, v), o
+        return qlinear(o, p["wo"]), kv, o
 
     def _block(self, p, x, positions, collect, *, cache=None, cache_len=None,
-               kv_lens=None):
+               kv_lens=None, paged=None):
         h = rms_norm(x, p["attn_norm"], self.cfg.norm_eps)
         stats = {}
         if collect:
             stats["attn_in"] = site_stat(h)
         attn_out, kv, o_pre = self._attn(p, h, positions, cache=cache,
-                                         cache_len=cache_len, kv_lens=kv_lens)
+                                         cache_len=cache_len, kv_lens=kv_lens,
+                                         paged=paged)
         if collect:
             stats["attn_out"] = site_stat(o_pre)
         x = x + attn_out
@@ -175,7 +202,9 @@ class DenseLM:
     def prefill(self, params, tokens, cache, prompt_len=None):
         """Run the prompt and write the KV cache (in place).
 
-        cache: dict(k=(L,B,KH,S,hd), v=..., len=(B,)) with S >= T.
+        cache: dict(k=(L,B,KH,S,hd), v=..., len=(B,)) with S >= T (plus
+        k_scale/v_scale (L,B,KH,S,1) for the int8 cache, whose codes are
+        written quantized).
         ``prompt_len`` (B,) int32 marks each row's true prompt length for
         bucket-padded batched prefill: keys at positions >= prompt_len[b]
         are masked, the returned logits are each row's *last valid*
@@ -196,12 +225,24 @@ class DenseLM:
         for l in range(self.cfg.n_layers):
             x, (k, v), _ = self._block(_layer(blocks, l), x, positions, False,
                                        kv_lens=kv_lens)
-            cache["k"][l, :, :, :t] = k.transpose(1, 2)
-            cache["v"][l, :, :, :t] = v.transpose(1, 2)
+            if self.cfg.kv_cache_bits == 8:
+                for key, fresh in (("k", k), ("v", v)):
+                    codes, scale = quantize_kv(fresh)
+                    cache[key][l, :, :, :t] = codes.transpose(1, 2)
+                    cache[key + "_scale"][l, :, :, :t] = scale.transpose(1, 2)
+            else:
+                cache["k"][l, :, :, :t] = k.transpose(1, 2)
+                cache["v"][l, :, :, :t] = v.transpose(1, 2)
         x = x[:, -1:] if prompt_len is None else last_valid_hidden(x, plen)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
         return logits, dict(cache, len=plen.clone())
+
+    def _cache_keys(self):
+        """Cache / page-store leaves per layer, in ``_attn``'s order."""
+        if self.cfg.kv_cache_bits == 8:
+            return ("k", "k_scale", "v", "v_scale")
+        return ("k", "v")
 
     @torch.no_grad()
     def decode_step(self, params, cache, token):
@@ -216,22 +257,88 @@ class DenseLM:
                 "speculative decoding")
         base = cache["len"].to(torch.int32)
         new_len = base + 1
-        positions = base[:, None]
+        logits = self._decode_layers(params, token, base[:, None], new_len,
+                                     lambda l: tuple(cache[key][l] for key
+                                                     in self._cache_keys()))
+        return logits, dict(cache, len=new_len)
+
+    @torch.no_grad()
+    def decode_step_paged(self, params, store, token, page_table, lens):
+        """One decode step against the paged KV store.
+
+        store: page stores from :meth:`init_paged_cache` (leaves (L, P, KH,
+        ps, .), no ``len``: the engine keeps lengths and tables); token
+        (B, 1) int32; page_table (B, NP) int32 physical ids, shared by all
+        layers; lens (B,) int32 valid entries *before* this step.  The
+        fresh K/V entry of slot b is written at offset ``lens[b] % ps`` of
+        page ``page_table[b, lens[b] // ps]`` (in place).  Returns (logits
+        (B, 1, V), store)."""
+        b, t = token.shape
+        if t != 1:
+            raise NotImplementedError(
+                "multi-token paged decode (speculative verify) arrives with "
+                "speculative decoding")
+        lens = torch.as_tensor(lens, dtype=torch.int32,
+                               device=token.device).reshape(-1).expand(b)
+        table = torch.as_tensor(page_table, dtype=torch.int32,
+                                device=token.device)
+        ps = store["k"].shape[3]
+        pos = lens.long()
+        page_ids = table.gather(1, (pos // ps)[:, None])[:, 0]
+        paged = (table, page_ids, pos % ps)
+        logits = self._decode_layers(params, token, lens[:, None], lens + 1,
+                                     lambda l: tuple(store[key][l] for key
+                                                     in self._cache_keys()),
+                                     paged=paged)
+        return logits, store
+
+    def _decode_layers(self, params, token, positions, new_len, layer_cache,
+                       paged=None):
+        """Embed ``token``, run every layer against ``layer_cache(l)`` and
+        return the logits."""
         x = embed_tokens(params["embed"], token).to(self.dtype)
         blocks = params["blocks"]
         for l in range(self.cfg.n_layers):
             x, _, _ = self._block(_layer(blocks, l), x, positions, False,
-                                  cache=(cache["k"][l], cache["v"][l]),
-                                  cache_len=new_len)
+                                  cache=layer_cache(l), cache_len=new_len,
+                                  paged=paged)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
-        return logits, dict(cache, len=new_len)
+        return logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
 
     # -- cache -------------------------------------------------------------
+    def _kv_leaves(self, shape, dev) -> dict:
+        """The K/V leaves of ``shape`` (.., hd): the model's float type, or
+        int8 codes with f32 (.., 1) scales."""
+        if self.cfg.kv_cache_bits == 8:
+            sshape = shape[:-1] + (1,)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(sshape, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v_scale": torch.zeros(sshape, device=dev)}
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
         cfg = self.cfg
         dev = resolve_device(device)
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        return dict(self._kv_leaves(shape, dev),
+                    len=torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+    def init_paged_cache(self, n_pages: int, page_size: int,
+                         device="cuda") -> dict:
+        """Physical page store: ``n_pages`` pages of ``page_size`` positions
+        shared by all slots through per-slot page tables (serve/pages.py
+        owns the allocator; tables and lengths stay with the engine, so the
+        store has no ``len`` leaf)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size,
+                 cfg.head_dim_)
+        return self._kv_leaves(shape, resolve_device(device))
+
+    def supports_paged(self) -> bool:
+        """Paged serving relies on this class's prefill/decode cache
+        layout; a subclass that overrides either serves from the dense
+        cache."""
+        return (type(self).prefill is DenseLM.prefill
+                and type(self).decode_step is DenseLM.decode_step)

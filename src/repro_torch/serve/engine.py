@@ -7,9 +7,12 @@ advance a dead slot's cache length past ``max_len``.
 
 The engine is a thin orchestrator over three parts: the
 :class:`.slots.SlotTable` (host-side slot state), an
-:class:`.admission.AdmissionPipeline` (bucketed or single-request
-admission) and the :class:`.stepper.DenseStepper` (model calls and the
-device cache).
+:class:`.admission.AdmissionPipeline` (prefix-hit, bucketed or
+single-request admission) and a stepper (:mod:`.stepper`: model calls and
+the device cache).  Dense and paged serving run the *same* ``serve()``
+loop; ``paged=True`` plugs in the :class:`.stepper.PagedStepper` with
+shared-prefix reuse, copy-on-write and page-pool backpressure (a step that
+cannot get a page preempts a slot, :mod:`.overload`).
 
 **Chunked prefill** (``prefill_chunk``, default ``"auto"``): a prompt
 longer than the chunk is admitted as its first chunk through one
@@ -22,16 +25,16 @@ identical either way.
 The weights are the *packed* QuantizedTensor representation — every
 quantized matmul runs through the dequant-matmul kernel on the card.
 
-``clock=`` injects the deadline clock (default ``time.time``).  The
-paged cache, speculative decoding, tensor parallelism, SLO admission,
-fault injection and tracing arrive in later slices; their constructor
-arguments raise ``NotImplementedError`` until then.
+``clock=`` injects the deadline clock (default ``time.time``).
+Speculative decoding, tensor parallelism, SLO admission, fault injection
+and tracing arrive in later slices; their constructor arguments raise
+``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
 import inspect
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -39,12 +42,14 @@ import torch
 from repro_torch.device import resolve_device
 from .admission import AdmissionPipeline, ServeRun
 from .buckets import bucket_for, default_buckets
-from .slots import Request, empty_tokens
-from .stepper import DenseStepper
+from .overload import relieve_pressure
+from .pages import PagePressure
+from .slots import Request, effective_prompt, empty_tokens
+from .stepper import DenseStepper, PagedStepper
 
 __all__ = ["Request", "ServeEngine"]
 
-_LATER = ("paged", "spec", "mesh", "slo", "faults", "tracer")
+_LATER = ("spec", "mesh", "slo", "faults", "tracer")
 
 
 def _first_tensor(tree):
@@ -62,10 +67,11 @@ class ServeEngine:
     def __init__(self, model, params, *, n_slots: int = 4,
                  max_len: int = 512, buckets=None, rng_seed: int = 0,
                  prefill_chunk="auto", clock=None, device="cuda",
-                 paged: bool = False, spec=None, mesh=None, slo=None,
-                 faults=None, tracer=None):
-        given = dict(paged=paged, spec=spec, mesh=mesh, slo=slo,
-                     faults=faults, tracer=tracer)
+                 paged: bool = False, page_size: int = 16,
+                 n_pages: Optional[int] = None, spec=None, mesh=None,
+                 slo=None, faults=None, tracer=None):
+        given = dict(spec=spec, mesh=mesh, slo=slo, faults=faults,
+                     tracer=tracer)
         for name in _LATER:
             if given[name]:
                 raise NotImplementedError(
@@ -90,6 +96,9 @@ class ServeEngine:
                                          for b in buckets} | {max_len}))
         self._supports_plen = (
             "prompt_len" in inspect.signature(model.prefill).parameters)
+        probe = getattr(model, "supports_paged", None)
+        self.paged = bool(paged and self._supports_plen
+                          and probe is not None and probe())
         self.generator = torch.Generator(device=self.device).manual_seed(
             rng_seed)
 
@@ -104,11 +113,38 @@ class ServeEngine:
         else:
             self.prefill_chunk = bucket_for(self.buckets, int(prefill_chunk))
 
-        self._stepper = DenseStepper(self)
+        self._stepper = (PagedStepper(self, page_size, n_pages)
+                         if self.paged else DenseStepper(self))
         self._admission = AdmissionPipeline(self)
         self._m = dict(tokens_generated=0, decode_steps=0, prefill_batches=0,
                        admitted=0, completed=0, expired=0, truncated=0,
-                       fill_steps=0, chunked_admissions=0, serve_time_s=0.0)
+                       prefix_hits=0, prefix_hit_tokens=0, fill_steps=0,
+                       chunked_admissions=0, serve_time_s=0.0, preempted=0,
+                       resumed=0, pressure_events=0, shed=0)
+        # one-iteration admission hold after a pressure-relieving preemption
+        self._hold_fill = False
+
+    # -- paged state -----------------------------------------------------------
+    def _paged_stepper(self) -> PagedStepper:
+        if not self.paged:
+            raise AttributeError("dense engine has no paged state")
+        return self._stepper
+
+    @property
+    def pool(self):
+        return self._paged_stepper().pool
+
+    @property
+    def _store(self):
+        return self._paged_stepper().store
+
+    @property
+    def page_size(self):
+        return self._paged_stepper().page_size
+
+    @property
+    def n_pages(self):
+        return self._paged_stepper().n_pages
 
     def _check_prompt(self, req: Request) -> int:
         n = int(np.asarray(req.prompt).shape[0])
@@ -119,6 +155,12 @@ class ServeEngine:
             raise ValueError(
                 f"req {req.rid}: prompt length {n} exceeds {limit}")
         return n
+
+    def _never_fits(self, req: Request) -> bool:
+        """True when the (effective) prompt needs more pages than the whole
+        pool: it can never bind, however long it waits."""
+        need = self._stepper.pages_needed(len(effective_prompt(req)) + 1)
+        return need is not None and not self._stepper.fits_pool(need)
 
     # -- single-request path -------------------------------------------------
     def generate(self, request: Request) -> np.ndarray:
@@ -159,9 +201,14 @@ class ServeEngine:
     def _handle_immediate(self, req: Request, results: dict) -> bool:
         """True if the request completes without ever taking a slot.  A
         deadline exactly at the admission instant still admits (the
-        cutoff is strict ``>``)."""
+        cutoff is strict ``>``).  A resumed preempted request that expires
+        while re-queued keeps the tokens it already produced (truncated,
+        not expired)."""
         if req.deadline is not None and self.clock() > req.deadline:
-            self._settle(req, results, empty_tokens(), "expired")
+            out = (np.asarray(req.out_tokens, np.int32)
+                   if req.resume and req.out_tokens else empty_tokens())
+            self._settle(req, results, out,
+                         "truncated" if len(out) else "expired")
             return True
         if req.max_new_tokens <= 0:
             self._settle(req, results, empty_tokens(), "completed")
@@ -175,7 +222,10 @@ class ServeEngine:
             req.on_token(req.rid, tok)
 
     def _admit_bind(self, run: ServeRun, req: Request, s: int):
+        if req.resume:
+            self._m["resumed"] += 1
         run.st.bind(req, s)
+        req.resume = False
         self._m["admitted"] += 1
         if req.on_admit:
             req.on_admit(req.rid)
@@ -194,6 +244,7 @@ class ServeEngine:
         req.outcome = counter
         self._m[counter] += 1
         st.clear(s)
+        self._stepper.retire(st, s)
         if req.on_finish:
             req.on_finish(req.rid, out)
 
@@ -214,7 +265,14 @@ class ServeEngine:
         ``max_new_tokens=0`` complete immediately with an empty sequence;
         requests whose ``deadline`` already passed at admission expire
         with an empty sequence; a running request whose deadline passes
-        mid-decode is truncated at the tokens produced so far.
+        mid-decode is truncated at the tokens produced so far.  A queue
+        head that needs more pages than the whole pool is shed (outcome
+        ``"shed"``, an empty sequence) once no slot is active, and the
+        others are served, as the reference's no-progress guard does.
+
+        Page exhaustion never escapes this loop: a step (or an admission
+        reservation) raising :class:`.pages.PagePressure` is relieved by
+        preempting the latest-deadline slot and retrying.
         """
         t0 = self.clock()
         for r in requests:
@@ -223,13 +281,31 @@ class ServeEngine:
         st = run.st
         self._stepper.begin()
         while True:
-            if run.queue and st.free():
-                self._admission.fill_slots(run)
-            if not st.any_active():
-                if run.queue:
-                    continue        # immediates drained; re-admit
-                break
-            self._plain_step(run)
+            try:
+                # a pressure-relieving preemption holds admission for one
+                # iteration: the retried step gets first claim on the
+                # freed pages (otherwise the loop would re-admit the victim
+                # right back into the same shortage, a livelock)
+                hold_fill, self._hold_fill = self._hold_fill, False
+                if run.queue and st.free() and not hold_fill:
+                    self._admission.fill_slots(run)
+                if not st.any_active():
+                    if run.queue and self._never_fits(run.queue[0]):
+                        # no slot holds a page, so a head that cannot bind
+                        # now never will: shed it (the reference's
+                        # no-progress guard, its pool half)
+                        req = run.queue.pop(0)
+                        self._settle(req, run.results,
+                                     np.asarray(req.out_tokens, np.int32)
+                                     if req.out_tokens else empty_tokens(),
+                                     "shed")
+                        continue
+                    if run.queue:
+                        continue    # immediates drained; re-admit
+                    break
+                self._plain_step(run)
+            except PagePressure as pp:
+                self._hold_fill = relieve_pressure(self, run, pp)
         self._m["serve_time_s"] += self.clock() - t0
         return run.results
 
@@ -259,13 +335,42 @@ class ServeEngine:
                 # fill done: this step consumed the last prompt token, so
                 # the sampled token is the first output
                 st.fill[s] = None
+                self._stepper.fill_done(st, s)
             self._emit(req, int(toks[s]))
             self._finish_checks(run, req, s, now)
 
     # -- observability -------------------------------------------------------
     def metrics(self) -> dict:
-        """Counter snapshot (a plain dict) plus the engine's settings."""
+        """Counter snapshot (a plain dict) plus the engine's settings; a
+        paged engine adds its pool's numbers.  ``peak_cache_bytes`` counts
+        the peak of *pinned* pages (what a deployment would size
+        ``n_pages`` from); ``alloc_cache_bytes`` is the whole store."""
         m = dict(self._m)
         m["buckets"] = list(self.buckets)
         m["prefill_chunk"] = self.prefill_chunk or 0
+        m["paged"] = self.paged
+        if self.paged:
+            pool = self.pool
+            m["page_size"] = self.page_size
+            m["pages_total"] = self.n_pages - 1      # minus the trash page
+            m["pages_in_use"] = pool.pages_in_use()
+            m["pages_peak"] = pool.in_use_peak
+            m["page_bytes"] = self.page_bytes()
+            m["peak_cache_bytes"] = pool.in_use_peak * self.page_bytes()
+            m["alloc_cache_bytes"] = sum(leaf.numel() * leaf.element_size()
+                                         for leaf in self._store.values())
+            m["page_allocs"] = pool.alloc_count
+            m["cow_copies"] = pool.cow_copies
+            m["page_evictions"] = pool.evictions
+            m["prefix_index_blocks"] = len(pool.index)
+            m["prefix_lookups"] = pool.prefix_lookups
+            m["prefix_block_hits"] = pool.prefix_block_hits
         return m
+
+    def page_bytes(self) -> int:
+        """Device bytes of one physical KV page (every leaf, all layers);
+        0 for a dense engine."""
+        if not self.paged:
+            return 0
+        return sum(leaf.numel() * leaf.element_size() // leaf.shape[1]
+                   for leaf in self._store.values())

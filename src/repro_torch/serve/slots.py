@@ -3,9 +3,11 @@
 The serving engine is slot-based continuous batching: ``n_slots`` fixed
 batch rows, each either free or bound to one in-flight :class:`Request`.
 :class:`SlotTable` owns the *host-side* mirror of that binding — per-slot
-request pointers, sampling policy rows, the host-tracked cache lengths and
-the pending prompt tails of chunked admissions.  Device state (the dense
-cache block) lives in the stepper (:mod:`.stepper`).
+request pointers, sampling policy rows, the host-tracked cache lengths,
+the pending prompt tails of chunked and prefix-hit admissions, and the
+per-slot prompt block hashes the paged prefix index keys on.  Device state
+(the dense cache block or the page store) lives in the stepper
+(:mod:`.stepper`).
 """
 from __future__ import annotations
 
@@ -29,13 +31,21 @@ class Request:
     on_finish: Optional[Callable[[int, np.ndarray], None]] = None
     on_admit: Optional[Callable[[int], None]] = None
     out_tokens: Optional[list] = None
+    preempts: int = 0            # times evicted from a slot
+    resume: bool = False         # re-queued mid-flight; keep out_tokens
     outcome: Optional[str] = None    # completed|expired|truncated
 
 
 def effective_prompt(req: Request) -> np.ndarray:
-    """The token sequence admission must build KV for.  (With preemption,
-    a later slice, this grows by the tokens already emitted.)"""
-    return np.asarray(req.prompt, np.int32)
+    """The token sequence admission must (re)build KV for: the prompt,
+    plus — for a resumed preempted request — everything it already
+    emitted.  Treating prompt+out as the prompt makes resume ordinary
+    admission: prefill (or a prefix-index hit) recomputes the KV that was
+    released, and the first sampled token continues the output stream."""
+    p = np.asarray(req.prompt, np.int32)
+    if req.resume and req.out_tokens:
+        return np.concatenate([p, np.asarray(req.out_tokens, np.int32)])
+    return p
 
 
 def empty_tokens() -> np.ndarray:
@@ -46,10 +56,11 @@ class SlotTable:
     """Host-side slot <-> request state.
 
     ``slot_len`` is the host mirror of each slot's valid cache length.
-    ``fill[s]`` is the not-yet-prefilled prompt tail of a chunked
-    admission — while non-None the slot is teacher-forcing its prompt
-    through the decode step and emits nothing.  ``slot_last`` is the
-    device tensor of each slot's last sampled token.
+    ``fill[s]`` is the not-yet-prefilled prompt tail of a chunked or
+    prefix-hit admission — while non-None the slot is teacher-forcing its
+    prompt through the decode step and emits nothing.  ``hashes[s]`` keeps
+    the prompt's block hashes for paged prefix-index registration.
+    ``slot_last`` is the device tensor of each slot's last sampled token.
     """
 
     def __init__(self, n: int, device):
@@ -61,6 +72,7 @@ class SlotTable:
         self.top_p = np.zeros(n, np.float32)
         self.slot_len = np.zeros(n, np.int64)
         self.fill: List[Optional[np.ndarray]] = [None] * n
+        self.hashes: List[Optional[list]] = [None] * n
         self.slot_last = torch.zeros((n,), dtype=torch.int32, device=device)
 
     def free(self) -> List[int]:
@@ -71,8 +83,11 @@ class SlotTable:
 
     def bind(self, req: Request, s: int):
         """Bind a request to slot ``s`` (policy rows + request pointer;
-        engine-level accounting stays in the engine)."""
-        req.out_tokens = []
+        engine-level accounting stays in the engine).  A resumed preempted
+        request keeps its emitted tokens: the finish checks and the token
+        budget continue from where the eviction cut it."""
+        if not req.resume:
+            req.out_tokens = []
         self.req[s] = req
         self.active[s] = True
         self.temps[s] = req.temperature
@@ -83,6 +98,7 @@ class SlotTable:
         self.req[s] = None
         self.active[s] = False
         self.fill[s] = None
+        self.hashes[s] = None
 
     def input_tokens(self) -> torch.Tensor:
         """Next decode-step input per slot: the last sampled token, with

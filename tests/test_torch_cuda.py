@@ -6,7 +6,9 @@ installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance: atol = rtol = 1e-4 (quant_matmul: k = 1600 f32 sums in
-another order) or 1e-5 (attention), float32 inputs.
+another order) or 1e-5 (attention, quant_error relative), float32 inputs.
+The paged decode kernels must give the dense kernels' bits on the same
+logical cache (``torch.equal``).
 """
 import pytest
 import torch
@@ -14,7 +16,9 @@ import torch
 from repro_torch.core import QuantSpec, quantize_groupwise
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import quant_error as qe
 from repro_torch.kernels import quant_matmul as qm
+from repro_torch.models.common import quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -59,3 +63,64 @@ def test_flash_attention_matches_plain(dev, t):
     torch.testing.assert_close(fa.flash_attention(q, k, v),
                                fa.flash_attention_ref(q, k, v),
                                atol=1e-5, rtol=1e-5)
+
+
+def _q8(cache):
+    """(B, KH, S, hd) -> int8 codes and (B, KH, S, 1) scales."""
+    codes, scale = quantize_kv(cache.transpose(1, 2))
+    return codes.transpose(1, 2).contiguous(), scale.transpose(1, 2).contiguous()
+
+
+def _paged(cache, ps, perm):
+    """Cut (B, KH, S, hd) into pages behind the table ``perm`` (B, NP);
+    page 0 (unmapped) is NaN for float stores, -128 / NaN for int8."""
+    b, kh, s, hd = cache.shape
+    pages = cache.reshape(b, kh, s // ps, ps, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(b * (s // ps), kh, ps, hd)
+    store = torch.empty((1 + pages.shape[0],) + pages.shape[1:],
+                        dtype=cache.dtype, device=cache.device)
+    store[0] = -128 if cache.dtype == torch.int8 else float("nan")
+    store[perm.reshape(-1).long()] = pages
+    return store
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_decode_variants_match_plain_and_paged_equals_dense(dev,
+                                                                  window):
+    b, h, kh, s, hd, ps = 4, 8, 2, 256, 64, 8
+    q = torch.randn(b, 1, h, hd, device=dev)
+    k, v = (torch.randn(b, kh, s, hd, device=dev) for _ in range(2))
+    lens = torch.tensor([0, 1, 131, 256], dtype=torch.int32, device=dev)
+    perm = (torch.randperm(b * s // ps, device=dev) + 1).reshape(b, -1) \
+        .to(torch.int32)
+    # unused table entries (past each slot's length) point at page 0
+    live = torch.arange(s // ps, device=dev)[None] * ps < lens[:, None]
+    table = torch.where(live, perm, torch.zeros_like(perm))
+    kc, ks, vc, vs = *_q8(k), *_q8(v)
+    dense = fd.flash_decode(q, k, v, lens, window=window)
+    dense8 = fd.flash_decode_q8(q, kc, ks, vc, vs, lens, window=window)
+    paged = fd.flash_decode_paged(q, _paged(k, ps, perm), _paged(v, ps, perm),
+                                  table, lens, window=window)
+    paged8 = fd.flash_decode_paged_q8(
+        q, _paged(kc, ps, perm), _paged(ks, ps, perm), _paged(vc, ps, perm),
+        _paged(vs, ps, perm), table, lens, window=window)
+    torch.testing.assert_close(dense8, fd.decode_attention_q8_ref(
+        q, kc, ks, vc, vs, lens, window=window), atol=1e-5, rtol=1e-5)
+    assert torch.equal(paged, dense)
+    assert torch.equal(paged8, dense8)
+    assert bool(torch.isfinite(paged8).all())
+
+
+@pytest.mark.parametrize("sym,k,n,g", [(False, 256, 100, 64),
+                                       (True, 300, 70, 100),
+                                       (False, 128, 256, 128)])
+def test_quant_error_matches_plain(dev, sym, k, n, g):
+    w = torch.randn(k, n, device=dev)
+    scales = torch.rand(5, k, device=dev) + 0.5
+    msq = torch.rand(k, device=dev)
+    spec = QuantSpec(4, g, symmetric=sym)
+    before = qe.KERNEL.launches
+    got = qe.quant_error(w, scales, msq, spec)
+    assert qe.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, qe.quant_error_ref(w, scales, msq, spec),
+                               atol=0, rtol=1e-5)

@@ -122,11 +122,101 @@ def test_full_length_prefill_matches(models):
 
 
 def test_unported_model_options_raise(models):
-    cfg = models["cfg"]
-    with pytest.raises(NotImplementedError):
-        t_build(cfg.scaled(kv_cache_bits=8))
     tp = models["float"][1]
     cache = models["tm"].init_cache(1, 8, device="cpu")
     with pytest.raises(NotImplementedError):
         models["tm"].decode_step(tp, cache, torch.zeros(1, 2,
                                                         dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["float", "packed"])
+def test_kv8_prefill_and_decode_step_match(models, kind):
+    """The int8 KV cache: prefill writes codes and scales, decode folds the
+    scales in the q8 attention.  XLA and PyTorch produce K/V that differ in
+    the last bits, so a code at a rounding tie may land one step apart:
+    prefill codes must agree except for such +-1 flips (under 0.5%), and
+    the decode steps run from repro's prefill cache on both sides."""
+    jp, tp = models[kind]
+    cfg = models["cfg"].scaled(kv_cache_bits=8)
+    jm, tm = j_build(cfg), t_build(cfg)
+    rng = np.random.default_rng(4)
+    b, t, s = 3, 16, 32
+    toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    plen = jnp.asarray(np.array([16, 5, 11], np.int32))
+    jl, jc = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(b, s),
+                        prompt_len=plen)
+    tl, tc = tm.prefill(tp, torch.as_tensor(toks),
+                        tm.init_cache(b, s, device="cpu"),
+                        prompt_len=torch.as_tensor(np.array(plen)))
+    assert tc["k"].dtype == torch.int8 and tc["k_scale"].shape[-1] == 1
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    for key in ("k", "v"):
+        diff = np.abs(_np(tc[key]).astype(int) - np.asarray(jc[key]))
+        assert diff.max() <= 1 and (diff > 0).mean() < 5e-3, key
+        np.testing.assert_allclose(_np(tc[key + "_scale"]),
+                                   np.asarray(jc[key + "_scale"]), **TOL)
+    tc = {k: torch.as_tensor(np.array(v)) for k, v in jc.items()}
+    nxt = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    for _ in range(2):
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, torch.as_tensor(nxt))
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+        np.testing.assert_array_equal(_np(tc["len"]), np.asarray(jc["len"]))
+        nxt = np.array(jnp.argmax(jl[:, 0], -1), np.int32)[:, None]
+
+
+def _page_table(b, n_logical, seed):
+    """A shuffled (B, NP) table over physical pages 1..B*NP (page 0 is the
+    trash page)."""
+    perm = np.random.default_rng(seed).permutation(b * n_logical) + 1
+    return perm.reshape(b, n_logical).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["float", "packed"])
+@pytest.mark.parametrize("bits", [16, 8])
+def test_decode_step_paged_matches(models, kind, bits):
+    """decode_step_paged against repro's on the same page store: the dense
+    prefill cache cut into shuffled pages, then decode steps writing and
+    reading through the table (page size 8)."""
+    jp, tp = models[kind]
+    cfg = models["cfg"].scaled(kv_cache_bits=bits)
+    jm, tm = j_build(cfg), t_build(cfg)
+    rng = np.random.default_rng(5)
+    b, t, ps, n_logical = 2, 12, 8, 4
+    toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    plen = np.array([12, 7], np.int32)
+    _, jc = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(b, ps *
+                                                            n_logical),
+                       prompt_len=jnp.asarray(plen))
+    table = _page_table(b, n_logical, seed=bits)
+    n_pages = 1 + b * n_logical
+    keys = ("k", "k_scale", "v", "v_scale") if bits == 8 else ("k", "v")
+    store = {}
+    for key in keys:
+        dense = np.asarray(jc[key])                  # (L, B, KH, S, d)
+        n_l, _, kh, _, d = dense.shape
+        pages = dense.reshape(n_l, b, kh, n_logical, ps, d) \
+            .transpose(0, 1, 3, 2, 4, 5).reshape(n_l, b * n_logical, kh,
+                                                 ps, d)
+        st = np.zeros((n_l, n_pages, kh, ps, d), dense.dtype)
+        st[:, table.reshape(-1)] = pages
+        store[key] = st
+    jstore = {k: jnp.asarray(v) for k, v in store.items()}
+    tstore = {k: torch.as_tensor(v.copy()) for k, v in store.items()}
+    lens = plen.copy()
+    nxt = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    for _ in range(3):
+        jl, jstore = jm.decode_step_paged(jp, jstore, jnp.asarray(nxt),
+                                          jnp.asarray(table),
+                                          jnp.asarray(lens))
+        tl, tstore = tm.decode_step_paged(tp, tstore, torch.as_tensor(nxt),
+                                          torch.as_tensor(table),
+                                          torch.as_tensor(lens))
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+        lens = lens + 1
+        nxt = np.array(np.asarray(jl)[:, 0].argmax(-1), np.int32)[:, None]
+    for key in keys:
+        np.testing.assert_allclose(_np(tstore[key]).astype(np.float32),
+                                   np.asarray(jstore[key]).astype(np.float32),
+                                   atol=1.0 if key in ("k", "v") and bits == 8
+                                   else 1e-4, rtol=1e-4)

@@ -177,8 +177,8 @@ def test_deadlines_and_zero_budget_follow_the_clock(slice_run):
     assert (m["expired"], m["truncated"], m["completed"]) == (1, 1, 1)
 
 
-@pytest.mark.parametrize("option", ["paged", "spec", "mesh", "slo",
-                                    "faults", "tracer"])
+@pytest.mark.parametrize("option", ["spec", "mesh", "slo", "faults",
+                                    "tracer"])
 def test_unported_engine_options_raise(slice_run, option):
     with pytest.raises(NotImplementedError, match=option):
         ServeEngine(slice_run["tm"], slice_run["tq"], device="cpu",
@@ -192,6 +192,16 @@ def test_launch_serve_cli_on_cpu(capsys):
     assert sorted(results) == [0, 1]
     assert all(len(v) == 3 for v in results.values())
     assert "faq int4 packed, cpu" in capsys.readouterr().out
+
+
+def test_launch_serve_cli_paged_on_cpu(capsys):
+    results = launch_serve.main(["--tiny", "--device", "cpu", "--requests",
+                                 "3", "--new-tokens", "3", "--calib-n", "2",
+                                 "--calib-len", "16", "--paged",
+                                 "--page-size", "8"])
+    assert sorted(results) == [0, 1, 2]
+    assert all(len(v) == 3 for v in results.values())
+    assert "paged: page_size=8" in capsys.readouterr().out
 
 
 def test_sampler_masks_match_reference():
