@@ -33,6 +33,34 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// --- asynchronous copies global -> shared (sm_80+) ---------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy `bytes` (16, 8 or 4) from global `src` to shared `dst`; the first
+// `src_bytes` come from src and the rest are zero-filled (src_bytes 0 reads
+// nothing).  Both addresses are aligned to `bytes`.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes = Bytes) {
+  if constexpr (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(Bytes), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until every committed group has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 }  // namespace repro
 
 // Every library exports this so the Python side can name a launch error.

@@ -3,7 +3,8 @@
 Wrapper of ``csrc/flash_attention.cu``, the port of
 ``repro/kernels/flash_attention.py::flash_attention_pallas``.  A CPU
 tensor takes the plain version :func:`flash_attention_ref`; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises: bf16 the tensor-core kernel, f32 the
+CUDA-core one.
 """
 from __future__ import annotations
 
@@ -46,10 +47,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k, v must share an f32/bf16 dtype; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     q4, k, v = q4.contiguous(), k.contiguous(), v.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 kernel loads rows by TMA: 16-byte aligned, hd % 8 == 0; pad
+    # other rows with zeros (which add nothing to any score or output)
+    width = hd
+    if bf16 and (hd % 8 or any(x.data_ptr() % 16 for x in (q4, k, v))):
+        width = -(-hd // 8) * 8
+        q4, k, v = (_zero_padded(x, width) for x in (q4, k, v))
     out = torch.empty_like(q4)
     if t > 0:
         KERNEL.launch(q4.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), bkh, g, t, hd, int(causal),
-                      hd ** -0.5, int(q.dtype == torch.bfloat16),
+                      out.data_ptr(), bkh, g, t, width, int(causal),
+                      hd ** -0.5, int(bf16),
                       torch.cuda.current_stream(q.device).cuda_stream)
+    if width != hd:
+        out = out[..., :hd].contiguous()
     return out[:, 0] if q.dim() == 3 else out
+
+
+def _zero_padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """A fresh copy of ``x`` with its last dim zero-padded to ``width``."""
+    out = x.new_zeros(x.shape[:-1] + (width,))
+    out[..., :x.shape[-1]] = x
+    return out

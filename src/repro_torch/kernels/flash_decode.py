@@ -9,15 +9,20 @@ Wrappers of ``csrc/flash_decode.cu``, the port of the four entry points of
 (``flash_decode_paged_pallas``) and :func:`flash_decode_paged_q8`
 (``flash_decode_paged_q8_pallas``).  Each has its own launch counter.  A
 CPU tensor takes the plain version from :mod:`.ref`; a CUDA tensor
-launches the kernel (splits + combine) or raises.
+launches the kernel (one launch: splits, and the last split of each
+(slot, KV head) combines) or raises.
 
 Every variant splits the *logical* positions of a slot into the same
 ``SPLIT``-position blocks, so a paged store gives the dense kernel's bits
-on the same logical cache (and paged int8 the dense int8 kernel's).
+on the same logical cache (and paged int8 the dense int8 kernel's), and a
+slot's bits do not depend on the other slots of the batch.  The combine
+counters live in one zeroed buffer per (device, stream) that every launch
+leaves zeroed; launches on one stream run in order, so they never share
+a counter while it counts.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,14 +38,17 @@ __all__ = ["KERNEL", "KERNEL_Q8", "KERNEL_PAGED", "KERNEL_PAGED_Q8",
 
 _TAIL = [INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, PTR]
 KERNEL = Kernel("flash_decode.cu", "flash_decode_launch",
-                [PTR] * 8 + _TAIL)
+                [PTR] * 9 + _TAIL)
 KERNEL_Q8 = Kernel("flash_decode.cu", "flash_decode_q8_launch",
-                   [PTR] * 10 + _TAIL)
+                   [PTR] * 11 + _TAIL)
 KERNEL_PAGED = Kernel("flash_decode.cu", "flash_decode_paged_launch",
-                      [PTR] * 9 + [INT] + _TAIL)
+                      [PTR] * 10 + [INT] + _TAIL)
 KERNEL_PAGED_Q8 = Kernel("flash_decode.cu", "flash_decode_paged_q8_launch",
-                         [PTR] * 11 + [INT] + _TAIL)
-SPLIT = 128     # logical cache positions per split, whatever the page size
+                         [PTR] * 12 + [INT] + _TAIL)
+# logical cache positions per split, whatever the page size, the batch or
+# the cache length (64 measured faster than 32 and 128: PERF.md)
+SPLIT = 64
+_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _check_q(q, kh, hd, name):
@@ -84,13 +92,23 @@ def _lens(cache_len, b, device):
 
 
 def _scratch(q, kh, s_logical, g, hd):
-    bs = min(SPLIT, s_logical)
-    ns = -(-s_logical // bs)
+    ns = -(-s_logical // SPLIT)
     b = q.shape[0]
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (bs, torch.empty(b * kh * ns * g * hd, **f32),
+    return (torch.empty(b * kh * ns * g * hd, **f32),
             torch.empty(b * kh * ns * g, **f32),
             torch.empty(b * kh * ns * g, **f32))
+
+
+def _combine_counters(device, stream, n):
+    """The counter buffer of ``stream`` on ``device`` (>= n int32, zero
+    between launches)."""
+    key = (device, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _ptrs(*tensors):
@@ -108,12 +126,13 @@ def _launch(kernel, q, caches, extra, lens, shape, window):
     if caches[0].numel() // hd >= 2 ** 31:
         raise ValueError(f"{kernel.symbol}: the kernel indexes rows with "
                          f"int32; {tuple(caches[0].shape)} has too many")
-    bs, po, pm, pl = _scratch(q, kh, s_logical, g, hd)
+    po, pm, pl = _scratch(q, kh, s_logical, g, hd)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _combine_counters(q.device, stream, ints[0] * kh)
     out = torch.empty_like(q)
-    kernel.launch(*_ptrs(q, *caches, *extra, lens, po, pm, pl, out), *ints,
-                  bs, 0 if window is None else int(window), hd ** -0.5,
-                  int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    kernel.launch(*_ptrs(q, *caches, *extra, lens, po, pm, pl, counters, out),
+                  *ints, SPLIT, 0 if window is None else int(window),
+                  hd ** -0.5, int(q.dtype == torch.bfloat16), stream)
     return out
 
 

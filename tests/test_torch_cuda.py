@@ -7,8 +7,12 @@ installed:
 
 Tolerance: atol = rtol = 1e-4 (quant_matmul: k = 1600 f32 sums in
 another order) or 1e-5 (attention, quant_error relative), float32 inputs.
-The paged decode kernels must give the dense kernels' bits on the same
-logical cache (``torch.equal``).
+bf16 flash_attention (the tensor-core route): max abs error 1e-2 *
+max|plain| — the output is rounded to bf16 (2^-9 relative) and P is
+rounded to bf16 before the P.V product (2^-9 relative per term), while
+the plain version keeps P in f32.  The paged decode kernels must give the
+dense kernels' bits on the same logical cache, and every decode variant a
+slot's bits whatever else is in the batch (``torch.equal``).
 """
 import pytest
 import torch
@@ -45,9 +49,12 @@ def test_quant_matmul_matches_plain(dev, m):
     assert torch.equal(one[0], got[0])
 
 
-def test_flash_decode_matches_plain(dev):
-    q = torch.randn(4, 1, 8, 64, device=dev)
-    k, v = (torch.randn(4, 2, 300, 64, device=dev) for _ in range(2))
+@pytest.mark.parametrize("h,hd", [(8, 64), (32, 128)])
+def test_flash_decode_matches_plain(dev, h, hd):
+    """G = 4, and G = 16 with hd 128 (every thread of a split owns one
+    output unit, no partial sums)."""
+    q = torch.randn(4, 1, h, hd, device=dev)
+    k, v = (torch.randn(4, 2, 300, hd, device=dev) for _ in range(2))
     lens = torch.tensor([0, 1, 300, 129], dtype=torch.int32, device=dev)
     for window in (None, 50):
         torch.testing.assert_close(
@@ -63,6 +70,45 @@ def test_flash_attention_matches_plain(dev, t):
     torch.testing.assert_close(fa.flash_attention(q, k, v),
                                fa.flash_attention_ref(q, k, v),
                                atol=1e-5, rtol=1e-5)
+
+
+def _bf16_close(got, want):
+    """bf16 attention: max error <= 1e-2 * max|plain|, the bf16 limit of
+    chip_smoke.py, and ||error|| <= 1e-2 * ||plain||.  Most causal rows
+    average many V rows and are far smaller than max|plain| (row 0's), so
+    the norm catches an error spread over them (a shifted mask, a wrong
+    scale) that the max-abs limit alone would pass."""
+    diff = got.float() - want.float()
+    assert bool(torch.isfinite(got).all())
+    err = float(diff.abs().max())
+    assert err <= 1e-2 * float(want.float().abs().max()), err
+    rel = float(diff.norm() / want.float().norm())
+    assert rel <= 1e-2, rel
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [36, 64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("t", [37, 150, 200])
+def test_flash_attention_bf16_matches_plain(dev, t, g, hd, causal):
+    gen = torch.Generator(device=dev).manual_seed(t * 1000 + g * 100 + hd)
+    q = torch.randn(3, g, t, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(3, t, hd, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.KERNEL.launches == before + 1
+    _bf16_close(got, fa.flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("g", [3, 16])
+def test_flash_attention_bf16_head_groups(dev, g):
+    """G not a power of two, and G above the 8 heads one block holds."""
+    gen = torch.Generator(device=dev).manual_seed(g)
+    q = torch.randn(2, g, 150, 64, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(2, 150, 64, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    _bf16_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v))
 
 
 def _q8(cache):
@@ -124,3 +170,66 @@ def test_quant_error_matches_plain(dev, sym, k, n, g):
     assert qe.KERNEL.launches == before + 1
     torch.testing.assert_close(got, qe.quant_error_ref(w, scales, msq, spec),
                                atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("variant", ["dense", "q8", "paged", "paged_q8"])
+def test_flash_decode_slot_bits_do_not_depend_on_the_batch(dev, variant,
+                                                          window):
+    """Slot b alone gives the bits it gets in a batch of 4 with other
+    lengths (and a second launch the same bits: the combine counters are
+    left zeroed)."""
+    b, h, kh, s, hd, ps = 4, 32, 8, 1024, 128, 16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, kh, s, hd, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    lens = torch.tensor([37, 700, 1, 300], dtype=torch.int32, device=dev)
+    perm = (torch.randperm(b * s // ps, generator=gen, device=dev) + 1) \
+        .reshape(b, -1).to(torch.int32)
+    live = torch.arange(s // ps, device=dev)[None] * ps < lens[:, None]
+    table = torch.where(live, perm, torch.zeros_like(perm))
+    kc, ks, vc, vs = *_q8(k), *_q8(v)
+
+    def run(sl):
+        if variant == "dense":
+            return fd.flash_decode(q[sl], k[sl], v[sl], lens[sl],
+                                   window=window)
+        if variant == "q8":
+            return fd.flash_decode_q8(q[sl], kc[sl], ks[sl], vc[sl], vs[sl],
+                                      lens[sl], window=window)
+        if variant == "paged":
+            return fd.flash_decode_paged(
+                q[sl], _paged(k, ps, perm), _paged(v, ps, perm), table[sl],
+                lens[sl], window=window)
+        return fd.flash_decode_paged_q8(
+            q[sl], _paged(kc, ps, perm), _paged(ks, ps, perm),
+            _paged(vc, ps, perm), _paged(vs, ps, perm), table[sl], lens[sl],
+            window=window)
+
+    full = run(slice(None))
+    assert torch.equal(run(slice(None)), full)
+    for i in range(b):
+        assert torch.equal(run(slice(i, i + 1))[0], full[i]), i
+
+
+def test_flash_decode_on_two_streams_at_once(dev):
+    """Launches queued on two streams may run at the same time: each stream
+    has its own combine counters, so each gets the bits it gets alone."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lens = torch.tensor([700, 1000, 333, 64], dtype=torch.int32, device=dev)
+    inputs = [(torch.randn(4, 1, 32, 128, generator=gen, device=dev)
+               .bfloat16(),
+               *(torch.randn(4, 8, 1024, 128, generator=gen, device=dev)
+                 .bfloat16() for _ in range(2))) for _ in range(2)]
+    alone = [fd.flash_decode(q, k, v, lens) for q, k, v in inputs]
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    got = [[] for _ in inputs]
+    torch.cuda.synchronize(dev)
+    for _ in range(20):
+        for (q, k, v), st, out in zip(inputs, streams, got):
+            with torch.cuda.stream(st):
+                out.append(fd.flash_decode(q, k, v, lens))
+    torch.cuda.synchronize(dev)
+    for want, outs in zip(alone, got):
+        assert all(torch.equal(o, want) for o in outs)
