@@ -1,6 +1,6 @@
 """The port stands alone: no jax, nothing of repro, and no silent CPU.
 
-``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
+``src/repro_torch``, ``chip_smoke.py`` and ``scripts/`` import neither ``jax`` nor any
 module of the reference package ``repro``; the port imports with jax
 made unimportable; and its entry points refuse to run without a card
 unless the caller asks for the CPU.
@@ -29,7 +29,8 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_and_no_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("*.py")))
     assert len(files) > 20
     bad = []
     for f in files:
