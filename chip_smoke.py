@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught):
               each kernel's time, the plain version's, one library call's
               where one computes the same function, and its bound
               (quant_matmul also at its other decode shapes, m = 64 and
-              m = 2048, beside a cuBLAS yardstick on the bf16 weight);
+              m = 2048, beside a cuBLAS yardstick on the bf16 weight;
+              quant_error at all 7 projections of a llama3-8b layer, and
+              its issue-rate floor from the SASS of its g = 64 loop);
 4. reference — a tiny llama3-8b on the card (kernels) against the same
               model on the CPU (plain versions): logits and greedy tokens;
 5. main path — llama3-8b at full width and depth (d_model 4096, 32 heads,
@@ -46,7 +48,8 @@ Phases (any failure exits non-zero; nothing is caught):
               preempts and resumes; the int8 KV cache serves dense and
               paged with equal tokens; layer 0's alpha search runs through
               the fused quant-error kernel and must reproduce the plain
-              search's losses (rel 1e-5) and choices.  The launch counters
+              search's losses (rel 1e-5) and choices (its 7 launches are
+              then timed as one sum).  The launch counters
               are zeroed just before each of these paths and read just
               after it;
 6. profile  — torch.profiler over one short serve: device busy time
@@ -62,9 +65,11 @@ bf16 ``1e-2 * max|plain|`` (outputs round to bf16; bf16 flash_attention
 also rounds P to bf16 before P.V, 2^-9 relative per term, where the plain
 version keeps f32); f32 ``1e-4 * max(1, max|plain|)`` — the kernels sum in
 another order than the plain version's library calls; quant_error ``1e-5 *
-max|plain|`` (one sum of k * n terms per candidate).  bf16 flash_attention
-and bf16 quant_matmul are also held to ``||got - plain|| <= 1e-2 *
-||plain||``: a causal row averages up to T values, so its outputs are far
+max|plain|`` (one sum of k * n terms per candidate; each term is the plain
+version's bit for bit, its divisions and rounding done without a division
+instruction but equal to IEEE's, so only the order of the sum differs).
+bf16 flash_attention and bf16 quant_matmul are also held to ``||got -
+plain|| <= 1e-2 * ||plain||``: a causal row averages up to T values, so its outputs are far
 smaller than max|plain| (row 0's, one V row), and a norm catches an error
 spread over them that the max-abs limit would pass.  bf16 quant_matmul
 subtracts the zero from the codes exactly and scales each group's f32 sum,
@@ -577,11 +582,64 @@ def decode_variant_rows(dev, gen, randn):
     return rows
 
 
+# the projections of one llama3-8b layer, (k, n); w_gate is the timed row
+LLAMA_PROJ = {"w_gate": (4096, 14336), "wq": (4096, 4096), "wk": (4096, 1024),
+              "wv": (4096, 1024), "wo": (4096, 4096), "w_up": (4096, 14336),
+              "w_down": (14336, 4096)}
+
+
+def quant_error_bound(k, n, a):
+    """quant_error's bound: bf16 w, (a, k) scales and (k,) mean_sq read once,
+    (a,) written; 16 f32 operations per element and candidate (the plain
+    version's arithmetic) at the f32 peak outside the tensor cores."""
+    return bound(k * n * 2 + a * k * 4 + k * 4 + a * 4, 16 * k * n * a,
+                 F32_FLOPS_PER_S)
+
+
+def sass_loop(lib, kernel_key):
+    """(instructions, opcode counts) in the longest loop of the kernel whose
+    mangled name matches the regular expression ``kernel_key`` (the
+    candidate loop: its g elements unrolled and the candidate's own work),
+    read from ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
+    from collections import Counter
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    for func in sass.split("Function : ")[1:]:
+        if not re.search(kernel_key, func.split("\n", 1)[0]):
+            continue
+        code = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]+)\*/\s+(.*?)\s*;", func)]
+
+        def opcode(text):
+            return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+
+        best = []
+        for addr, text in code:
+            m = re.search(r"BRA 0x([0-9a-f]+)", text)
+            target = int(m.group(1), 16) if m else addr
+            if target < addr:               # a loop: its body's instructions
+                body = [t for a_, t in code if target <= a_ <= addr]
+                best = max(best, body, key=len)
+        ops = Counter(opcode(t).split(".")[0] for t in best)
+        ops.pop("NOP", None)
+        return sum(ops.values()), ops
+    return None
+
+
 def quant_error_row(dev, gen, randn):
-    """quant_error against its plain version (the main path's gate
-    projection in bf16, odd shapes in f32), then timed."""
+    """quant_error against its plain version (odd shapes in f32, the
+    projections of one llama3-8b layer in bf16), then timed at each
+    projection; the SASS of its g = 64 instantiation gives its issue-rate
+    floor."""
     from repro_torch.core import QuantSpec
     from repro_torch.core.methods import DEFAULT_ALPHA_GRID, candidate_scale
+    from repro_torch.kernels import _build
     from repro_torch.kernels import quant_error as qe
 
     phase("kernel quant_error")
@@ -606,33 +664,69 @@ def quant_error_row(dev, gen, randn):
         rel_held(f"k={k} n={n} g={g} sym={sym} {str(dt)[6:]}",
                  qe.quant_error(w, scales, msq, spec),
                  qe.quant_error_ref(w, scales, msq, spec))
-    # w_gate of llama3-8b: 4096 -> 14336, 21 alpha candidates + the ones
-    k, n, g = 4096, 14336, 64
+    # 21 alpha candidates + the ones, g = 64, per projection of one layer
+    g = 64
     spec = QuantSpec(4, g)
-    ws = [randn(k, n) * 0.02 for _ in range(2)]
-    a_stat = torch.rand(k, generator=gen, device=dev) + 0.1
-    scales = torch.stack([candidate_scale(a_stat, a) for a in
-                          DEFAULT_ALPHA_GRID] +
-                         [torch.ones(k, device=dev)])
-    msq = torch.rand(k, generator=gen, device=dev)
-    a = scales.shape[0]
-    err = rel_held("timed shape", qe.quant_error(ws[0], scales, msq, spec),
-                   qe.quant_error_ref(ws[0], scales, msq, spec))
-    ms = time_ms(lambda i: qe.quant_error(ws[i % 2], scales, msq, spec),
-                 reps=5, inner=2)
-    plain = time_ms(lambda i: qe.quant_error_ref(ws[i % 2], scales, msq,
-                                                 spec), reps=3, inner=1)
-    # 16 f32 operations per element per candidate (csrc/quant_error.cu)
-    b_ms, b_by = bound(k * n * 2 + a * k * 4 + k * 4 + a * 4,
-                       16 * k * n * a, F32_FLOPS_PER_S)
-    return dict(name="quant_error", route="cuda",
-                source="src/repro_torch/csrc/quant_error.cu",
-                replaces="src/repro/kernels/quant_error.py:66",
-                shape=f"w ({k},{n}) bf16, {a} candidate scales, g={g} asym",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                library_note="none: no single PyTorch call quantizes group-"
-                             "wise and sums the weighted error")
+    row = {}
+    for proj, (k, n) in LLAMA_PROJ.items():
+        ws = [randn(k, n) * 0.02 for _ in range(2)]
+        a_stat = torch.rand(k, generator=gen, device=dev) + 0.1
+        scales = torch.stack([candidate_scale(a_stat, a) for a in
+                              DEFAULT_ALPHA_GRID] +
+                             [torch.ones(k, device=dev)])
+        msq = torch.rand(k, generator=gen, device=dev)
+        a = scales.shape[0]
+        err = rel_held(f"{proj} ({k}->{n}) bf16, {a} candidates",
+                       qe.quant_error(ws[0], scales, msq, spec),
+                       qe.quant_error_ref(ws[0], scales, msq, spec))
+        ms = time_ms(lambda i: qe.quant_error(ws[i % 2], scales, msq, spec),
+                     reps=5, inner=2)
+        b_ms, b_by = quant_error_bound(k, n, a)
+        print(f"  {proj} {k}->{n}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by})",
+              flush=True)
+        if proj != "w_gate":
+            row.update({f"{proj}_ms": ms, f"{proj}_bound_ms": b_ms})
+            continue
+        plain = time_ms(lambda i: qe.quant_error_ref(ws[i % 2], scales, msq,
+                                                     spec), reps=3, inner=1)
+        row.update(name="quant_error", route="cuda",
+                   source="src/repro_torch/csrc/quant_error.cu",
+                   replaces="src/repro/kernels/quant_error.py:66",
+                   shape=f"w ({k},{n}) bf16, {a} candidate scales, g={g} "
+                         f"asym", max_abs_err=err, ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   library_note="none: no single PyTorch call quantizes "
+                                "group-wise and sums the weighted error")
+        gate = (k, n, a)
+        del ws
+    # issue-rate floor: SASS instructions per element and candidate in the
+    # g = 64 bf16 candidate loop, over 4 warp instructions per clock per SM
+    counted_sass = sass_loop(_build.library_path("quant_error.cu"),
+                             r"qe_rowsILi64E.*13__nv_bfloat16")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split("\n")[0].split(",")
+    mhz_max, mhz_now = (float(c) for c in clocks)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if counted_sass is None:
+        print("  SASS: no cuobjdump in this toolkit; floor not measured",
+              flush=True)
+        row.update(sass_per_element=None, issue_floor_ms=None)
+    else:
+        total, ops = counted_sass
+        per = total / g
+        k, n, a = gate
+        floor = per * k * n * a / (sms * 128 * mhz_max * 1e6) * 1e3
+        print(f"  SASS qe_rows<64, bf16>: candidate loop {total} "
+              f"instructions = {per:.2f} per element and candidate "
+              f"({', '.join(f'{o} {c}' for o, c in ops.most_common(10))}); "
+              f"issue-rate floor at w_gate {floor:.4f} ms ({sms} SMs x 128 "
+              f"lanes x {mhz_max:.0f} MHz max SM clock; {mhz_now:.0f} MHz "
+              f"now)", flush=True)
+        row.update(sass_per_element=per, issue_floor_ms=floor,
+                   sm_clock_max_mhz=mhz_max)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -821,15 +915,16 @@ def main_path_phase(dev, kernels):
     print(f"  max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  launches on the main path: {launches}", flush=True)
-    for path, counts in slice2_paths(dev, kernels, cfg, model, qparams, data,
-                                     reqs, results, layer0).items():
+    counts_by_path, qe_keys = slice2_paths(dev, kernels, cfg, model, qparams,
+                                           data, reqs, results, layer0)
+    for path, counts in counts_by_path.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
         for sym, n in counts.items():
             launches[sym] += n
     print(f"  max_memory_allocated over all paths: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_phase(eng, data, Request)
-    return launches
+    return launches, {"quant_error": qe_keys}
 
 
 def teacher_forced(model, qparams, prompt, toks, dev):
@@ -900,7 +995,8 @@ def slice2_paths(dev, kernels, cfg, model, qparams, data, reqs, results,
                  layer0):
     """The paged and int8 KV paths and the alpha search through the fused
     quant-error kernel, each with the launch counters zeroed just before
-    it and read just after.  Returns {path: launch counts}."""
+    it and read just after.  Returns {path: launch counts} and the alpha
+    search's time as keys of quant_error's kernel row."""
     from repro_torch.core.methods import (DEFAULT_ALPHA_GRID,
                                           candidate_scale, quant_error,
                                           search_alpha)
@@ -1026,12 +1122,21 @@ def slice2_paths(dev, kernels, cfg, model, qparams, data, reqs, results,
             scales = torch.stack(
                 [candidate_scale(a_stat, a) for a in DEFAULT_ALPHA_GRID]
                 + [torch.ones_like(a_stat)])
-            rows.append((path, w, a_stat, msq,
+            rows.append((path, w, a_stat, msq, scales,
                          quant_error_batch(w, scales, msq, spec)))
         return rows
 
     rows, counts["alpha search"] = counted(kernels, alpha_search)
-    for path, w, a_stat, msq, got in rows:
+    # the search's 7 launches timed as one sum (after the count was read)
+    search_ms = time_ms(lambda i: [quant_error_batch(w, sc, msq, spec)
+                                   for _, w, _, msq, sc, _ in rows],
+                        reps=5, inner=1)
+    search_bound = sum(quant_error_bound(*w.shape, sc.shape[0])[0]
+                       for _, w, _, _, sc, _ in rows)
+    print(f"  layer-0 alpha search: {len(rows)} quant_error launches in "
+          f"{search_ms:.4f} ms (sum of their bounds {search_bound:.4f} ms)",
+          flush=True)
+    for path, w, a_stat, msq, _, got in rows:
         plain = torch.stack(
             [quant_error(w, spec, candidate_scale(a_stat, a), mean_sq=msq)
              for a in DEFAULT_ALPHA_GRID] +
@@ -1052,7 +1157,8 @@ def slice2_paths(dev, kernels, cfg, model, qparams, data, reqs, results,
         check(pick == want or tie, f"{path}: kernel picks alpha "
                                    f"{DEFAULT_ALPHA_GRID[pick]}, the search "
                                    f"{DEFAULT_ALPHA_GRID[want]}")
-    return counts
+    return counts, {"layer0_alpha_search_ms": search_ms,
+                    "layer0_alpha_search_bound_ms": search_bound}
 
 
 def profile_phase(eng, data, Request):
@@ -1133,8 +1239,9 @@ def main():
     phase("reference: tiny model, card against CPU")
     reference_phase(dev)
     phase("main path: llama3-8b calibrate -> FAQ -> int4 pack -> serve")
-    launches = main_path_phase(dev, kernels)
+    launches, row_keys = main_path_phase(dev, kernels)
     for row, kern in zip(rows, kernels):
+        row.update(row_keys.get(row["name"], {}))
         row["launches"] = launches[kern.symbol]
         check(row["launches"] > 0,
               f"{row['name']} was not launched on the main path")

@@ -18,12 +18,20 @@ version by summation order only, and its norm limit is 5e-4 (a kernel that
 rounded the weights to bf16 reads 2.4e-3 or more).  The paged decode
 kernels must give the dense kernels' bits on the same logical cache, every
 decode variant a slot's bits whatever else is in the batch, and bf16
-quant_matmul a row's bits whatever m is (``torch.equal``).
+quant_matmul a row's bits whatever m is (``torch.equal``).  quant_error's
+terms are the plain version's bit for bit (its division and rounding equal
+``__fdiv_rn`` and ``rintf`` on 1.3e8 operand pairs), so it is held to
+rtol 1e-5 (summation order), and must give the same bits on repeated
+calls and for any subset of its candidates.
 """
+import ctypes
+import math
+
 import pytest
 import torch
 
 from repro_torch.core import QuantSpec, quantize_groupwise
+from repro_torch.core.methods import DEFAULT_ALPHA_GRID, candidate_scale
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import quant_error as qe
@@ -282,6 +290,134 @@ def test_quant_error_matches_plain(dev, sym, k, n, g):
     assert qe.KERNEL.launches == before + 1
     torch.testing.assert_close(got, qe.quant_error_ref(w, scales, msq, spec),
                                atol=0, rtol=1e-5)
+
+
+def _qe_inputs(k, n, a, dtype, gen, dev):
+    """bf16-scale weights, the alpha grid's candidate scales (+ the ones,
+    as the search adds the RTN baseline) up to ``a`` of them, mean_sq."""
+    w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(dtype)
+    a_stat = torch.rand(k, generator=gen, device=dev) + 0.1
+    grid = [candidate_scale(a_stat, al) for al in DEFAULT_ALPHA_GRID]
+    grid.append(torch.ones(k, device=dev))
+    extra = [torch.rand(k, generator=gen, device=dev) * 3 + 0.1
+             for _ in range(max(0, a - len(grid)))]
+    scales = torch.stack(grid + extra)[:a].contiguous()
+    return w, scales, torch.rand(k, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("name,k,n", [
+    ("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024),
+    ("wo", 4096, 4096), ("w_gate", 4096, 14336), ("w_up", 4096, 14336),
+    ("w_down", 14336, 4096)])
+def test_quant_error_llama3_layer_shapes(dev, name, k, n):
+    """The 7 projections of one llama3-8b layer, bf16, 21 alphas + ones,
+    g = 64 (the register path)."""
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    w, scales, msq = _qe_inputs(k, n, 22, torch.bfloat16, gen, dev)
+    spec = QuantSpec(4, 64)
+    assert qe.plan(k, n, 64, 22).path == 64
+    before = qe.KERNEL.launches
+    got = qe.quant_error(w, scales, msq, spec)
+    assert qe.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, qe.quant_error_ref(w, scales, msq, spec),
+                               atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("g,path", [(64, 64), (128, 128), (100, 0)])
+def test_quant_error_paths_match_plain(dev, g, path, sym, dtype):
+    """Both register instantiations and the general path, n not a multiple
+    of the 128-column tile, 7 candidates and 1."""
+    k, n = 4 * g, 300
+    gen = torch.Generator(device=dev).manual_seed(g + sym)
+    w, scales, msq = _qe_inputs(k, n, 7, dtype, gen, dev)
+    w[::5] *= 9                     # some rows set the groups' ranges
+    spec = QuantSpec(4, g, symmetric=sym)
+    assert qe.plan(k, n, g, 7).path == path
+    for s in (scales, scales[:1]):
+        torch.testing.assert_close(qe.quant_error(w, s, msq, spec),
+                                   qe.quant_error_ref(w, s, msq, spec),
+                                   atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("g", [64, 128, 100])
+def test_quant_error_at_the_candidate_limit(dev, g):
+    k, n = 2 * g, 130
+    a_max = (qe.SMEM_LIMIT // 4 - g) // (3 * g + qe.COLS)
+    gen = torch.Generator(device=dev).manual_seed(g)
+    w, scales, msq = _qe_inputs(k, n, a_max + 1, torch.bfloat16, gen, dev)
+    spec = QuantSpec(4, g)
+    torch.testing.assert_close(
+        qe.quant_error(w, scales[:a_max], msq, spec),
+        qe.quant_error_ref(w, scales[:a_max], msq, spec), atol=0, rtol=1e-5)
+    before = qe.KERNEL.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        qe.quant_error(w, scales, msq, spec)
+    assert qe.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("k,n,g", [(4096, 14336, 64), (1024, 1000, 128),
+                                   (300, 300, 100)])
+def test_quant_error_bits_repeat_and_do_not_depend_on_other_candidates(
+        dev, k, n, g):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    w, scales, msq = _qe_inputs(k, n, 22, torch.bfloat16, gen, dev)
+    spec = QuantSpec(4, g)
+    full = qe.quant_error(w, scales, msq, spec)
+    assert torch.equal(qe.quant_error(w, scales, msq, spec), full)
+    assert torch.equal(qe.quant_error(w, scales[:5].contiguous(), msq, spec),
+                       full[:5])
+    assert torch.equal(qe.quant_error(w, scales[7:8].contiguous(), msq,
+                                      spec), full[7:8])
+
+
+def _div_check(a, b):
+    """(division mismatches, rounding mismatches) of the kernel's div_rn
+    against __fdiv_rn and its rint against rintf, over the pairs a / b."""
+    fn = qe.KERNEL.lib().quant_error_div_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(2, dtype=torch.int64, device=a.device)
+    assert fn(a.data_ptr(), b.data_ptr(), a.numel(), bad.data_ptr(),
+              torch.cuda.current_stream(a.device).cuda_stream) == 0
+    return tuple(int(x) for x in bad.cpu())
+
+
+def test_quant_error_division_and_rounding_equal_ieee(dev):
+    """2^27 operand pairs (1.3e8) in the timed shape's ranges and beyond:
+    w * s over the column scale (bf16 weights of scale 0.02 times scales in
+    [0.1, 10], over the group's range / 15), (code - zero) * scale over
+    s, and random 24-bit significands."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    size, total = 1 << 24, 0
+
+    def log_uniform(lo, hi):
+        return torch.exp(torch.empty(size, device=dev).uniform_(
+            math.log(lo), math.log(hi), generator=gen))
+
+    def random_bits():
+        sig = torch.randint(1 << 23, 1 << 24, (size,), device=dev,
+                            generator=gen).double() * 2.0 ** -23
+        exp = torch.randint(-30, 30, (size,), device=dev, generator=gen)
+        sign = torch.randint(0, 2, (size,), device=dev, generator=gen) * 2 - 1
+        return (sign * sig * torch.pow(2.0, exp.double())).float()
+
+    for _ in range(2):
+        ws = ((torch.randn(size, generator=gen, device=dev) * 0.02)
+              .bfloat16().float() * log_uniform(0.1, 10.0))
+        scale = (ws.abs().reshape(-1, 64).amax(1) * 2 / 15)
+        scale = scale.clamp(min=1e-8).repeat_interleave(64)
+        codes = torch.randint(-15, 16, (size,), device=dev, generator=gen)
+        cs = log_uniform(1e-6, 1.0)
+        for a, b in [(ws, scale),
+                     (ws, log_uniform(1e-6, 1.0)),
+                     (codes.float() * cs, log_uniform(0.01, 100.0)),
+                     (random_bits(), random_bits())]:
+            assert _div_check(a, b) == (0, 0)
+            total += size
+    assert total >= 10 ** 8
 
 
 @pytest.mark.parametrize("window", [None, 48])
