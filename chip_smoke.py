@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught):
 1. device   — the card, its power limit, torch and CUDA versions;
 2. build    — ``nvcc`` builds every kernel in ``src/repro_torch/csrc``
               (one process per source, all started together);
-3. kernels  — each of the seven kernels against its plain PyTorch
+3. kernels  — each of the seven ported kernels, the four verify (T-query)
+              launches of the decode kernel and rms_norm against its plain
+              PyTorch
               version on the same inputs, at the main path's shapes (bf16)
               and at odd shapes (f32; bf16 too for flash_attention: T
               37/150/200, G 1 and 4, hd 64/128 and 36, causal and not; and
@@ -23,7 +25,12 @@ Phases (any failure exits non-zero; nothing is caught):
               (quant_matmul also at its other decode shapes, m = 64 and
               m = 2048, beside a cuBLAS yardstick on the bf16 weight;
               quant_error at all 7 projections of a llama3-8b layer, and
-              its issue-rate floor from the SASS of its g = 64 loop);
+              its issue-rate floor from the SASS of its g = 64 loop; each
+              verify variant at T 4 with each row bit for bit against the
+              single-position launch at base + t + 1, timed beside those
+              4 launches and, dense, one masked scaled_dot_product_attention;
+              rms_norm at 4 and 16 rows of 4096 beside
+              ``torch.nn.functional.rms_norm``);
 4. reference — a tiny llama3-8b on the card (kernels) against the same
               model on the CPU (plain versions): logits and greedy tokens;
 5. main path — llama3-8b at full width and depth (d_model 4096, 32 heads,
@@ -38,9 +45,10 @@ Phases (any failure exits non-zero; nothing is caught):
               batch-1 ``generate``, and both outputs must be greedy
               decodes of a teacher-forced exact-length forward up to
               ``TIE_TOL`` (bf16 logits of a batch-4 bucket-padded and a
-              batch-1 exact-length run may round differently at a tie:
-              torch's row reductions and cuBLAS pick their summation
-              order by shape).  Then, on the same packed weights: the
+              batch-1 exact-length prefill may round differently at a
+              tie: the plain chunked attention of bucket-padded prefill
+              picks its summation order by shape; decode rows are
+              batch-invariant, checked below).  Then, on the same packed weights: the
               paged engine serves the same requests and must give the
               dense engine's tokens bit for bit; 8 requests sharing a
               256-token prefix are served twice (prefix hits, the second
@@ -49,11 +57,21 @@ Phases (any failure exits non-zero; nothing is caught):
               paged with equal tokens; layer 0's alpha search runs through
               the fused quant-error kernel and must reproduce the plain
               search's losses (rel 1e-5) and choices (its 7 launches are
-              then timed as one sum).  The launch counters
-              are zeroed just before each of these paths and read just
-              after it;
+              then timed as one sum).  Then speculative decoding on the
+              same weights: decode logits per slot at B = 1 / 2 / 4 bit for
+              bit, ``verify_step`` over a 4-token burst == 4 sequential
+              ``decode_step`` calls bit for bit (bf16, int8, paged); the
+              FAQ int8 self-draft built from the packed weights and the
+              calibration statistics; spec serving (k 3) of 4 requests
+              admitted in one prefill batch, dense and paged, bf16 and
+              int8 KV, equal to plain serving bit for bit; the 8 mixed
+              requests greedy up to ties; an independent 2-layer
+              llama3-8b-width draft with random weights, equal to plain
+              serving bit for bit.  The launch counters are zeroed just
+              before each of these paths and read just after it;
 6. profile  — torch.profiler over one short serve: device busy time
-              against wall time, and the top kernels.
+              against wall time, device operations per engine step, and
+              the top kernels.
 
 The one reduction of the main path: prompt and calibration token ids
 come from a synthetic vocabulary capped at 4096 ids (the generator's
@@ -349,6 +367,8 @@ def kernel_phase(dev):
     ms_p = time_ms(lambda i: qm.quant_matmul(xp, *sets[i % 4]), reps=5,
                    inner=3)
     bp_ms, bp_by = bound(qmm_bytes(2048, k, n), 2 * 2048 * k * n)
+    plain_p = time_ms(lambda i: qm.quant_matmul_ref(xp, *sets[i % 4]),
+                      reps=3, inner=1)
     # yardstick, not the same function: cuBLAS on the weight dequantized
     # to bf16 beforehand, which reads 3.2x the bytes of the int4 layout
     w16 = qm.dequant_ref(*sets[0], k).to(bf16)
@@ -357,8 +377,8 @@ def kernel_phase(dev):
     del w16
     print(f"  decode m=4 4096->14336: {ms:.4f} ms (plain {plain:.4f}, bound "
           f"{b_ms:.4f} by {b_by}); m=64: {ms_64:.4f} ms (bound {b64_ms:.4f} "
-          f"by {b64_by}); m=2048: {ms_p:.4f} ms (bound {bp_ms:.4f} by "
-          f"{bp_by})", flush=True)
+          f"by {b64_by}); m=2048: {ms_p:.4f} ms (plain {plain_p:.4f}, bound "
+          f"{bp_ms:.4f} by {bp_by})", flush=True)
     print(f"  yardstick (torch.matmul on the pre-dequantized bf16 weight, "
           f"not the same function): m=4 {dense:.4f} ms, m=2048 "
           f"{dense_p:.4f} ms", flush=True)
@@ -371,7 +391,8 @@ def kernel_phase(dev):
                      library_note="none: no single PyTorch call takes this "
                                   "int4 layout",
                      m64_ms=ms_64, m64_bound_ms=b64_ms, prefill_ms=ms_p,
-                     prefill_bound_ms=bp_ms, dense_bf16_ms=dense,
+                     prefill_bound_ms=bp_ms, prefill_plain_ms=plain_p,
+                     dense_bf16_ms=dense,
                      dense_bf16_prefill_ms=dense_p))
     del sets, xp, full
 
@@ -469,6 +490,8 @@ def kernel_phase(dev):
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                      bound_by=b_by, library_ms=lib))
     rows.append(quant_error_row(dev, gen, randn))
+    rows += verify_rows(dev, gen, randn)
+    rows.append(rms_norm_row(dev, gen, randn))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
@@ -580,6 +603,143 @@ def decode_variant_rows(dev, gen, randn):
             library_note="none: no single PyTorch call reads int8 codes with "
                          "folded scales or a paged store"))
     return rows
+
+
+def verify_rows(dev, gen, randn):
+    """The T-query verify launch of each decode variant at the main path's
+    decode shape with T = 4 (k = 3): against its plain version, each row t
+    bit for bit against the single-position kernel at base + t + 1, then
+    timed beside the 4 single-position launches it replaces and, for the
+    dense bf16 cache, one masked scaled_dot_product_attention call."""
+    from repro_torch.kernels import flash_decode as fd
+
+    phase("kernel flash_verify (T-query launch of the decode kernel), all "
+          "four variants")
+    b, t, h, kh, s, hd, ps = 4, 4, 32, 8, 1024, 128, 16
+    bases = [44, 140, 332, 732]     # bursts cross no, a page, a split, a page
+    base = torch.tensor(bases, dtype=torch.int32, device=dev)
+    q = randn(b, t, h, hd)
+    sets = []                        # 8 sets: > L2, so each call is cold
+    for _ in range(8):
+        k, v = randn(b, kh, s, hd), randn(b, kh, s, hd)
+        perm, _ = paged_table([s] * b, s, ps, gen, dev)
+        q8 = (*q8_cache(k), *q8_cache(v))
+        sets.append(dict(
+            dense=(k, v), q8=q8,
+            paged=(paged_store(k, ps, perm), paged_store(v, ps, perm), perm),
+            paged_q8=(*(paged_store(x, ps, perm) for x in q8), perm)))
+    live = sum(x + t for x in bases)
+    qo_bytes = 2 * b * t * h * hd * 2 + b * 4
+    table_bytes = b * (s // ps) * 4
+    flops = 4 * h * hd * sum(x + i + 1 for x in bases for i in range(t))
+    variants = [
+        ("flash_verify", fd.flash_verify, fd.flash_decode,
+         fd.verify_attention_ref, "dense", live * kh * hd * 2 * 2,
+         "src/repro/kernels/flash_decode.py:216", "cache (4,8,1024,128) bf16"),
+        ("flash_verify_q8", fd.flash_verify_q8, fd.flash_decode_q8,
+         fd.verify_attention_q8_ref, "q8", live * kh * (hd + 4) * 2,
+         "src/repro/kernels/flash_decode.py:250",
+         "codes (4,8,1024,128) int8 + f32 scales"),
+        ("flash_verify_paged", fd.flash_verify_paged, fd.flash_decode_paged,
+         fd.paged_verify_attention_ref, "paged",
+         live * kh * hd * 2 * 2 + table_bytes,
+         "src/repro/kernels/flash_decode.py:286",
+         "stores (257,8,16,128) bf16, table (4,64)"),
+        ("flash_verify_paged_q8", fd.flash_verify_paged_q8,
+         fd.flash_decode_paged_q8, fd.paged_verify_attention_q8_ref,
+         "paged_q8", live * kh * (hd + 4) * 2 + table_bytes,
+         "src/repro/kernels/flash_decode.py:323",
+         "code stores (257,8,16,128) int8 + f32 scale stores, table (4,64)"),
+    ]
+    qs = [q[:, i:i + 1].contiguous() for i in range(t)]
+    lens = [base + i + 1 for i in range(t)]    # made once, outside the timing
+    rows = []
+    for name, kern, single, plain_fn, key, kv_bytes, replaces, shape in \
+            variants:
+        args0 = sets[0][key]
+        got = kern(q, *args0, base)
+        err = held(f"{name} B={b} T={t} bases={bases}", got,
+                   plain_fn(q, *args0, base))
+        for i in range(t):
+            same_bits(f"{name} row {i} == single-position launch at "
+                      f"base + {i + 1}", got[:, i:i + 1],
+                      single(qs[i], *args0, lens[i]))
+        ms = time_ms(lambda j: kern(q, *sets[j % 8][key], base))
+        ms_t1 = time_ms(lambda j: [single(qs[i], *sets[j % 8][key], lens[i])
+                                   for i in range(t)])
+        plain = time_ms(lambda j: plain_fn(q, *sets[j % 8][key], base),
+                        reps=5)
+        b_ms, b_by = bound(qo_bytes + kv_bytes, flops)
+        lib = None
+        if key == "dense":
+            kpos = torch.arange(s, device=dev)
+            seen = base[:, None] + 1 + torch.arange(t, device=dev)
+            mask = (kpos[None, None, :] < seen[..., None])[:, None]
+
+            def sdpa(j):
+                kc, vc = sets[j % 8]["dense"]
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc, vc, attn_mask=mask,
+                    enable_gqa=True)
+
+            held("library call (sdpa, (B,1,T,S) mask)",
+                 sdpa(0).transpose(1, 2), plain_fn(q, *args0, base))
+            lib = time_ms(sdpa)
+        print(f"  {name}: {ms:.4f} ms for the burst, {ms_t1:.4f} ms for "
+              f"{t} single-position launches", flush=True)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_decode.cu", replaces=replaces,
+            shape=f"q ({b},{t},{h},{hd}) bf16, {shape}, bases {bases}",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib, t1x4_ms=ms_t1,
+            library_note=None if lib is not None else
+            "none: no single PyTorch call reads int8 codes with folded "
+            "scales or a paged store"))
+    return rows
+
+
+def rms_norm_row(dev, gen, randn):
+    """rms_norm at the decode step's (4, 4096) and a verify pass's
+    (16, 4096) rows, bf16: against its plain version, rows bit for bit
+    whatever rows come with them, then timed beside the plain version and
+    ``torch.nn.functional.rms_norm``."""
+    from repro_torch.kernels import rms_norm as rn
+
+    phase("kernel rms_norm")
+    d, eps = 4096, 1e-5
+    w = randn(d)
+    out = {}
+    for rows_n in (4, 16):
+        xs = [randn(rows_n, d) * 3 for _ in range(8)]
+        err = held(f"rows={rows_n} d={d} bf16", rn.rms_norm(xs[0], w, eps),
+                   rn.rms_norm_ref(xs[0], w, eps))
+        full = rn.rms_norm(xs[0], w, eps)
+        same_bits(f"rows={rows_n}: each row alone == in the batch",
+                  torch.cat([rn.rms_norm(xs[0][i:i + 1], w, eps)
+                             for i in range(rows_n)]), full)
+        lib_fn = getattr(torch.nn.functional, "rms_norm", None)
+        out[rows_n] = dict(
+            err=err, ms=time_ms(lambda i: rn.rms_norm(xs[i % 8], w, eps)),
+            plain=time_ms(lambda i: rn.rms_norm_ref(xs[i % 8], w, eps)),
+            lib=None if lib_fn is None else time_ms(
+                lambda i: lib_fn(xs[i % 8], (d,), w, eps)),
+            bound=bound(2 * rows_n * d * 2 + d * 2, 4 * rows_n * d,
+                        F32_FLOPS_PER_S))
+        print(f"  rows={rows_n}: {out[rows_n]['ms']:.4f} ms (plain "
+              f"{out[rows_n]['plain']:.4f}, F.rms_norm {out[rows_n]['lib']}, "
+              f"bound {out[rows_n]['bound'][0]:.6f} by "
+              f"{out[rows_n]['bound'][1]})", flush=True)
+    r4, r16 = out[4], out[16]
+    return dict(name="rms_norm", route="cuda",
+                source="src/repro_torch/csrc/rms_norm.cu",
+                replaces="none: a kernel of the port only (repro's rms_norm "
+                         "is plain jnp, src/repro/models/common.py:54)",
+                shape=f"x (4,{d}) bf16, w ({d},)", max_abs_err=r4["err"],
+                ms=r4["ms"], plain_ms=r4["plain"], bound_ms=r4["bound"][0],
+                bound_by=r4["bound"][1], library_ms=r4["lib"],
+                rows16_ms=r16["ms"], rows16_plain_ms=r16["plain"],
+                rows16_library_ms=r16["lib"], rows16_bound_ms=r16["bound"][0])
 
 
 # the projections of one llama3-8b layer, (k, n); w_gate is the timed row
@@ -853,7 +1013,7 @@ def main_path_phase(dev, kernels):
         print(f"  {path}: mean alpha {s['mean_alpha']:.3f}, loss "
               f"{s['mean_loss']:.4e} vs RTN {s['mean_rtn_loss']:.4e} "
               f"({100 * s['improvement_vs_rtn']:.1f}% better)", flush=True)
-    del params, stats
+    del params
     torch.cuda.empty_cache()
 
     eng = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev)
@@ -917,6 +1077,9 @@ def main_path_phase(dev, kernels):
     print(f"  launches on the main path: {launches}", flush=True)
     counts_by_path, qe_keys = slice2_paths(dev, kernels, cfg, model, qparams,
                                            data, reqs, results, layer0)
+    counts_by_path.update(spec_paths(dev, kernels, cfg, model, qparams,
+                                     stats, data, reqs, results,
+                                     times["serve"]))
     for path, counts in counts_by_path.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
         for sym, n in counts.items():
@@ -991,6 +1154,29 @@ def report_serve(name, before, m, seconds):
     return m
 
 
+def fresh(rs):
+    """New Request objects with the same prompts and budgets."""
+    from repro_torch.serve.engine import Request
+    return [Request(rid=r.rid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens) for r in rs]
+
+
+def timed_serve(name, eng, rs):
+    """Serve fresh copies of ``rs``, print the serve's numbers, check every
+    request got its budget; returns (results, counter deltas, seconds)."""
+    before = eng.metrics()
+    t0 = time.perf_counter()
+    out = eng.serve(fresh(rs))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m = report_serve(name, before, eng.metrics(), seconds)
+    check(sorted(out) == sorted(r.rid for r in rs), f"{name}: results")
+    for r in rs:
+        check(len(out[r.rid]) == r.max_new_tokens,
+              f"{name} request {r.rid}: {len(out[r.rid])} tokens")
+    return out, m, seconds
+
+
 def slice2_paths(dev, kernels, cfg, model, qparams, data, reqs, results,
                  layer0):
     """The paged and int8 KV paths and the alpha search through the fused
@@ -1007,22 +1193,8 @@ def slice2_paths(dev, kernels, cfg, model, qparams, data, reqs, results,
     counts = {}
     kw = dict(n_slots=4, max_len=1024, device=dev)
 
-    def fresh(rs):
-        return [Request(rid=r.rid, prompt=r.prompt,
-                        max_new_tokens=r.max_new_tokens) for r in rs]
-
     def serve(name, eng, rs):
-        before = eng.metrics()
-        t0 = time.perf_counter()
-        out = eng.serve(fresh(rs))
-        torch.cuda.synchronize()
-        m = report_serve(name, before, eng.metrics(),
-                         time.perf_counter() - t0)
-        check(sorted(out) == sorted(r.rid for r in rs), f"{name}: results")
-        for r in rs:
-            check(len(out[r.rid]) == r.max_new_tokens,
-                  f"{name} request {r.rid}: {len(out[r.rid])} tokens")
-        return out, m
+        return timed_serve(name, eng, rs)[:2]
 
     # 1. paged bf16: the same requests, the dense engine's bits
     phase("main path: paged KV cache (bf16), the same 8 requests")
@@ -1161,6 +1333,199 @@ def slice2_paths(dev, kernels, cfg, model, qparams, data, reqs, results,
                     "layer0_alpha_search_bound_ms": search_bound}
 
 
+# prompts of the spec phases: one bucket (512), under the 512-token chunk,
+# so the 4 requests are admitted in one prefill batch in every run
+FOUR_LENS = (300, 340, 400, 450)
+
+
+def _prefill_four(model, qparams, data, dev, seed):
+    """Bucket-padded batched prefill of 4 prompts (FOUR_LENS) into a
+    (4, 512) cache; returns (cache, the greedy next tokens)."""
+    tokens = np.zeros((4, 512), np.int32)
+    for i, n in enumerate(FOUR_LENS):
+        tokens[i, :n] = data.sequence(seed + i, n)
+    plen = torch.tensor(FOUR_LENS, dtype=torch.int32, device=dev)
+    logits, cache = model.prefill(qparams, torch.as_tensor(tokens, device=dev),
+                                  model.init_cache(4, 512, device=dev), plen)
+    return cache, logits[:, 0].argmax(-1).to(torch.int32)
+
+
+def _pages_of(cache, ps):
+    """The dense cache's (L, B, KH, S, d) leaves as page stores (layer by
+    layer, :func:`paged_store`) behind a table mapping slot b's logical
+    page j to page 1 + b * NP + j."""
+    b, s = cache["k"].shape[1], cache["k"].shape[3]
+    table = (1 + torch.arange(b * (s // ps), device=cache["k"].device)) \
+        .reshape(b, -1).to(torch.int32)
+    return {key: torch.stack([paged_store(layer, ps, table)
+                              for layer in leaf])
+            for key, leaf in cache.items() if key != "len"}, table
+
+
+def invariance_checks(cfg, model, qparams, data, dev):
+    """Decode logits per slot at B = 1 / 2 / 4 bit for bit; then a 4-token
+    burst through verify_step against 4 sequential decode_steps from the
+    same cache state, bit for bit, for the bf16, int8 and paged caches."""
+    from repro_torch.models.registry import build_model
+
+    cache, nxt = _prefill_four(model, qparams, data, dev, 45_000_000)
+    logits = {}
+    for b in (4, 2, 1):
+        sub = {k: (v[:b].clone() if k == "len" else v[:, :b].clone())
+               for k, v in cache.items()}
+        logits[b], _ = model.decode_step(qparams, sub, nxt[:b, None])
+    for b in (2, 1):
+        same_bits(f"decode logits of slots 0..{b - 1} at B={b} == at B=4",
+                  logits[b], logits[4][:b])
+    burst = torch.cat([nxt[:, None], torch.as_tensor(np.stack(
+        [data.sequence(46_000_000 + i, 3) for i in range(4)]),
+        device=dev)], dim=1).to(torch.int32)
+    clone = lambda c: {k: v.clone() for k, v in c.items()}
+    model8 = build_model(cfg.scaled(kv_cache_bits=8))
+    cache8, _ = _prefill_four(model8, qparams, data, dev, 45_000_000)
+    for name, mdl, c0 in (("bf16", model, cache), ("int8", model8, cache8)):
+        got, _ = mdl.verify_step(qparams, clone(c0), burst)
+        steps, c = [], clone(c0)
+        for i in range(4):
+            lg, c = mdl.decode_step(qparams, c, burst[:, i:i + 1])
+            steps.append(lg)
+        same_bits(f"{name}: verify_step logits == 4 sequential decode_steps "
+                  f"(bases {FOUR_LENS})", got, torch.cat(steps, dim=1))
+    store, table = _pages_of(cache, 16)
+    got, _ = model.verify_step_paged(qparams, clone(store), burst, table,
+                                     cache["len"])
+    steps = []
+    for i in range(4):
+        lg, store = model.decode_step_paged(qparams, store, burst[:, i:i + 1],
+                                            table, cache["len"] + i)
+        steps.append(lg)
+    same_bits("paged: verify_step_paged logits == 4 sequential "
+              "decode_step_paged", got, torch.cat(steps, dim=1))
+
+
+def spec_paths(dev, kernels, cfg, model, qparams, stats, data, reqs,
+               results, serve_s):
+    """Speculative decoding on the main path's packed weights: the
+    invariance checks, the FAQ int8 self-draft (built from the packed
+    weights and the calibration statistics), spec serving against plain
+    serving on dense, paged and int8 caches, and an independent 2-layer
+    draft.  Each path with the launch counters zeroed just before it and
+    read just after.  Returns {path: launch counts}."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.draft import ModelDraft, self_int8_draft
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import SpecConfig
+
+    counts = {}
+    kw = dict(n_slots=4, max_len=1024, device=dev)
+
+    phase("main path: decode logits per slot at B = 1 / 2 / 4; verify_step "
+          "== 4 decode_steps (bf16, int8, paged)")
+    _, counts["invariance checks"] = counted(
+        kernels, lambda: invariance_checks(cfg, model, qparams, data, dev))
+
+    phase("main path: FAQ int8 self-draft from the packed weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    draft = self_int8_draft(model, qparams, stats)
+    torch.cuda.synchronize()
+    draft_s = time.perf_counter() - t0
+    draft_bytes = sum(draft.params["blocks"][name].nbytes
+                      for _, name in model.quant_site_map())
+    print(f"  built in {draft_s:.2f} s; {draft_bytes / 1e9:.2f} GB of bf16 "
+          f"blocks; peak while building "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del stats
+
+    def spec_report(name, m, seconds, plain_s):
+        print(f"  {name}: accept_rate {m['accept_rate']:.3f}, draft_share "
+              f"{m['draft_share']:.3f}, tokens_per_step (all slots) "
+              f"{m['tokens_generated'] / max(m['decode_steps'], 1):.2f}, "
+              f"spec cycles {m['spec_cycles']}, {seconds:.2f} s against the "
+              f"plain run's {plain_s:.2f} s", flush=True)
+
+    def spec_eng(mdl, d, **extra):
+        return ServeEngine(mdl, qparams, spec=SpecConfig(k=3, draft=d),
+                           **kw, **extra)
+
+    four = [Request(rid=500 + i, prompt=data.sequence(43_000_000 + i, n),
+                    max_new_tokens=NEW_TOKENS)
+            for i, n in enumerate(FOUR_LENS)]
+    phase("main path: spec serve (self-int8 draft, k 3), 4 requests in one "
+          "prefill batch, dense and paged")
+    plain4, _, plain4_s = timed_serve("plain serve, 4 requests",
+                                      ServeEngine(model, qparams, **kw), four)
+    for paged in (False, True):
+        name = f"spec serve {'paged' if paged else 'dense'}, 4 requests"
+        eng = spec_eng(model, draft, paged=paged, page_size=16)
+        (out, _, sec), counts[name] = counted(
+            kernels, lambda: timed_serve(name, eng, four))
+        m = eng.metrics()
+        spec_report(name, m, sec, plain4_s)
+        same = [np.array_equal(out[r.rid], plain4[r.rid]) for r in four]
+        print(f"  {name}: tokens equal the plain serve's bit for bit: "
+              f"{sum(same)}/{len(four)}", flush=True)
+        check(all(same), f"{name}: tokens differ from the plain serve's")
+        check(m["spec_cycles"] > 0, f"{name}: no spec cycle ran")
+        del eng
+
+    phase("main path: spec serve, the 8 mixed requests of the dense run")
+    eng = spec_eng(model, draft)
+    name = "spec serve dense, 8 mixed requests"
+    (out8, _, sec8), counts[name] = counted(
+        kernels, lambda: timed_serve(name, eng, reqs))
+    spec_report(name, eng.metrics(), sec8, serve_s)
+    agree = sum(int((out8[r.rid] == results[r.rid]).sum()) for r in reqs)
+    print(f"  tokens equal to the plain dense run: {agree}/"
+          f"{len(reqs) * NEW_TOKENS}", flush=True)
+    check_teacher_forced(name, model, qparams, reqs, out8, dev)
+    del eng
+    print(f"  max_memory_allocated since the draft build: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    phase("main path: int8 KV spec serve, 4 requests, dense and paged")
+    model8 = build_model(cfg.scaled(kv_cache_bits=8))
+    plain8, _, plain8_s = timed_serve("int8 plain serve, 4 requests",
+                                      ServeEngine(model8, qparams, **kw),
+                                      four)
+    for paged in (False, True):
+        name = f"int8 spec serve {'paged' if paged else 'dense'}, 4 requests"
+        eng = spec_eng(model8, draft, paged=paged, page_size=16)
+        (out, _, sec), counts[name] = counted(
+            kernels, lambda: timed_serve(name, eng, four))
+        spec_report(name, eng.metrics(), sec, plain8_s)
+        same = [np.array_equal(out[r.rid], plain8[r.rid]) for r in four]
+        print(f"  {name}: tokens equal the int8 plain serve's bit for bit: "
+              f"{sum(same)}/{len(four)}", flush=True)
+        check(all(same), f"{name}: tokens differ from the plain serve's")
+        del eng
+    del draft
+
+    phase("main path: independent draft (llama3-8b width, 2 layers, random "
+          "weights), 4 short requests")
+    short = [Request(rid=600 + i, prompt=data.sequence(44_000_000 + i, 12),
+                     max_new_tokens=16) for i in range(4)]
+    plain_s, _, plain_s_s = timed_serve("plain serve, 4 short requests",
+                                        ServeEngine(model, qparams, **kw),
+                                        short)
+    dmodel = build_model(cfg.scaled(n_layers=2))
+    indep = ModelDraft(model=dmodel, params=dmodel.init(1, device=dev))
+    eng = spec_eng(model, indep)
+    name = "spec serve, independent draft"
+    (out, _, sec), counts[name] = counted(
+        kernels, lambda: timed_serve(name, eng, short))
+    m = eng.metrics()
+    spec_report(name, m, sec, plain_s_s)
+    check(m["draft_kind"] == "model", "the independent draft is not a model")
+    same = [np.array_equal(out[r.rid], plain_s[r.rid]) for r in short]
+    print(f"  {name}: tokens equal the plain serve's bit for bit: "
+          f"{sum(same)}/{len(short)}", flush=True)
+    check(all(same), f"{name}: tokens differ from the plain serve's")
+    del eng, indep, dmodel
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile_phase(eng, data, Request):
     """Where a serving step's time goes: torch.profiler over one short
     serve (4 requests of 12 tokens: one bucketed prefill + 8 decode steps
@@ -1181,10 +1546,13 @@ def profile_phase(eng, data, Request):
             for e in prof.key_averages()]
     rows = [r for r in rows if r[1] > 0]
     busy_ms = sum(r[1] for r in rows)
+    on_device = sum(1 for e in prof.events()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
     phase("profile: 4 x 12-token requests, 1 prefill + 8 decode steps")
     print(f"  wall {wall_ms:.1f} ms (profiler on), device busy "
-          f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall",
-          flush=True)
+          f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall; "
+          f"{on_device} device operations = {on_device / 9:.0f} per engine "
+          f"step (1 prefill + 8 decode steps)", flush=True)
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key[:90]}", flush=True)
 
@@ -1202,6 +1570,7 @@ def main():
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import quant_error as qe
     from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import rms_norm as rn
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1231,7 +1600,11 @@ def main():
                "flash_decode_q8": fd.KERNEL_Q8, "flash_attention": fa.KERNEL,
                "flash_decode_paged": fd.KERNEL_PAGED,
                "flash_decode_paged_q8": fd.KERNEL_PAGED_Q8,
-               "quant_error": qe.KERNEL}
+               "quant_error": qe.KERNEL, "flash_verify": fd.VERIFY,
+               "flash_verify_q8": fd.VERIFY_Q8,
+               "flash_verify_paged": fd.VERIFY_PAGED,
+               "flash_verify_paged_q8": fd.VERIFY_PAGED_Q8,
+               "rms_norm": rn.KERNEL}
     kernels = tuple(by_name.values())
     rows = {r["name"]: r for r in kernel_phase(dev)}
     check(sorted(rows) == sorted(by_name), f"kernel rows {sorted(rows)}")

@@ -4,12 +4,16 @@ Models expose ``quant_site_map() -> {param_path: site_key}`` where each
 mapped leaf has shape ``(L, n_in, n_out)`` (layer-stacked) and
 ``stats[site_key]["mean_abs"]`` is ``(L, n_in)``.
 
-The output mode is ``"packed"``: quantized leaves become
-:class:`QuantizedTensor` (packed uint8 codes + group scales + act_scale,
-layer-stacked); the model's linear dispatch routes these through the
-dequant-matmul kernel (serving path).  The reference's ``"fake"`` mode
-(dequantized float weights, for evaluation benchmarks) arrives with the
-quantization CLI.
+Two output modes, as in the reference:
+
+* ``"packed"``: quantized leaves become :class:`QuantizedTensor` (packed
+  uint8 codes + group scales + act_scale, layer-stacked); the model's
+  linear dispatch routes these through the dequant-matmul kernel (serving
+  path).
+* ``"fake"``: each leaf is replaced by its dequantized reconstruction
+  ``deq(Q(W * s)) / s`` in the leaf's dtype (:func:`quant_dequant`), so the
+  unchanged model runs it as plain matmuls (the speculative self-draft,
+  evaluation).
 
 The reference vmaps over the layer axis; here each leaf is quantized one
 layer at a time, so at full width peak memory holds one layer's float32
@@ -23,7 +27,8 @@ import torch
 
 from .methods import (DEFAULT_ALPHA_GRID, PRESEARCHED_GAMMA,
                       PRESEARCHED_WINDOW, search_alpha, site_stat_for_method)
-from .quantizer import QuantSpec, QuantizedTensor, quantize_groupwise
+from .quantizer import (QuantSpec, QuantizedTensor, quant_dequant,
+                        quantize_groupwise)
 
 
 def _get_path(tree, path):
@@ -54,7 +59,7 @@ def _stack_qt(per_layer: list) -> QuantizedTensor:
 
 
 @torch.no_grad()
-def _quantize_leaf(w, stat, spec, alpha_grid, loss, stats_site):
+def _quantize_leaf(w, stat, spec, alpha_grid, loss, stats_site, mode):
     """Quantize one (L, n_in, n_out) leaf, layer by layer.
 
     ``stat`` is the (L, n_in) method statistic or None (RTN).
@@ -81,6 +86,12 @@ def _quantize_leaf(w, stat, spec, alpha_grid, loss, stats_site):
         "alpha": torch.stack(alphas), "loss": torch.stack(losses),
         "rtn_loss": torch.stack(rtn_losses)}
 
+    if mode == "fake":
+        # written layer by layer into one stack: no second copy of the leaf
+        new_leaf = torch.empty_like(w)
+        for l in range(n_layers):
+            new_leaf[l] = quant_dequant(w[l], spec, act_scale=act_scales[l])
+        return new_leaf, report
     new_leaf = _stack_qt([
         quantize_groupwise(w[l], spec, act_scale=act_scales[l], pack=True)
         for l in range(n_layers)])
@@ -98,10 +109,12 @@ def quantize_model(params: dict, site_map: dict, stats: dict, *,
     """Quantize every site-mapped leaf of ``params``.
 
     Returns ``(new_params, report)`` with ``report[path_str]`` holding the
-    per-layer chosen α and losses (empty for RTN).
+    per-layer chosen α and losses (empty for RTN).  ``mode`` is
+    ``"packed"`` (QuantizedTensor leaves, the serving format) or
+    ``"fake"`` (dequantized float leaves).
     """
-    if mode != "packed":
-        raise NotImplementedError(f"mode={mode!r}: only 'packed' is ported")
+    if mode not in ("packed", "fake"):
+        raise ValueError(f"unknown mode {mode!r}")
     new_params = params
     report = {}
     for path, site_key in site_map.items():
@@ -113,7 +126,7 @@ def quantize_model(params: dict, site_map: dict, stats: dict, *,
             stat = site_stat_for_method(method, stats_site["mean_abs"],
                                         gamma=gamma, window=window)
         new_leaf, rep = _quantize_leaf(w, stat, spec, alpha_grid, loss,
-                                       stats_site)
+                                       stats_site, mode)
         new_params = _set_path(new_params, path, new_leaf)
         report["/".join(path)] = rep
     return new_params, report

@@ -45,6 +45,18 @@
 // range exit without reading anything.  One launch per call, where the first
 // port needed two.
 //
+// Verify (speculative decoding): q (B, T, H, hd) holds a burst of T
+// positions per slot and base (B,) the entries before it; row t attends
+// the first base + t + 1 positions.  The T rows ride one launch as a third
+// index of the grid's x axis: block (b, t, kv_head, split) runs the T = 1
+// body with len = base + t + 1 and its own partials and combine counter,
+// so row t gives the bits of a T = 1 launch at that length, and the
+// reference's T sequential decode calls (repro/kernels/ops.py,
+// _verify_attention_local) become one launch per layer.  The burst is a
+// template flag: the decode entry points compile the body with T = 1 folded
+// in, as before the burst existed.  The rows of a burst load the same K/V
+// rows; sharing those loads is left for later.
+//
 // Invariants: the split size is the caller's constant (kernels/
 // flash_decode.py SPLIT) and never depends on B, the page size or other
 // slots; the dense and paged policies (Rows) differ only in the address of
@@ -128,7 +140,7 @@ __host__ __device__ __forceinline__ int staged_stride(int hd, int elem) {
   return (hd * elem + 15) / 16 * 16 + 16;
 }
 
-template <typename TQ, typename TC, typename Rows>
+template <typename TQ, typename TC, typename Rows, bool kBurst>
 __global__ void __launch_bounds__(FD_THREADS)
 fd_split(const TQ* __restrict__ q, const TC* __restrict__ kc,
          const TC* __restrict__ vc, const float* __restrict__ ks,
@@ -136,15 +148,22 @@ fd_split(const TQ* __restrict__ q, const TC* __restrict__ kc,
          Rows rows, float* __restrict__ po, float* __restrict__ pm,
          float* __restrict__ pl, int* __restrict__ counters,
          TQ* __restrict__ out, int KH, int S, int hd, int G, int bs, int ns,
-         int window, float scale, int vec) {
+         int window, float scale, int vec, int T, int lofs) {
   constexpr bool kQ8 = sizeof(TC) == 1;
-  const int bh = blockIdx.x, b = bh / KH, h = bh % KH, s = blockIdx.y;
+  // bh indexes (slot, burst row, kv head): q, out, partials and counters
+  // are all laid out by it.  The decode entry points (kBurst false) compile
+  // the single-position source as it was before bursts: a build of them
+  // with the burst's runtime T took 40 registers instead of 52-60 and ran
+  // ~30% slower (chip_smoke.py on an H100 80GB HBM3 at 700 W).
+  const int bh = blockIdx.x, s = blockIdx.y;
+  const int b = kBurst ? bh / KH / T : bh / KH, h = bh % KH;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int len = min(lens[b], S);
+  const int len = min(kBurst ? lens[b] + bh / KH % T + lofs : lens[b], S);
   const int first = window > 0 ? max(0, len - window) : 0;   // first live position
   const int s0 = first / bs;
   const int n_splits = len > first ? (len - 1) / bs - s0 + 1 : 0;
-  TQ* ob = out + (static_cast<size_t>(b) * KH + h) * G * hd;
+  const size_t qrow = kBurst ? static_cast<size_t>(bh) : static_cast<size_t>(b) * KH + h;
+  TQ* ob = out + qrow * G * hd;
   if (n_splits == 0) {          // nothing live: the result is 0
     if (s == 0)
       for (int i = tid; i < G * hd; i += FD_THREADS) store_as(ob + i, 0.f);
@@ -199,7 +218,7 @@ fd_split(const TQ* __restrict__ q, const TC* __restrict__ kc,
   }
   repro::cp_async_commit();
   // meanwhile: q (zero-padded to whole units), zero row tails
-  const TQ* qb = q + (static_cast<size_t>(b) * KH + h) * G * hd;
+  const TQ* qb = q + qrow * G * hd;
   float* qf = reinterpret_cast<float*>(qs);
   for (int i = tid; i < G * hd4 * 4; i += FD_THREADS) {
     const int g = i / (hd4 * 4), d = i - g * hd4 * 4;
@@ -364,18 +383,19 @@ fd_split(const TQ* __restrict__ q, const TC* __restrict__ kc,
 
 // One launch for one (q type, cache element type, row policy).  S is the
 // logical positions per slot (max_len, or NP * ps when paged).
-template <typename TQ, typename TC, typename Rows>
+template <typename TQ, typename TC, typename Rows, bool kBurst>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const int* lens, Rows rows, float* po, float* pm,
-           float* pl, int* counters, void* out, int B, int KH, int S, int hd,
-           int G, int bs, int window, float scale, cudaStream_t stream) {
+           float* pl, int* counters, void* out, int B, int T, int lofs, int KH,
+           int S, int hd, int G, int bs, int window, float scale,
+           cudaStream_t stream) {
   const int ns = (S + bs - 1) / bs;
   const int hd4 = (hd + 3) / 4;
   const size_t smem = 2 * static_cast<size_t>(bs) * staged_stride(hd, sizeof(TC)) +
                       (static_cast<size_t>(G) * hd4 + FD_THREADS) * 16 +
                       (static_cast<size_t>(G) * bs + G + 3 * bs + 2 * G * ns) * 4;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(fd_split<TQ, TC, Rows>,
+    cudaError_t e = cudaFuncSetAttribute(fd_split<TQ, TC, Rows, kBurst>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -390,20 +410,23 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       break;
     }
   }
-  fd_split<TQ, TC, Rows><<<dim3(B * KH, ns), FD_THREADS, smem, stream>>>(
+  fd_split<TQ, TC, Rows, kBurst>
+      <<<dim3(B * T * KH, ns), FD_THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), lens, rows,
       po, pm, pl, counters, static_cast<TQ*>(out), KH, S, hd, G, bs, ns, window, scale,
-      vec);
+      vec, T, lofs);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q in bf16 or f32; the cache either in q's type (Q8 false) or int8 codes.
-template <bool Q8, typename Rows>
+// q in bf16 or f32; the cache either in q's type (Q8 false) or int8 codes;
+// a verify burst (kBurst) or a single position.
+template <bool Q8, bool kBurst, typename Rows>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* lens, Rows rows, void* po, void* pm,
-             void* pl, void* counters, void* out, int B, int KH, int S, int hd,
-             int G, int bs, int window, float scale, int is_bf16, void* stream) {
+             void* pl, void* counters, void* out, int B, int T, int lofs, int KH,
+             int S, int hd, int G, int bs, int window, float scale, int is_bf16,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* l = static_cast<const int*>(lens);
   float* o = static_cast<float*>(po);
@@ -412,34 +435,40 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
   int* c = static_cast<int*>(counters);
   if constexpr (Q8) {
     if (is_bf16)
-      return launch<__nv_bfloat16, int8_t>(q, k, v, ks, vs, l, rows, o, m, ls, c, out, B,
-                                           KH, S, hd, G, bs, window, scale, st);
-    return launch<float, int8_t>(q, k, v, ks, vs, l, rows, o, m, ls, c, out, B, KH, S, hd,
-                                 G, bs, window, scale, st);
+      return launch<__nv_bfloat16, int8_t, Rows, kBurst>(
+          q, k, v, ks, vs, l, rows, o, m, ls, c, out, B, T, lofs, KH, S, hd, G, bs, window,
+          scale, st);
+    return launch<float, int8_t, Rows, kBurst>(q, k, v, ks, vs, l, rows, o, m, ls, c, out,
+                                               B, T, lofs, KH, S, hd, G, bs, window,
+                                               scale, st);
   } else {
     if (is_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, ks, vs, l, rows, o, m, ls, c,
-                                                  out, B, KH, S, hd, G, bs, window, scale,
-                                                  st);
-    return launch<float, float>(q, k, v, ks, vs, l, rows, o, m, ls, c, out, B, KH, S, hd,
-                                G, bs, window, scale, st);
+      return launch<__nv_bfloat16, __nv_bfloat16, Rows, kBurst>(
+          q, k, v, ks, vs, l, rows, o, m, ls, c, out, B, T, lofs, KH, S, hd, G, bs, window,
+          scale, st);
+    return launch<float, float, Rows, kBurst>(q, k, v, ks, vs, l, rows, o, m, ls, c, out,
+                                              B, T, lofs, KH, S, hd, G, bs, window, scale,
+                                              st);
   }
 }
 
 }  // namespace
 
-// Scratch for every variant: po (B*KH*ns*G*hd), pm and pl (B*KH*ns*G)
+// Scratch for every variant: po (B*T*KH*ns*G*hd), pm and pl (B*T*KH*ns*G)
 // floats, ns = ceil(S/bs) with S the logical positions per slot (NP * ps
-// when paged); counters (B*KH) ints, zero at launch and left zero.
-// window <= 0 means no sliding window.  int8 variants need hd % 4 == 0.  A
-// cache or store holds fewer than 2^31 rows of hd (row indices are int).
+// when paged); counters (B*T*KH) ints, zero at launch and left zero.  The
+// decode entry points run T = 1 with lens the lengths after the step; the
+// verify entry points take q (B, T, H, hd) and base the lengths before the
+// burst (row t attends base + t + 1 positions).  window <= 0 means no
+// sliding window.  int8 variants need hd % 4 == 0.  A cache or store holds
+// fewer than 2^31 rows of hd (row indices are int).
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* lens, void* po, void* pm, void* pl,
                                    void* counters, void* out, int B, int KH, int S,
                                    int hd, int G, int bs, int window, float scale,
                                    int is_bf16, void* stream) {
-  return dispatch<false>(q, k, v, nullptr, nullptr, lens, DenseRows{KH, S}, po, pm, pl,
-                         counters, out, B, KH, S, hd, G, bs, window, scale, is_bf16,
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, lens, DenseRows{KH, S}, po, pm, pl,
+                         counters, out, B, 1, 0, KH, S, hd, G, bs, window, scale, is_bf16,
                          stream);
 }
 
@@ -449,8 +478,8 @@ extern "C" int flash_decode_q8_launch(const void* q, const void* k, const void* 
                                       void* out, int B, int KH, int S, int hd, int G,
                                       int bs, int window, float scale, int is_bf16,
                                       void* stream) {
-  return dispatch<true>(q, k, v, ks, vs, lens, DenseRows{KH, S}, po, pm, pl, counters, out,
-                        B, KH, S, hd, G, bs, window, scale, is_bf16, stream);
+  return dispatch<true, false>(q, k, v, ks, vs, lens, DenseRows{KH, S}, po, pm, pl, counters, out,
+                        B, 1, 0, KH, S, hd, G, bs, window, scale, is_bf16, stream);
 }
 
 extern "C" int flash_decode_paged_launch(const void* q, const void* k, const void* v,
@@ -460,8 +489,8 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k, const voi
                                          int bs, int window, float scale, int is_bf16,
                                          void* stream) {
   const PagedRows rows{static_cast<const int*>(table), KH, np, ps};
-  return dispatch<false>(q, k, v, nullptr, nullptr, lens, rows, po, pm, pl, counters, out,
-                         B, KH, np * ps, hd, G, bs, window, scale, is_bf16, stream);
+  return dispatch<false, false>(q, k, v, nullptr, nullptr, lens, rows, po, pm, pl, counters, out,
+                         B, 1, 0, KH, np * ps, hd, G, bs, window, scale, is_bf16, stream);
 }
 
 extern "C" int flash_decode_paged_q8_launch(const void* q, const void* k, const void* ks,
@@ -472,6 +501,49 @@ extern "C" int flash_decode_paged_q8_launch(const void* q, const void* k, const 
                                             int bs, int window, float scale, int is_bf16,
                                             void* stream) {
   const PagedRows rows{static_cast<const int*>(table), KH, np, ps};
-  return dispatch<true>(q, k, v, ks, vs, lens, rows, po, pm, pl, counters, out, B, KH,
-                        np * ps, hd, G, bs, window, scale, is_bf16, stream);
+  return dispatch<true, false>(q, k, v, ks, vs, lens, rows, po, pm, pl, counters, out, B, 1, 0,
+                        KH, np * ps, hd, G, bs, window, scale, is_bf16, stream);
+}
+
+extern "C" int flash_verify_launch(const void* q, const void* k, const void* v,
+                                   const void* base, void* po, void* pm, void* pl,
+                                   void* counters, void* out, int B, int T, int KH,
+                                   int S, int hd, int G, int bs, int window,
+                                   float scale, int is_bf16, void* stream) {
+  return dispatch<false, true>(q, k, v, nullptr, nullptr, base, DenseRows{KH, S}, po, pm, pl,
+                         counters, out, B, T, 1, KH, S, hd, G, bs, window, scale, is_bf16,
+                         stream);
+}
+
+extern "C" int flash_verify_q8_launch(const void* q, const void* k, const void* ks,
+                                      const void* v, const void* vs, const void* base,
+                                      void* po, void* pm, void* pl, void* counters,
+                                      void* out, int B, int T, int KH, int S, int hd,
+                                      int G, int bs, int window, float scale,
+                                      int is_bf16, void* stream) {
+  return dispatch<true, true>(q, k, v, ks, vs, base, DenseRows{KH, S}, po, pm, pl, counters, out,
+                        B, T, 1, KH, S, hd, G, bs, window, scale, is_bf16, stream);
+}
+
+extern "C" int flash_verify_paged_launch(const void* q, const void* k, const void* v,
+                                         const void* table, const void* base, void* po,
+                                         void* pm, void* pl, void* counters, void* out,
+                                         int B, int T, int KH, int np, int ps, int hd,
+                                         int G, int bs, int window, float scale,
+                                         int is_bf16, void* stream) {
+  const PagedRows rows{static_cast<const int*>(table), KH, np, ps};
+  return dispatch<false, true>(q, k, v, nullptr, nullptr, base, rows, po, pm, pl, counters, out,
+                         B, T, 1, KH, np * ps, hd, G, bs, window, scale, is_bf16, stream);
+}
+
+extern "C" int flash_verify_paged_q8_launch(const void* q, const void* k, const void* ks,
+                                            const void* v, const void* vs,
+                                            const void* table, const void* base, void* po,
+                                            void* pm, void* pl, void* counters, void* out,
+                                            int B, int T, int KH, int np, int ps, int hd,
+                                            int G, int bs, int window, float scale,
+                                            int is_bf16, void* stream) {
+  const PagedRows rows{static_cast<const int*>(table), KH, np, ps};
+  return dispatch<true, true>(q, k, v, ks, vs, base, rows, po, pm, pl, counters, out, B, T, 1,
+                        KH, np * ps, hd, G, bs, window, scale, is_bf16, stream);
 }

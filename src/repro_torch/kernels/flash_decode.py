@@ -12,6 +12,15 @@ CPU tensor takes the plain version from :mod:`.ref`; a CUDA tensor
 launches the kernel (one launch: splits, and the last split of each
 (slot, KV head) combines) or raises.
 
+The verify variants (:func:`flash_verify`, :func:`flash_verify_q8`,
+:func:`flash_verify_paged`, :func:`flash_verify_paged_q8`) score a burst
+of T positions per slot in one launch of the same kernel: row t attends the
+first ``base_len + t + 1`` entries and runs exactly the T = 1 body at that
+length, so it gives the bits of the decode variant called with
+``cache_len = base_len + t + 1``.  They replace the reference's T
+sequential decode calls of a speculative verify
+(``repro/kernels/ops.py::_verify_attention_local``).
+
 Every variant splits the *logical* positions of a slot into the same
 ``SPLIT``-position blocks, so a paged store gives the dense kernel's bits
 on the same logical cache (and paged int8 the dense int8 kernel's), and a
@@ -28,13 +37,19 @@ import torch
 
 from ._build import FLOAT, INT, PTR, Kernel
 from .ref import (decode_attention_q8_ref, decode_attention_ref,
-                  paged_decode_attention_q8_ref, paged_decode_attention_ref)
+                  paged_decode_attention_q8_ref, paged_decode_attention_ref,
+                  paged_verify_attention_q8_ref, paged_verify_attention_ref,
+                  verify_attention_q8_ref, verify_attention_ref)
 
 __all__ = ["KERNEL", "KERNEL_Q8", "KERNEL_PAGED", "KERNEL_PAGED_Q8",
            "flash_decode", "flash_decode_q8", "flash_decode_paged",
            "flash_decode_paged_q8", "decode_attention_ref",
            "decode_attention_q8_ref", "paged_decode_attention_ref",
-           "paged_decode_attention_q8_ref"]
+           "paged_decode_attention_q8_ref", "VERIFY", "VERIFY_Q8",
+           "VERIFY_PAGED", "VERIFY_PAGED_Q8", "flash_verify",
+           "flash_verify_q8", "flash_verify_paged", "flash_verify_paged_q8",
+           "verify_attention_ref", "verify_attention_q8_ref",
+           "paged_verify_attention_ref", "paged_verify_attention_q8_ref"]
 
 _TAIL = [INT, INT, INT, INT, INT, INT, INT, FLOAT, INT, PTR]
 KERNEL = Kernel("flash_decode.cu", "flash_decode_launch",
@@ -45,16 +60,28 @@ KERNEL_PAGED = Kernel("flash_decode.cu", "flash_decode_paged_launch",
                       [PTR] * 10 + [INT] + _TAIL)
 KERNEL_PAGED_Q8 = Kernel("flash_decode.cu", "flash_decode_paged_q8_launch",
                          [PTR] * 12 + [INT] + _TAIL)
+# the verify entry points take T after B
+VERIFY = Kernel("flash_decode.cu", "flash_verify_launch",
+                [PTR] * 9 + [INT] + _TAIL)
+VERIFY_Q8 = Kernel("flash_decode.cu", "flash_verify_q8_launch",
+                   [PTR] * 11 + [INT] + _TAIL)
+VERIFY_PAGED = Kernel("flash_decode.cu", "flash_verify_paged_launch",
+                      [PTR] * 10 + [INT, INT] + _TAIL)
+VERIFY_PAGED_Q8 = Kernel("flash_decode.cu", "flash_verify_paged_q8_launch",
+                         [PTR] * 12 + [INT, INT] + _TAIL)
 # logical cache positions per split, whatever the page size, the batch or
 # the cache length (64 measured faster than 32 and 128: PERF.md)
 SPLIT = 64
 _counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _check_q(q, kh, hd, name):
+def _check_q(q, kh, hd, name, burst=False):
+    """(B, H) of q, which must be (B, 1, H, hd) — or (B, T, H, hd) with T
+    >= 1 for a verify ``burst`` — with H a multiple of KH."""
     b, t, h, qhd = q.shape
-    if t != 1 or qhd != hd or h % kh:
-        raise ValueError(f"{name}: q {tuple(q.shape)} must be (B, 1, H, "
+    if (t < 1 if burst else t != 1) or qhd != hd or h % kh:
+        rows = "T" if burst else "1"
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be (B, {rows}, H, "
                          f"{hd}) with H a multiple of KH={kh}")
     return b, h
 
@@ -92,12 +119,13 @@ def _lens(cache_len, b, device):
 
 
 def _scratch(q, kh, s_logical, g, hd):
+    """Partials of every (slot, burst row, KV head, split)."""
     ns = -(-s_logical // SPLIT)
-    b = q.shape[0]
+    rows = q.shape[0] * q.shape[1] * kh
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty(b * kh * ns * g * hd, **f32),
-            torch.empty(b * kh * ns * g, **f32),
-            torch.empty(b * kh * ns * g, **f32))
+    return (torch.empty(rows * ns * g * hd, **f32),
+            torch.empty(rows * ns * g, **f32),
+            torch.empty(rows * ns * g, **f32))
 
 
 def _combine_counters(device, stream, n):
@@ -115,12 +143,12 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
-def _launch(kernel, q, caches, extra, lens, shape, window):
+def _launch(kernel, q, caches, extra, lens, shape, window, burst=False):
     """Allocate scratch and output, launch ``kernel``.  ``caches`` are the
     cache tensors in the C argument order, ``extra`` the pointer arguments
     between them and ``lens`` (the page table), ``shape`` the ints between
     the output and ``bs`` (B, KH, S or NP, [ps], hd, G) with ``s_logical``
-    last."""
+    last; a verify ``burst`` passes T = q.shape[1] after B."""
     *ints, s_logical = shape
     kh, hd, g = ints[1], ints[-2], ints[-1]
     if caches[0].numel() // hd >= 2 ** 31:
@@ -128,7 +156,10 @@ def _launch(kernel, q, caches, extra, lens, shape, window):
                          f"int32; {tuple(caches[0].shape)} has too many")
     po, pm, pl = _scratch(q, kh, s_logical, g, hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _combine_counters(q.device, stream, ints[0] * kh)
+    t = q.shape[1]
+    counters = _combine_counters(q.device, stream, ints[0] * t * kh)
+    if burst:
+        ints = [ints[0], t, *ints[1:]]
     out = torch.empty_like(q)
     kernel.launch(*_ptrs(q, *caches, *extra, lens, po, pm, pl, counters, out),
                   *ints, SPLIT, 0 if window is None else int(window),
@@ -136,54 +167,45 @@ def _launch(kernel, q, caches, extra, lens, shape, window):
     return out
 
 
-def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                 window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, 1, H, hd); caches: (B, KH, S, hd) native layout; cache_len:
-    (B,) int32.  Returns (B, 1, H, hd) in q's dtype."""
+def _dense(kernel, plain, name, q, k_cache, v_cache, lens, window, burst):
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"need equal (B, KH, S, hd) caches; got "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
     b, kh, s, hd = k_cache.shape
-    _, h = _check_q(q, kh, hd, "flash_decode")
-    if k_cache.shape[0] != q.shape[0]:
+    _, h = _check_q(q, kh, hd, name, burst)
+    if b != q.shape[0]:
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if not _on_cuda(q, "flash_decode"):
-        return decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                    window=window)
+    if not _on_cuda(q, name):
+        return plain(q, k_cache, v_cache, lens, window=window)
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"q and caches must share an f32/bf16 dtype; got "
                          f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
-    return _launch(KERNEL, q.contiguous(),
+    return _launch(kernel, q.contiguous(),
                    (k_cache.contiguous(), v_cache.contiguous()), (),
-                   _lens(cache_len, b, q.device),
-                   (b, kh, s, hd, h // kh, s), window)
+                   _lens(lens, b, q.device), (b, kh, s, hd, h // kh, s),
+                   window, burst)
 
 
-def flash_decode_q8(q: torch.Tensor, k_codes: torch.Tensor,
-                    k_scale: torch.Tensor, v_codes: torch.Tensor,
-                    v_scale: torch.Tensor, cache_len: torch.Tensor, *,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """int8-KV variant: codes (B, KH, S, hd) int8, scales (B, KH, S, 1)
-    f32, folded inside the kernel (codes never dequantize in memory)."""
+def _dense_q8(kernel, plain, name, q, k_codes, k_scale, v_codes, v_scale,
+              lens, window, burst):
     if k_codes.dim() != 4 or k_codes.shape != v_codes.shape:
         raise ValueError(f"need equal (B, KH, S, hd) codes; got "
                          f"{tuple(k_codes.shape)}, {tuple(v_codes.shape)}")
     b, kh, s, hd = k_codes.shape
-    _, h = _check_q(q, kh, hd, "flash_decode_q8")
+    _, h = _check_q(q, kh, hd, name, burst)
     if b != q.shape[0]:
         raise ValueError(f"codes {tuple(k_codes.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if not _on_cuda(q, "flash_decode_q8"):
-        return decode_attention_q8_ref(q, k_codes, k_scale, v_codes, v_scale,
-                                       cache_len, window=window)
-    _check_q8(k_codes, k_scale, v_codes, v_scale, "flash_decode_q8")
+    if not _on_cuda(q, name):
+        return plain(q, k_codes, k_scale, v_codes, v_scale, lens,
+                     window=window)
+    _check_q8(k_codes, k_scale, v_codes, v_scale, name)
     caches = tuple(t.contiguous() for t in (k_codes, k_scale, v_codes,
                                             v_scale))
-    return _launch(KERNEL_Q8, q.contiguous(), caches, (),
-                   _lens(cache_len, b, q.device),
-                   (b, kh, s, hd, h // kh, s), window)
+    return _launch(kernel, q.contiguous(), caches, (),
+                   _lens(lens, b, q.device), (b, kh, s, hd, h // kh, s),
+                   window, burst)
 
 
 def _check_table(page_table, b, name):
@@ -193,6 +215,68 @@ def _check_table(page_table, b, name):
     return page_table.shape[1]
 
 
+def _paged(kernel, plain, name, q, k_store, v_store, page_table, lens,
+           window, burst):
+    if k_store.dim() != 4 or k_store.shape != v_store.shape:
+        raise ValueError(f"need equal (P, KH, ps, hd) stores; got "
+                         f"{tuple(k_store.shape)}, {tuple(v_store.shape)}")
+    _, kh, ps, hd = k_store.shape
+    b, h = _check_q(q, kh, hd, name, burst)
+    n_pages = _check_table(page_table, b, name)
+    if not _on_cuda(q, name):
+        return plain(q, k_store, v_store, page_table, lens, window=window)
+    if k_store.dtype != q.dtype or v_store.dtype != q.dtype:
+        raise ValueError(f"q and stores must share an f32/bf16 dtype; got "
+                         f"{q.dtype}, {k_store.dtype}, {v_store.dtype}")
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    return _launch(kernel, q.contiguous(),
+                   (k_store.contiguous(), v_store.contiguous()), (table,),
+                   _lens(lens, b, q.device),
+                   (b, kh, n_pages, ps, hd, h // kh, n_pages * ps), window,
+                   burst)
+
+
+def _paged_q8(kernel, plain, name, q, k_codes, k_scale, v_codes, v_scale,
+              page_table, lens, window, burst):
+    if k_codes.dim() != 4 or k_codes.shape != v_codes.shape:
+        raise ValueError(f"need equal (P, KH, ps, hd) code stores; got "
+                         f"{tuple(k_codes.shape)}, {tuple(v_codes.shape)}")
+    _, kh, ps, hd = k_codes.shape
+    b, h = _check_q(q, kh, hd, name, burst)
+    n_pages = _check_table(page_table, b, name)
+    if not _on_cuda(q, name):
+        return plain(q, k_codes, k_scale, v_codes, v_scale, page_table, lens,
+                     window=window)
+    _check_q8(k_codes, k_scale, v_codes, v_scale, name)
+    caches = tuple(t.contiguous() for t in (k_codes, k_scale, v_codes,
+                                            v_scale))
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    return _launch(kernel, q.contiguous(), caches, (table,),
+                   _lens(lens, b, q.device),
+                   (b, kh, n_pages, ps, hd, h // kh, n_pages * ps), window,
+                   burst)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, 1, H, hd); caches: (B, KH, S, hd) native layout; cache_len:
+    (B,) int32.  Returns (B, 1, H, hd) in q's dtype."""
+    return _dense(KERNEL, decode_attention_ref, "flash_decode", q, k_cache,
+                  v_cache, cache_len, window, False)
+
+
+def flash_decode_q8(q: torch.Tensor, k_codes: torch.Tensor,
+                    k_scale: torch.Tensor, v_codes: torch.Tensor,
+                    v_scale: torch.Tensor, cache_len: torch.Tensor, *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """int8-KV variant: codes (B, KH, S, hd) int8, scales (B, KH, S, 1)
+    f32, folded inside the kernel (codes never dequantize in memory)."""
+    return _dense_q8(KERNEL_Q8, decode_attention_q8_ref, "flash_decode_q8",
+                     q, k_codes, k_scale, v_codes, v_scale, cache_len,
+                     window, False)
+
+
 def flash_decode_paged(q: torch.Tensor, k_store: torch.Tensor,
                        v_store: torch.Tensor, page_table: torch.Tensor,
                        cache_len: torch.Tensor, *,
@@ -200,23 +284,9 @@ def flash_decode_paged(q: torch.Tensor, k_store: torch.Tensor,
     """Paged variant: stores (P, KH, ps, hd); page_table (B, NP) int32
     physical ids (unmapped entries point at the trash page 0, never read
     past ``cache_len``)."""
-    if k_store.dim() != 4 or k_store.shape != v_store.shape:
-        raise ValueError(f"need equal (P, KH, ps, hd) stores; got "
-                         f"{tuple(k_store.shape)}, {tuple(v_store.shape)}")
-    _, kh, ps, hd = k_store.shape
-    b, h = _check_q(q, kh, hd, "flash_decode_paged")
-    n_pages = _check_table(page_table, b, "flash_decode_paged")
-    if not _on_cuda(q, "flash_decode_paged"):
-        return paged_decode_attention_ref(q, k_store, v_store, page_table,
-                                          cache_len, window=window)
-    if k_store.dtype != q.dtype or v_store.dtype != q.dtype:
-        raise ValueError(f"q and stores must share an f32/bf16 dtype; got "
-                         f"{q.dtype}, {k_store.dtype}, {v_store.dtype}")
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    return _launch(KERNEL_PAGED, q.contiguous(),
-                   (k_store.contiguous(), v_store.contiguous()), (table,),
-                   _lens(cache_len, b, q.device),
-                   (b, kh, n_pages, ps, hd, h // kh, n_pages * ps), window)
+    return _paged(KERNEL_PAGED, paged_decode_attention_ref,
+                  "flash_decode_paged", q, k_store, v_store, page_table,
+                  cache_len, window, False)
 
 
 def flash_decode_paged_q8(q: torch.Tensor, k_codes: torch.Tensor,
@@ -226,20 +296,55 @@ def flash_decode_paged_q8(q: torch.Tensor, k_codes: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """Paged int8-KV variant: code stores (P, KH, ps, hd) int8 and scale
     stores (P, KH, ps, 1) f32, read through the same page table."""
-    if k_codes.dim() != 4 or k_codes.shape != v_codes.shape:
-        raise ValueError(f"need equal (P, KH, ps, hd) code stores; got "
-                         f"{tuple(k_codes.shape)}, {tuple(v_codes.shape)}")
-    _, kh, ps, hd = k_codes.shape
-    b, h = _check_q(q, kh, hd, "flash_decode_paged_q8")
-    n_pages = _check_table(page_table, b, "flash_decode_paged_q8")
-    if not _on_cuda(q, "flash_decode_paged_q8"):
-        return paged_decode_attention_q8_ref(q, k_codes, k_scale, v_codes,
-                                             v_scale, page_table, cache_len,
-                                             window=window)
-    _check_q8(k_codes, k_scale, v_codes, v_scale, "flash_decode_paged_q8")
-    caches = tuple(t.contiguous() for t in (k_codes, k_scale, v_codes,
-                                            v_scale))
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    return _launch(KERNEL_PAGED_Q8, q.contiguous(), caches, (table,),
-                   _lens(cache_len, b, q.device),
-                   (b, kh, n_pages, ps, hd, h // kh, n_pages * ps), window)
+    return _paged_q8(KERNEL_PAGED_Q8, paged_decode_attention_q8_ref,
+                     "flash_decode_paged_q8", q, k_codes, k_scale, v_codes,
+                     v_scale, page_table, cache_len, window, False)
+
+
+# ---------------------------------------------------------------------------
+# Verify: T positions per slot in one launch (speculative decoding)
+# ---------------------------------------------------------------------------
+
+def flash_verify(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, base_len: torch.Tensor, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, T, H, hd); caches (B, KH, S, hd) with the burst's T entries
+    written; base_len (B,) int32 entries before the burst.  Row t equals
+    :func:`flash_decode` at ``cache_len = base_len + t + 1``.  Returns (B,
+    T, H, hd) in q's dtype."""
+    return _dense(VERIFY, verify_attention_ref, "flash_verify", q, k_cache,
+                  v_cache, base_len, window, True)
+
+
+def flash_verify_q8(q: torch.Tensor, k_codes: torch.Tensor,
+                    k_scale: torch.Tensor, v_codes: torch.Tensor,
+                    v_scale: torch.Tensor, base_len: torch.Tensor, *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """int8-KV verify: codes (B, KH, S, hd) int8, scales (B, KH, S, 1)
+    f32; row t equals :func:`flash_decode_q8` at ``base_len + t + 1``."""
+    return _dense_q8(VERIFY_Q8, verify_attention_q8_ref, "flash_verify_q8",
+                     q, k_codes, k_scale, v_codes, v_scale, base_len, window,
+                     True)
+
+
+def flash_verify_paged(q: torch.Tensor, k_store: torch.Tensor,
+                       v_store: torch.Tensor, page_table: torch.Tensor,
+                       base_len: torch.Tensor, *,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """Paged verify: stores (P, KH, ps, hd), page_table (B, NP); row t
+    equals :func:`flash_decode_paged` at ``base_len + t + 1``."""
+    return _paged(VERIFY_PAGED, paged_verify_attention_ref,
+                  "flash_verify_paged", q, k_store, v_store, page_table,
+                  base_len, window, True)
+
+
+def flash_verify_paged_q8(q: torch.Tensor, k_codes: torch.Tensor,
+                          k_scale: torch.Tensor, v_codes: torch.Tensor,
+                          v_scale: torch.Tensor, page_table: torch.Tensor,
+                          base_len: torch.Tensor, *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Paged int8-KV verify; row t equals :func:`flash_decode_paged_q8` at
+    ``base_len + t + 1``."""
+    return _paged_q8(VERIFY_PAGED_Q8, paged_verify_attention_q8_ref,
+                     "flash_verify_paged_q8", q, k_codes, k_scale, v_codes,
+                     v_scale, page_table, base_len, window, True)

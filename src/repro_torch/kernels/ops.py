@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.core.quantizer import QuantizedTensor, dequantize_groupwise
 from .flash_decode import (flash_decode, flash_decode_paged,
-                           flash_decode_paged_q8, flash_decode_q8)
+                           flash_decode_paged_q8, flash_decode_q8,
+                           flash_verify, flash_verify_paged,
+                           flash_verify_paged_q8, flash_verify_q8)
 from .quant_error import quant_error
 from .quant_matmul import quant_matmul as _quant_matmul_kernel
 
@@ -60,6 +62,38 @@ def paged_decode_attention_q8(q, k_codes, k_scale, v_codes, v_scale,
     codes)."""
     return flash_decode_paged_q8(q, k_codes, k_scale, v_codes, v_scale,
                                  page_table, cache_len, window=window)
+
+
+def verify_attention(q, k_cache, v_cache, base_len, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Multi-position decode attention (speculative verify): q (B, T, H,
+    hd) against dense caches in native (B, KH, S, hd) layout, base_len (B,)
+    valid entries *before* the burst (its T fresh entries already written).
+    Row t is :func:`decode_attention` at ``base_len + t + 1``; one launch
+    for the whole burst."""
+    return flash_verify(q, k_cache, v_cache, base_len, window=window)
+
+
+def verify_attention_q8(q, k_codes, k_scale, v_codes, v_scale, base_len, *,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """int8-KV variant of :func:`verify_attention`."""
+    return flash_verify_q8(q, k_codes, k_scale, v_codes, v_scale, base_len,
+                           window=window)
+
+
+def paged_verify_attention(q, k_store, v_store, page_table, base_len, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """:func:`verify_attention` against the shared page stores."""
+    return flash_verify_paged(q, k_store, v_store, page_table, base_len,
+                              window=window)
+
+
+def paged_verify_attention_q8(q, k_codes, k_scale, v_codes, v_scale,
+                              page_table, base_len, *,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """Paged int8-KV variant of :func:`verify_attention`."""
+    return flash_verify_paged_q8(q, k_codes, k_scale, v_codes, v_scale,
+                                 page_table, base_len, window=window)
 
 
 def quant_error_batch(w: torch.Tensor, scales: torch.Tensor,

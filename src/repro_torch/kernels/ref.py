@@ -39,37 +39,59 @@ def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
     return (x.float() @ w).to(x.dtype)
 
 
-def _decode_core(q, k, v, cache_len, window, k_fold=None, v_fold=None):
-    """Masked single-position attention shared by the dense, int8, and
-    paged plain versions.  k/v: (B, KH, S, hd) in any type (upcast to f32);
-    ``k_fold``/``v_fold`` (B, KH, S) multiply the scores / the probabilities
-    after the softmax sum (the int8 scale folds)."""
-    b, _, h, hd = q.shape
+def rms_norm_ref(x: torch.Tensor, w: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32, cast
+    to x's dtype."""
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (x32 * w.float()).to(x.dtype)
+
+
+def _attend_core(q, k, v, lens, window, k_fold=None, v_fold=None):
+    """Masked attention of T positions per slot, shared by every decode and
+    verify plain version.  q: (B, T, H, hd); k/v: (B, KH, S, hd) in any type
+    (upcast to f32); lens (B, T): position t of slot b sees the first
+    ``lens[b, t]`` cache entries.  ``k_fold``/``v_fold`` (B, KH, S) multiply
+    the scores / the probabilities after the softmax sum (the int8 scale
+    folds)."""
+    b, t, h, hd = q.shape
     kh, s = k.shape[1], k.shape[2]
     g = h // kh
-    qg = q.float().reshape(b, kh, g, hd)
-    scores = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * hd ** -0.5
+    qg = q.float().reshape(b, t, kh, g, hd)
+    scores = torch.einsum("btkgd,bksd->btkgs", qg, k.float()) * hd ** -0.5
     if k_fold is not None:
-        scores = scores * k_fold[:, :, None, :]
-    lens = cache_len.to(device=q.device, dtype=torch.int64).reshape(-1) \
-        .expand(b)
+        scores = scores * k_fold[:, None, :, None, :]
     kpos = torch.arange(s, device=q.device)
-    mask = kpos[None, :] < lens[:, None]                     # (B, S)
+    mask = kpos[None, None, :] < lens[..., None]               # (B, T, S)
     if window is not None:
-        mask &= kpos[None, :] >= (lens[:, None] - window)
-    mask4 = mask[:, None, None, :]
-    scores = torch.where(mask4, scores, NEG_INF)
+        mask &= kpos[None, None, :] >= (lens[..., None] - window)
+    mask5 = mask[:, :, None, None, :]
+    scores = torch.where(mask5, scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
-    p = torch.where(mask4, torch.exp(scores - m), 0.0)
+    p = torch.where(mask5, torch.exp(scores - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     if v_fold is not None:
-        p = torch.where(mask4, p * v_fold[:, :, None, :], 0.0)
+        p = torch.where(mask5, p * v_fold[:, None, :, None, :], 0.0)
     # masked rows are never read by the kernels; zero them here so stale or
     # NaN contents (an unmapped page) cannot leak through 0 * NaN
-    vf = torch.where(mask[:, None, :, None], v.float(), 0.0)
-    out = torch.einsum("bkgs,bksd->bkgd", p, vf)
+    live = mask.any(dim=1)                                     # (B, S)
+    vf = torch.where(live[:, None, :, None], v.float(), 0.0)
+    out = torch.einsum("btkgs,bksd->btkgd", p, vf)
     out = out / torch.clamp(l, min=1e-30)
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    return out.reshape(b, t, h, hd).to(q.dtype)
+
+
+def _decode_lens(cache_len, b, device):
+    """(B, 1): the single position sees ``cache_len`` entries."""
+    return cache_len.to(device=device, dtype=torch.int64).reshape(-1) \
+        .expand(b)[:, None]
+
+
+def _verify_lens(base_len, b, t, device):
+    """(B, T): position t of a burst sees ``base_len + t + 1`` entries."""
+    base = base_len.to(device=device, dtype=torch.int64).reshape(-1).expand(b)
+    return base[:, None] + 1 + torch.arange(t, device=device)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -83,7 +105,8 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     ``kh``.  Masked positions get probability exactly zero, so a slot with
     ``cache_len == 0`` yields 0 — as the split-KV kernel does.
     """
-    return _decode_core(q, k_cache, v_cache, cache_len, window)
+    return _attend_core(q, k_cache, v_cache,
+                        _decode_lens(cache_len, q.shape[0], q.device), window)
 
 
 def decode_attention_q8_ref(q: torch.Tensor, k_codes: torch.Tensor,
@@ -94,7 +117,8 @@ def decode_attention_q8_ref(q: torch.Tensor, k_codes: torch.Tensor,
     hd) int8, scales (B, KH, S, 1) f32.  The K scale multiplies the scores,
     the V scale the probabilities (after their sum), so the codes are
     consumed as they are."""
-    return _decode_core(q, k_codes, v_codes, cache_len, window,
+    return _attend_core(q, k_codes, v_codes,
+                        _decode_lens(cache_len, q.shape[0], q.device), window,
                         k_fold=k_scale[..., 0], v_fold=v_scale[..., 0])
 
 
@@ -128,6 +152,51 @@ def paged_decode_attention_q8_ref(q, k_codes, k_scale, v_codes, v_scale,
         q, gather_pages(k_codes, page_table), gather_pages(k_scale, page_table),
         gather_pages(v_codes, page_table), gather_pages(v_scale, page_table),
         cache_len, window=window)
+
+
+def verify_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, base_len: torch.Tensor,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Multi-position decode attention (speculative verify) in one masked
+    pass.
+
+    q: (B, T, H, hd); caches in their native (B, KH, S, hd) layout with the
+    burst's T fresh entries already written; base_len (B,) valid entries
+    *before* the burst.  Position ``t`` sees the first ``base_len + t + 1``
+    entries (shifted-causal over the burst, its own entry included), so row
+    ``t`` is :func:`decode_attention_ref` at ``cache_len = base_len + t +
+    1``."""
+    b, t = q.shape[:2]
+    return _attend_core(q, k_cache, v_cache,
+                        _verify_lens(base_len, b, t, q.device), window)
+
+
+def verify_attention_q8_ref(q, k_codes, k_scale, v_codes, v_scale, base_len,
+                            window=None):
+    """:func:`verify_attention_ref` against an int8 cache (the scale folds
+    of :func:`decode_attention_q8_ref` over T positions)."""
+    b, t = q.shape[:2]
+    return _attend_core(q, k_codes, v_codes,
+                        _verify_lens(base_len, b, t, q.device), window,
+                        k_fold=k_scale[..., 0], v_fold=v_scale[..., 0])
+
+
+def paged_verify_attention_ref(q, k_store, v_store, page_table, base_len,
+                               window=None):
+    """:func:`verify_attention_ref` against paged stores (gather + mask)."""
+    return verify_attention_ref(q, gather_pages(k_store, page_table),
+                                gather_pages(v_store, page_table), base_len,
+                                window=window)
+
+
+def paged_verify_attention_q8_ref(q, k_codes, k_scale, v_codes, v_scale,
+                                  page_table, base_len, window=None):
+    """:func:`verify_attention_q8_ref` against paged int8 stores (scale
+    stores paged beside the codes)."""
+    return verify_attention_q8_ref(
+        q, gather_pages(k_codes, page_table), gather_pages(k_scale, page_table),
+        gather_pages(v_codes, page_table), gather_pages(v_scale, page_table),
+        base_len, window=window)
 
 
 def quant_error_ref(w: torch.Tensor, scales: torch.Tensor,

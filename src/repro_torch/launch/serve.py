@@ -3,6 +3,9 @@ serve synthetic requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --tiny --device cpu --requests 4
+    # speculative decoding, FAQ int8 self-draft, 3 proposals per cycle
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --spec-k 3 --draft self-int8
 
 Runs on the card by default (``--device cuda``) and fails there is none.
 At full width (``--no-tiny``) the synthetic data vocabulary is capped at
@@ -25,7 +28,9 @@ from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
                                         calibration_batches)
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.serve.draft import registry_draft, self_int8_draft
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.spec import SpecConfig
 
 DATA_VOCAB_CAP = 4096
 
@@ -86,6 +91,13 @@ def main(argv=None):
                     help="chunked prefill: 'auto' picks the second-largest "
                          "bucket, an int rounds up to the bucket grid, 0 "
                          "restores monolithic prefill")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding draft depth (tokens proposed "
+                         "per cycle; 0 disables)")
+    ap.add_argument("--draft", default="self-int8",
+                    help="draft source for --spec-k: 'self-int8' (FAQ int8 "
+                         "self-draft sharing the target's KV) or a registry "
+                         "config name for an independent draft model")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -103,11 +115,21 @@ def main(argv=None):
                                 spec=QuantSpec(bits=args.bits, group_size=64),
                                 mode="packed")
     del params
+    spec = None
+    if args.spec_k > 0:
+        # the self-draft re-quantizes the *serving* weights at int8 with the
+        # same calibration statistics
+        draft = (self_int8_draft(model, qparams, stats)
+                 if args.draft == "self-int8"
+                 else registry_draft(args.draft, tiny=args.tiny,
+                                     device=device))
+        spec = SpecConfig(k=args.spec_k, draft=draft)
     eng = ServeEngine(model, qparams,
                       n_slots=min(args.n_slots, args.requests),
                       max_len=args.max_len, paged=args.paged,
                       page_size=args.page_size, n_pages=args.n_pages,
-                      prefill_chunk=args.prefill_chunk, device=device)
+                      prefill_chunk=args.prefill_chunk, spec=spec,
+                      device=device)
     if args.paged and not eng.paged:
         print("note: model cache layout does not support paging; serving "
               "from the dense cache")
@@ -127,6 +149,11 @@ def main(argv=None):
           f"chunk {m['prefill_chunk'] or 'off'}, "
           f"{m['chunked_admissions']} chunked), "
           f"decode: {m['decode_steps']} steps")
+    if m["spec"]:
+        print(f"spec: k={m['spec_k']} draft={m['draft_kind']}, "
+              f"{m['spec_cycles']} cycles, accept_rate "
+              f"{m['accept_rate']:.3f}, draft_share {m['draft_share']:.3f}, "
+              f"tokens_per_step {m['tokens_per_step']:.2f}")
     if m["paged"]:
         print(f"paged: page_size={m['page_size']}, peak {m['pages_peak']}/"
               f"{m['pages_total']} pages ({m['peak_cache_bytes'] / 1e6:.2f} "

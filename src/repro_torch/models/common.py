@@ -16,6 +16,9 @@ import torch.nn.functional as F
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
 from repro_torch.kernels.ops import quant_matmul
+# the row kernel on a CUDA tensor (a row's bits do not depend on how many
+# rows come with it), its plain version on a CPU tensor
+from repro_torch.kernels.rms_norm import rms_norm
 
 NEG_INF = -1e30
 
@@ -29,16 +32,6 @@ def qlinear(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         return quant_matmul(x, w)
     return x @ w.to(x.dtype)
-
-
-# ---------------------------------------------------------------------------
-# Norms
-# ---------------------------------------------------------------------------
-
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
-    x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
-    return (x32 * w.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -180,11 +173,39 @@ def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens.long(), embedding)
 
 
+# rows per lm_head product: every call has this many rows (zero-padded)
+LM_HEAD_ROWS = 64
+
+
+def _fixed_rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` computed in products of exactly :data:`LM_HEAD_ROWS` rows,
+    each read from a freshly allocated zero-padded buffer.  The library
+    GEMM picks its kernel, and so its summation order, from the shape and
+    the operands' alignment; fixing both makes a row's bits independent of
+    how many rows come with it (a decode step of any batch, a verify pass
+    of B * (K + 1) rows)."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, d)
+    w = w.to(x.dtype)
+    outs = []
+    for i in range(0, x2.shape[0], LM_HEAD_ROWS):
+        rows = x2[i:i + LM_HEAD_ROWS]
+        buf = torch.zeros((LM_HEAD_ROWS, d), dtype=x.dtype, device=x.device)
+        buf[:rows.shape[0]] = rows
+        outs.append(torch.matmul(buf, w)[:rows.shape[0]])
+    return torch.cat(outs).reshape(lead + (w.shape[-1],))
+
+
 def logits_from_hidden(x: torch.Tensor, lm_head, vocab_size: int) -> torch.Tensor:
     """Final projection.  Logits keep the *padded* vocab width; padded
     columns get a -1e30 additive mask so softmax, cross-entropy, and argmax
-    all behave as if the vocab were unpadded."""
-    out = qlinear(x, lm_head)
+    all behave as if the vocab were unpadded.  A float head is multiplied
+    in fixed-size row blocks, so each row's logits are the same bits at any
+    batch (:func:`_fixed_rows_matmul`)."""
+    if isinstance(lm_head, QuantizedTensor):
+        out = qlinear(x, lm_head)
+    else:
+        out = _fixed_rows_matmul(x, lm_head)
     v_pad = out.shape[-1]
     if v_pad != vocab_size:
         bias = torch.where(torch.arange(v_pad, device=out.device) < vocab_size,
@@ -205,17 +226,17 @@ def last_valid_hidden(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 def update_cache_at(cache: torch.Tensor, new: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
-    """Write the one-position span ``new`` (B, KH, 1, hd) into ``cache``
-    (B, KH, S, hd) at per-slot positions ``pos`` (B,), in place (one
-    indexed copy; the reference's functional update copies the cache).
-    Returns ``cache``."""
-    if new.shape[2] != 1:
-        raise NotImplementedError(
-            "multi-position cache writes arrive with speculative decoding")
-    b = cache.shape[0]
+    """Write the span ``new`` (B, KH, T, hd) into ``cache`` (B, KH, S, hd)
+    starting at per-slot positions ``pos`` (B,), in place (one indexed
+    copy; the reference's functional update copies the cache).  T = 1 is
+    the decode step, T > 1 a speculative verify burst; the caller keeps
+    ``pos + T <= S`` (an index past S raises, where the reference's
+    update clamps).  Returns ``cache``."""
+    b, t = cache.shape[0], new.shape[2]
     pos = pos.long().reshape(-1).expand(b)
-    cache[torch.arange(b, device=cache.device), :, pos] = \
-        new[:, :, 0].to(cache.dtype)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    cols = pos[:, None] + torch.arange(t, device=cache.device)
+    cache[rows, :, cols] = new.transpose(1, 2).to(cache.dtype)
     return cache
 
 
@@ -240,16 +261,16 @@ def quantize_kv(x: torch.Tensor):
 def update_pages_at(store: torch.Tensor, new: torch.Tensor,
                     page_ids: torch.Tensor,
                     offsets: torch.Tensor) -> torch.Tensor:
-    """Write each slot's fresh KV entry into its current physical page, in
-    place (one indexed copy).
+    """Write each slot's fresh KV span into its physical pages, in place
+    (one indexed copy).
 
-    store: (P, KH, ps, d); new: (B, KH, 1, d); page_ids/offsets: (B,).  The
-    engine makes every written page exclusively owned first (copy-on-write
-    on the host), and inactive slots' tables point at the trash page 0, so
-    only the trash page can take two writes, and nothing reads it.
-    Returns ``store``."""
-    if new.shape[2] != 1:
-        raise NotImplementedError(
-            "multi-position page writes arrive with speculative decoding")
-    store[page_ids.long(), :, offsets.long()] = new[:, :, 0].to(store.dtype)
+    store: (P, KH, ps, d); new: (B, KH, T, d); page_ids/offsets: (B, T),
+    resolved per position since a verify burst may cross a page boundary
+    ((B,) for T = 1, the reference's form).  The engine makes every written
+    page exclusively owned first (copy-on-write on the host), and inactive
+    slots' tables point at the trash page 0, so only the trash page can
+    take two writes, and nothing reads it.  Returns ``store``."""
+    b, t = new.shape[0], new.shape[2]
+    store[page_ids.long().reshape(b, t), :, offsets.long().reshape(b, t)] = \
+        new.transpose(1, 2).to(store.dtype)
     return store

@@ -11,6 +11,9 @@ the cache holds int8 codes with f32 per-(token, head) scales
 ``(L, B, KH, S, 1)`` beside them.  ``decode_step_paged`` runs against the
 paged store ``(L, P, KH, ps, hd)`` of :meth:`init_paged_cache` through a
 per-slot page table (the serving engine owns the table and the lengths).
+Both decode entry points take T >= 1 tokens per slot: T > 1 is the
+speculative verify burst (``verify_step`` / ``verify_step_paged``), whose
+attention is one T-query launch per layer.
 """
 from __future__ import annotations
 
@@ -22,7 +25,10 @@ from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import (decode_attention, decode_attention_q8,
                                     paged_decode_attention,
-                                    paged_decode_attention_q8)
+                                    paged_decode_attention_q8,
+                                    paged_verify_attention,
+                                    paged_verify_attention_q8,
+                                    verify_attention, verify_attention_q8)
 from .common import (apply_rope, chunked_attention, embed_tokens,
                      last_valid_hidden, logits_from_hidden, padded_vocab,
                      qlinear, quantize_kv, rms_norm, update_cache_at,
@@ -127,20 +133,31 @@ class DenseLM:
                 fresh = (kq, ks, vq, vs)
             else:
                 fresh = (k, v)
-            fresh = tuple(f.transpose(1, 2) for f in fresh)  # (B, KH, 1, .)
+            fresh = tuple(f.transpose(1, 2) for f in fresh)  # (B, KH, T, .)
+            # T = 1 attends cache_len entries; a T-token burst starts at
+            # base = cache_len - T, row i attending base + i + 1
             if paged is not None:
                 table, page_ids, offsets = paged
                 for st, new in zip(cache, fresh):
                     update_pages_at(st, new, page_ids, offsets)
-                attend = (paged_decode_attention_q8 if q8
-                          else paged_decode_attention)
-                o = attend(q, *cache, table, cache_len)
+                if t == 1:
+                    attend = (paged_decode_attention_q8 if q8
+                              else paged_decode_attention)
+                    o = attend(q, *cache, table, cache_len)
+                else:
+                    attend = (paged_verify_attention_q8 if q8
+                              else paged_verify_attention)
+                    o = attend(q, *cache, table, cache_len - t)
             else:
                 pos = cache_len - t
                 for c, new in zip(cache, fresh):
                     update_cache_at(c, new, pos)
-                attend = decode_attention_q8 if q8 else decode_attention
-                o = attend(q, *cache, cache_len)
+                if t == 1:
+                    attend = decode_attention_q8 if q8 else decode_attention
+                    o = attend(q, *cache, cache_len)
+                else:
+                    attend = verify_attention_q8 if q8 else verify_attention
+                    o = attend(q, *cache, pos)
             kv = cache
         o = o.reshape(b, t, cfg.n_heads * hd)
         return qlinear(o, p["wo"]), kv, o
@@ -246,18 +263,18 @@ class DenseLM:
 
     @torch.no_grad()
     def decode_step(self, params, cache, token):
-        """One decode step: token (B, 1) int32.  Each slot's fresh K/V is
-        written at its own ``cache["len"]`` (in place) and attends to its
-        first ``len + 1`` positions through the flash-decode kernel.
-        Returns (logits (B, 1, V), cache) with ``len`` advanced by 1."""
-        b, t = token.shape
-        if t != 1:
-            raise NotImplementedError(
-                "multi-token decode (speculative verify) arrives with "
-                "speculative decoding")
+        """One decode step: token (B, T) int32 with T >= 1.  T = 1 is the
+        decode loop; T > 1 is the speculative verify burst: the T fresh K/V
+        entries are written as one span at each slot's ``cache["len"]`` (in
+        place) and ``logits[:, i]`` is the next-token distribution after
+        ``token[:, :i + 1]`` (position i attends ``len + i + 1`` entries).
+        Returns (logits (B, T, V), cache) with ``len`` advanced by T."""
+        t = token.shape[1]
         base = cache["len"].to(torch.int32)
-        new_len = base + 1
-        logits = self._decode_layers(params, token, base[:, None], new_len,
+        new_len = base + t
+        positions = base[:, None] + torch.arange(t, dtype=torch.int32,
+                                                 device=token.device)
+        logits = self._decode_layers(params, token, positions, new_len,
                                      lambda l: tuple(cache[key][l] for key
                                                      in self._cache_keys()))
         return logits, dict(cache, len=new_len)
@@ -268,29 +285,46 @@ class DenseLM:
 
         store: page stores from :meth:`init_paged_cache` (leaves (L, P, KH,
         ps, .), no ``len``: the engine keeps lengths and tables); token
-        (B, 1) int32; page_table (B, NP) int32 physical ids, shared by all
-        layers; lens (B,) int32 valid entries *before* this step.  The
-        fresh K/V entry of slot b is written at offset ``lens[b] % ps`` of
-        page ``page_table[b, lens[b] // ps]`` (in place).  Returns (logits
-        (B, 1, V), store)."""
+        (B, T) int32 (T = 1 the decode loop, T > 1 a verify burst, as in
+        :meth:`decode_step`); page_table (B, NP) int32 physical ids, shared
+        by all layers; lens (B,) int32 valid entries *before* this step.
+        Fresh entry i of slot b is written at offset ``(lens[b] + i) % ps``
+        of page ``page_table[b, (lens[b] + i) // ps]`` (in place; a burst
+        may cross a page boundary, so pages resolve per position).  Returns
+        (logits (B, T, V), store)."""
         b, t = token.shape
-        if t != 1:
-            raise NotImplementedError(
-                "multi-token paged decode (speculative verify) arrives with "
-                "speculative decoding")
         lens = torch.as_tensor(lens, dtype=torch.int32,
                                device=token.device).reshape(-1).expand(b)
         table = torch.as_tensor(page_table, dtype=torch.int32,
                                 device=token.device)
         ps = store["k"].shape[3]
-        pos = lens.long()
-        page_ids = table.gather(1, (pos // ps)[:, None])[:, 0]
-        paged = (table, page_ids, pos % ps)
-        logits = self._decode_layers(params, token, lens[:, None], lens + 1,
+        positions = lens[:, None] + torch.arange(t, dtype=torch.int32,
+                                                 device=token.device)
+        pos = positions.long()
+        paged = (table, table.gather(1, pos // ps), pos % ps)
+        logits = self._decode_layers(params, token, positions, lens + t,
                                      lambda l: tuple(store[key][l] for key
                                                      in self._cache_keys()),
                                      paged=paged)
         return logits, store
+
+    def verify_step(self, params, cache, tokens):
+        """Score a K+1-token speculative burst in one forward pass.
+
+        ``tokens`` (B, K+1) is each slot's last committed token followed by
+        the draft's proposals; the burst starts at the slot's own
+        ``cache["len"]``.  Writes the burst's K/V span and returns (logits
+        (B, K+1, V), cache) with ``len`` advanced by K+1; the engine rolls
+        rejected suffixes back (:func:`~repro_torch.serve.cache_ops.
+        truncate_slot`).  This is :meth:`decode_step`'s T > 1 form."""
+        return self.decode_step(params, cache, tokens)
+
+    def verify_step_paged(self, params, store, tokens, page_table, lens):
+        """Paged form of :meth:`verify_step`: the burst writes through
+        per-position physical pages (made exclusively owned by the engine
+        first) and the engine trims rejected-suffix pages."""
+        return self.decode_step_paged(params, store, tokens, page_table,
+                                      lens)
 
     def _decode_layers(self, params, token, positions, new_len, layer_cache,
                        paged=None):
@@ -340,5 +374,12 @@ class DenseLM:
         """Paged serving relies on this class's prefill/decode cache
         layout; a subclass that overrides either serves from the dense
         cache."""
+        return (type(self).prefill is DenseLM.prefill
+                and type(self).decode_step is DenseLM.decode_step)
+
+    def supports_spec(self) -> bool:
+        """Speculative verification relies on this class's span-write
+        decode path; a subclass that overrides it serves
+        non-speculatively."""
         return (type(self).prefill is DenseLM.prefill
                 and type(self).decode_step is DenseLM.decode_step)

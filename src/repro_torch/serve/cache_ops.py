@@ -74,3 +74,17 @@ def copy_page(store: dict, src: int, dst: int) -> dict:
     for st in store.values():
         st[:, dst] = st[:, src]
     return store
+
+
+def truncate_slot(cache: dict, new_lens) -> dict:
+    """Roll per-slot cache lengths back to ``new_lens`` (B,).
+
+    The speculative verify writes K+1 fresh entries per slot and advances
+    ``len`` by K+1; after the accept step the engine truncates each slot to
+    its accepted depth.  Entries past ``len`` are invisible to the
+    length-masked attention, so the rejected suffix needs no scrubbing (the
+    next burst overwrites it).  Only ``len`` changes; the returned dict
+    shares every other leaf with ``cache``."""
+    dev = cache["len"].device
+    return dict(cache, len=torch.as_tensor(new_lens, dtype=torch.int32,
+                                           device=dev).reshape(-1))

@@ -25,10 +25,13 @@ identical either way.
 The weights are the *packed* QuantizedTensor representation — every
 quantized matmul runs through the dequant-matmul kernel on the card.
 
-``clock=`` injects the deadline clock (default ``time.time``).
-Speculative decoding, tensor parallelism, SLO admission, fault injection
-and tracing arrive in later slices; their constructor arguments raise
-``NotImplementedError`` until then.
+``spec=SpecConfig(k, draft)`` turns decode steps into speculative draft +
+verify cycles (:mod:`.spec`) with greedy output unchanged.
+
+``clock=`` injects the deadline clock (default ``time.time``).  Tensor
+parallelism, SLO admission, fault injection and tracing arrive in later
+slices; their constructor arguments raise ``NotImplementedError`` until
+then.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from .stepper import DenseStepper, PagedStepper
 
 __all__ = ["Request", "ServeEngine"]
 
-_LATER = ("spec", "mesh", "slo", "faults", "tracer")
+_LATER = ("mesh", "slo", "faults", "tracer")
 
 
 def _first_tensor(tree):
@@ -70,8 +73,7 @@ class ServeEngine:
                  paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None, spec=None, mesh=None,
                  slo=None, faults=None, tracer=None):
-        given = dict(spec=spec, mesh=mesh, slo=slo, faults=faults,
-                     tracer=tracer)
+        given = dict(mesh=mesh, slo=slo, faults=faults, tracer=tracer)
         for name in _LATER:
             if given[name]:
                 raise NotImplementedError(
@@ -115,6 +117,13 @@ class ServeEngine:
 
         self._stepper = (PagedStepper(self, page_size, n_pages)
                          if self.paged else DenseStepper(self))
+        # speculative decoding: a model without the span-write decode path
+        # serves non-speculatively
+        self._spec = None
+        probe_spec = getattr(model, "supports_spec", None)
+        if spec is not None and probe_spec is not None and probe_spec():
+            from .spec import SpecRunner
+            self._spec = SpecRunner(self, spec)
         self._admission = AdmissionPipeline(self)
         self._m = dict(tokens_generated=0, decode_steps=0, prefill_batches=0,
                        admitted=0, completed=0, expired=0, truncated=0,
@@ -224,6 +233,10 @@ class ServeEngine:
     def _admit_bind(self, run: ServeRun, req: Request, s: int):
         if req.resume:
             self._m["resumed"] += 1
+        if self._spec is not None:
+            # an independent draft prefills the effective prompt (prompt
+            # plus emitted tokens for a resumed request) into its own cache
+            self._spec.admit_slot(s, effective_prompt(req))
         run.st.bind(req, s)
         req.resume = False
         self._m["admitted"] += 1
@@ -303,7 +316,11 @@ class ServeEngine:
                     if run.queue:
                         continue    # immediates drained; re-admit
                     break
-                self._plain_step(run)
+                k_eff = self._spec_k(st)
+                if k_eff >= 1:
+                    self._spec_step(run, k_eff)
+                else:
+                    self._plain_step(run)
             except PagePressure as pp:
                 self._hold_fill = relieve_pressure(self, run, pp)
         self._m["serve_time_s"] += self.clock() - t0
@@ -339,6 +356,57 @@ class ServeEngine:
             self._emit(req, int(toks[s]))
             self._finish_checks(run, req, s, now)
 
+    def _spec_step(self, run: ServeRun, k_eff: int):
+        """One speculative draft + verify burst and its emission; rejected
+        suffixes roll back through the stepper hooks."""
+        st = run.st
+        out, n_acc = self._stepper.spec_cycle(st, k_eff)
+        last = st.slot_last.cpu().numpy().copy()
+        self._m["decode_steps"] += 1
+        now = self.clock()
+        for s in range(self.n_slots):
+            req = st.req[s]
+            if req is None or not st.active[s]:
+                continue
+            consumed = 0
+            for i in range(int(n_acc[s]) + 1):
+                consumed = i + 1
+                st.slot_len[s] += 1
+                if st.slot_len[s] > self.max_len:
+                    raise RuntimeError(f"slot {s}: cache len "
+                                       f"{st.slot_len[s]} > max_len "
+                                       f"{self.max_len}")
+                last[s] = int(out[s, i])
+                self._emit(req, int(out[s, i]))
+                self._finish_checks(run, req, s, now)
+                if not st.active[s]:
+                    break
+            # draft proposals that reached the output (position n_acc is the
+            # correction or bonus, not a proposal)
+            self._spec.m["emitted_draft_tokens"] += min(consumed,
+                                                        int(n_acc[s]))
+            if st.active[s]:
+                self._stepper.post_spec_slot(st, s)
+        st.slot_last = torch.as_tensor(last, device=self.device)
+        self._stepper.spec_rollback(st)
+
+    def _spec_k(self, st) -> int:
+        """Draft depth for this iteration: the configured k shrunk to the
+        tightest active slot's cache room (a cycle writes k + 1 positions
+        per slot) and to the largest remaining token budget (a deeper burst
+        would be paid for and thrown away).  0 runs a plain decode step:
+        near-capacity slots and prompt-filling slots (chunked or prefix
+        hit) keep the truncation semantics of non-speculative serving."""
+        if self._spec is None:
+            return 0
+        live = [s for s in range(self.n_slots) if st.active[s]]
+        if any(st.fill[s] is not None for s in live):
+            return 0
+        room = min(self.max_len - int(st.slot_len[s]) for s in live)
+        budget = max(st.req[s].max_new_tokens - len(st.req[s].out_tokens)
+                     for s in live)
+        return max(0, min(self._spec.cfg.k, room - 1, budget - 1))
+
     # -- observability -------------------------------------------------------
     def metrics(self) -> dict:
         """Counter snapshot (a plain dict) plus the engine's settings; a
@@ -346,6 +414,18 @@ class ServeEngine:
         the peak of *pinned* pages (what a deployment would size
         ``n_pages`` from); ``alloc_cache_bytes`` is the whole store."""
         m = dict(self._m)
+        m["tokens_per_step"] = (m["tokens_generated"]
+                                / max(m["decode_steps"], 1))
+        m["spec"] = self._spec is not None
+        if self._spec is not None:
+            m.update(self._spec.metrics())
+            m["accept_rate"] = (m["accepted_tokens"]
+                                / max(m["proposed_tokens"], 1))
+            # share of emitted tokens the draft proposed (the rest are
+            # first tokens and verify corrections or bonuses); counts the
+            # emitted ones, since a burst cut by a budget accepts more
+            m["draft_share"] = (m["emitted_draft_tokens"]
+                                / max(m["tokens_generated"], 1))
         m["buckets"] = list(self.buckets)
         m["prefill_chunk"] = self.prefill_chunk or 0
         m["paged"] = self.paged

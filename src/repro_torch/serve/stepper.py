@@ -13,6 +13,10 @@ interface:
   exact-length fallback for models without ``prompt_len`` prefill,
 * ``plain_step`` — one masked decode step (teacher-forcing chunked /
   prefix-hit prompt tails from the slot table's ``fill`` lists),
+* ``spec_cycle`` + ``post_spec_slot`` / ``spec_rollback`` — one
+  speculative draft + verify burst and its rejected-suffix rollback
+  (dense: length truncation; paged: returning exclusively owned pages past
+  the accepted depth),
 * ``retire`` / ``preempt`` / ``fill_done`` — slot lifecycle hooks (paged:
   release page refs / publish full blocks to the prefix index),
 * ``reserve_admit`` / ``pages_needed`` / ``fits_pool`` /
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from .cache_ops import (copy_page, merge_slots, scatter_prefill_pages,
-                        write_slot)
+                        truncate_slot, write_slot)
 from .pages import PagePool, PagePressure, block_hashes
 from .sampler import policy_in_use, sample_tokens
 from .slots import SlotTable
@@ -150,13 +154,38 @@ class DenseStepper:
         st.slot_last = st.slot_last.clone()
         st.slot_last[s] = first[0]
 
-    # -- decode-loop entry point ---------------------------------------------
+    # -- decode-loop entry points --------------------------------------------
     def plain_step(self, st: SlotTable):
         eng = self.engine
+        sl = st.input_tokens()
+        if eng._spec is not None:
+            # keep the independent draft's cache aligned through plain
+            # fallback and fill steps (the self-draft shares the cache)
+            eng._spec.track_step(sl, np.where(
+                st.active, st.slot_len,
+                np.minimum(st.slot_len, eng.max_len - 1)))
         st.slot_last, self.cache = self.decode(
-            self.cache, st.input_tokens(),
-            torch.as_tensor(st.active, device=eng.device),
+            self.cache, sl, torch.as_tensor(st.active, device=eng.device),
             self.policy_args(st.temps, st.top_k, st.top_p))
+
+    def spec_cycle(self, st: SlotTable, k_eff: int):
+        """One speculative cycle; inactive slots' bursts start at a length
+        clamped so that all k_eff + 1 writes stay inside the cache."""
+        eng = self.engine
+        lens = np.where(st.active, st.slot_len,
+                        np.minimum(st.slot_len, eng.max_len - (k_eff + 1)))
+        out, n_acc, self.cache = eng._spec.run_cycle(
+            self.cache, lens, st.slot_last, st.active, st.temps, st.top_k,
+            st.top_p, k_eff)
+        return out, n_acc
+
+    def post_spec_slot(self, st: SlotTable, s: int):
+        pass
+
+    def spec_rollback(self, st: SlotTable):
+        """Republish the host lengths after a burst: rejected suffixes roll
+        back by length alone."""
+        self.cache = truncate_slot(self.cache, st.slot_len)
 
 
 class PagedStepper(DenseStepper):
@@ -340,6 +369,10 @@ class PagedStepper(DenseStepper):
                 lens[s] = st.slot_len[s]
                 self.ensure_writable(s, int(st.slot_len[s]))
         slot_last = st.input_tokens()
+        if eng._spec is not None:
+            # align the independent draft's cache through fill and fallback
+            # steps (it sees the same token stream)
+            eng._spec.track_step(slot_last, lens)
         active = torch.as_tensor(st.active, device=dev)
         logits, self.store = eng.model.decode_step_paged(
             eng.params, self.store, slot_last[:, None],
@@ -348,3 +381,37 @@ class PagedStepper(DenseStepper):
         nxt = self._sample(logits[:, 0],
                            self.policy_args(st.temps, st.top_k, st.top_p))
         st.slot_last = torch.where(active, nxt, slot_last)
+
+    def spec_cycle(self, st: SlotTable, k_eff: int):
+        """Paged speculative cycle: own every page the burst writes
+        (allocate, or copy-on-write) first, then draft + verify."""
+        eng = self.engine
+        lens = np.minimum(st.slot_len, eng.max_len - (k_eff + 1))
+        for s in range(eng.n_slots):
+            if not st.active[s]:
+                continue
+            lens[s] = st.slot_len[s]
+            for pos in range(int(st.slot_len[s]),
+                             int(st.slot_len[s]) + k_eff + 1):
+                self.ensure_writable(s, pos)
+        out, n_acc, self.store = eng._spec.run_cycle(
+            self.store, lens, st.slot_last, st.active, st.temps, st.top_k,
+            st.top_p, k_eff, table=self.table)
+        return out, n_acc
+
+    def post_spec_slot(self, st: SlotTable, s: int):
+        """Rejected-suffix rollback: pages wholly past the accepted depth
+        were allocated (or copied) for this burst and are exclusively owned;
+        shared prefix pages all sit below ``slot_len``."""
+        ps = self.page_size
+        for j in range(self.pages_per_slot):
+            phys = int(self.table[s, j])
+            if phys != PagePool.TRASH and j * ps >= st.slot_len[s]:
+                if self.pool.is_shared(phys):
+                    raise RuntimeError(f"slot {s}: page {phys} past the "
+                                       f"accepted depth is shared")
+                self.pool.decref(phys)
+                self.table[s, j] = PagePool.TRASH
+
+    def spec_rollback(self, st: SlotTable):
+        pass    # per-slot page trim happens in post_spec_slot

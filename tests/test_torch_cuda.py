@@ -22,7 +22,18 @@ quant_matmul a row's bits whatever m is (``torch.equal``).  quant_error's
 terms are the plain version's bit for bit (its division and rounding equal
 ``__fdiv_rn`` and ``rintf`` on 1.3e8 operand pairs), so it is held to
 rtol 1e-5 (summation order), and must give the same bits on repeated
-calls and for any subset of its candidates.
+calls and for any subset of its candidates, also for subnormal and
+near-zero weights and smoothing scales down to 1e-38.
+
+Speculative decoding: every verify variant's row t gives the bits of the
+single-position kernel at ``base + t + 1`` (across split and page
+boundaries) in one launch; rms_norm is held to max abs error 1e-2 *
+max|plain| in bf16 (output rounding) and 1e-5 in f32 (summation order),
+and a row's bits do not depend on the rows beside it.  At llama3-8b's
+full width (2 of its 32 layers, RTN int4 weights), one decode step gives
+each slot the same logits at batch 1, 2 and 4, and ``verify_step`` over a
+4-token burst the logits of 4 sequential ``decode_step`` calls, bit for
+bit, for the bf16, int8 and paged caches.
 """
 import ctypes
 import math
@@ -30,13 +41,16 @@ import math
 import pytest
 import torch
 
-from repro_torch.core import QuantSpec, quantize_groupwise
+from repro_torch.configs import ARCHS
+from repro_torch.core import QuantSpec, quantize_groupwise, quantize_model
 from repro_torch.core.methods import DEFAULT_ALPHA_GRID, candidate_scale
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import quant_error as qe
 from repro_torch.kernels import quant_matmul as qm
+from repro_torch.kernels import rms_norm as rn
 from repro_torch.models.common import quantize_kv
+from repro_torch.models.registry import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -481,3 +495,231 @@ def test_flash_decode_on_two_streams_at_once(dev):
     torch.cuda.synchronize(dev)
     for want, outs in zip(alone, got):
         assert all(torch.equal(o, want) for o in outs)
+
+
+def test_quant_error_near_underflow_matches_plain(dev):
+    """Operands near underflow: subnormal, near-zero and zero weights (the
+    products w * s underflow, group ranges fall below the 1e-8 scale floor)
+    and smoothing scales log-uniform down to 1e-38 (subnormal; their
+    reciprocals up to 1e38), against the plain version; and the kernel's
+    division equal to __fdiv_rn on the pairs such inputs form."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k, n, a = 256, 384, 6
+    mag = torch.exp(torch.empty(k, n, device=dev).uniform_(
+        math.log(1e-45), math.log(1e-3), generator=gen))
+    sign = torch.randint(0, 2, (k, n), device=dev, generator=gen) * 2 - 1
+    w = sign * mag
+    w[::7] = 0.0
+    w[1::7] *= 1e-30
+    scales = torch.exp(torch.empty(a, k, device=dev).uniform_(
+        math.log(1e-38), 0.0, generator=gen))
+    scales[0] = 1.0
+    msq = torch.rand(k, generator=gen, device=dev)
+    assert bool((w.abs() < 1.1754944e-38).any() & (w != 0).any())
+    assert bool((scales < 1.1754944e-38).any())
+    for g, sym in [(64, False), (128, True), (32, False)]:
+        spec = QuantSpec(4, g, symmetric=sym)
+        got = qe.quant_error(w, scales, msq, spec)
+        want = qe.quant_error_ref(w, scales, msq, spec)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, atol=0, rtol=1e-5)
+    # the division equal to __fdiv_rn wherever the quotient is normal: a
+    # subnormal quotient (|ws| / scale < 2^-126, range / denom under the
+    # 1e-8 floor) rounds to code 0 or is floored whatever its last bit,
+    # which the comparison above holds end to end
+    size = 1 << 22
+
+    def log_uniform(lo, hi):
+        return torch.exp(torch.empty(size, device=dev).uniform_(
+            math.log(lo), math.log(hi), generator=gen))
+
+    def signed(x):
+        return x * (torch.randint(0, 2, (size,), device=dev,
+                                  generator=gen) * 2 - 1)
+
+    for num, den in [
+            # subnormal ws over the floored scale
+            (signed(log_uniform(1e-45, 1.1754944e-38)),
+             torch.full((size,), 1e-8, device=dev)),
+            # near-underflow ws over scales of small groups
+            (signed(log_uniform(1e-30, 1e-20)), log_uniform(1e-8, 1.0)),
+            # (code - zero) * scale over smoothing scales down to 1e-38
+            (signed(log_uniform(1e-8, 1e-6)), log_uniform(1e-38, 1.0))]:
+        assert _div_check(num, den)[0] == 0
+
+
+def _verify_inputs(variant, t, gen, dev, dtype=torch.bfloat16,
+                   b=4, h=32, kh=8, s=1024, hd=128, ps=16):
+    """q (B, T, H, hd) and the cache arguments of ``variant`` (dense, q8,
+    paged or paged_q8), with bases whose bursts cross a 64-position split
+    and a 16-position page boundary."""
+    q = torch.randn(b, t, h, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, kh, s, hd, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    base = torch.tensor([60, 126, 0, 700][:b], dtype=torch.int32, device=dev)
+    perm = (torch.randperm(b * s // ps, generator=gen, device=dev) + 1) \
+        .reshape(b, -1).to(torch.int32)
+    if variant == "dense":
+        return q, (k, v), base
+    if variant == "q8":
+        return q, (*_q8(k), *_q8(v)), base
+    if variant == "paged":
+        return q, (_paged(k, ps, perm), _paged(v, ps, perm), perm), base
+    return q, (*(_paged(x, ps, perm) for x in (*_q8(k), *_q8(v))), perm), base
+
+
+_VERIFY = {"dense": (fd.flash_verify, fd.flash_decode, fd.VERIFY,
+                     fd.verify_attention_ref),
+           "q8": (fd.flash_verify_q8, fd.flash_decode_q8, fd.VERIFY_Q8,
+                  fd.verify_attention_q8_ref),
+           "paged": (fd.flash_verify_paged, fd.flash_decode_paged,
+                     fd.VERIFY_PAGED, fd.paged_verify_attention_ref),
+           "paged_q8": (fd.flash_verify_paged_q8, fd.flash_decode_paged_q8,
+                        fd.VERIFY_PAGED_Q8,
+                        fd.paged_verify_attention_q8_ref)}
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("t", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["dense", "q8", "paged", "paged_q8"])
+def test_flash_verify_rows_equal_single_position_launches(dev, variant, t,
+                                                          window):
+    """One launch for the burst; row t has the bits of the decode kernel at
+    base + t + 1, and the burst is within bf16 tolerance of the plain
+    version."""
+    verify, decode, kernel, plain = _VERIFY[variant]
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q, args, base = _verify_inputs(variant, t, gen, dev)
+    before = kernel.launches
+    got = verify(q, *args, base, window=window)
+    assert kernel.launches == before + 1
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    for i in range(t):
+        want = decode(q[:, i:i + 1].contiguous(), *args, base + i + 1,
+                      window=window)
+        assert torch.equal(got[:, i:i + 1], want), i
+    ref = plain(q, *args, base, window=window)
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        1e-2 * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("variant", ["dense", "q8", "paged", "paged_q8"])
+def test_flash_verify_f32_matches_plain(dev, variant):
+    verify, _, _, plain = _VERIFY[variant]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, args, base = _verify_inputs(variant, 3, gen, dev, torch.float32, b=3,
+                                   h=4, kh=2, s=768, hd=32, ps=8)
+    torch.testing.assert_close(verify(q, *args, base),
+                               plain(q, *args, base), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [4096, 100, 36])
+def test_rms_norm_matches_plain_and_rows_do_not_depend_on_the_batch(
+        dev, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = (torch.randn(17 * d + 1, generator=gen, device=dev) * 3).to(dtype)
+    w = (torch.rand(d, generator=gen, device=dev) + 0.5).to(dtype)
+    rows = x[:16 * d].view(16, d)
+    before = rn.KERNEL.launches
+    got = rn.rms_norm(rows, w, 1e-5)
+    assert rn.KERNEL.launches == before + 1
+    want = rn.rms_norm_ref(rows, w, 1e-5)
+    tol = (1e-2 * float(want.float().abs().max()) if dtype == torch.bfloat16
+           else 1e-5 * max(1.0, float(want.abs().max())))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    for i in (0, 5, 15):
+        assert torch.equal(rn.rms_norm(rows[i:i + 1], w, 1e-5)[0], got[i])
+    assert torch.equal(rn.rms_norm(rows[:4].reshape(2, 2, d), w, 1e-5),
+                       got[:4].reshape(2, 2, d))
+    # a row at an address that rules out 16-byte loads: the same bits
+    shifted = x[1:16 * d + 1].view(16, d)
+    shifted.copy_(rows.clone())
+    assert torch.equal(rn.rms_norm(shifted, w, 1e-5), got)
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    """llama3-8b at full width (d_model 4096, 32 heads, 8 KV heads, d_ff
+    14336, vocab 128256) and 2 of its 32 layers, random bf16 weights
+    packed to int4 by RTN (g = 64), and 4 prompts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    cfg = ARCHS["llama3-8b"].scaled(n_layers=2)
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    qp, _ = quantize_model(params, model.quant_site_map(), None,
+                           method="rtn", spec=QuantSpec(4, 64),
+                           mode="packed")
+    gen = torch.Generator().manual_seed(0)
+    plen = torch.tensor([12, 60, 126, 200], dtype=torch.int32)
+    tokens = torch.randint(1, 4096, (4, 256), generator=gen).int()
+    return cfg, qp, tokens, plen
+
+
+def _prefilled(cfg, qp, tokens, plen, kv_bits):
+    model = build_model(cfg.scaled(kv_cache_bits=kv_bits))
+    cache = model.init_cache(4, 512)
+    nxt, cache = model.prefill(qp, tokens.cuda(), cache, plen.cuda())
+    return model, cache, nxt[:, 0].argmax(-1).int()
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_decode_logits_do_not_depend_on_the_batch(full_width, kv_bits):
+    cfg, qp, tokens, plen = full_width
+    model, cache, nxt = _prefilled(cfg, qp, tokens, plen, kv_bits)
+    logits = {}
+    for b in (4, 2, 1):
+        sub = {k: (v[:b].clone() if k == "len" else v[:, :b].clone())
+               for k, v in cache.items()}
+        logits[b], _ = model.decode_step(qp, sub, nxt[:b, None])
+    for b in (2, 1):
+        assert torch.equal(logits[b], logits[4][:b]), b
+
+
+def _to_pages(cache, ps):
+    """The dense cache's (L, B, KH, S, d) leaves as page stores, layer by
+    layer (:func:`_paged`), behind a table that maps slot b's logical page
+    j to page 1 + b * NP + j."""
+    b, s = cache["k"].shape[1], cache["k"].shape[3]
+    table = (1 + torch.arange(b * (s // ps), device="cuda")).reshape(b, -1) \
+        .to(torch.int32)
+    return {key: torch.stack([_paged(layer, ps, table) for layer in leaf])
+            for key, leaf in cache.items() if key != "len"}, table
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "paged"])
+def test_verify_step_equals_sequential_decode_steps(full_width, kind):
+    """A 4-token burst scored by verify_step gives the logits of 4
+    sequential decode steps from the same cache state, bit for bit (the
+    bursts from lengths 12/60/126/200 cross a split and a page)."""
+    cfg, qp, tokens, plen = full_width
+    model, cache, nxt = _prefilled(cfg, qp, tokens, plen,
+                                   8 if kind == "int8" else 16)
+    gen = torch.Generator().manual_seed(1)
+    burst = torch.cat([nxt[:, None].cpu(), torch.randint(
+        1, 4096, (4, 3), generator=gen).int()], dim=1).cuda()
+    clone = lambda c: {k: v.clone() for k, v in c.items()}
+    before = fd.VERIFY.launches + fd.VERIFY_PAGED.launches \
+        + fd.VERIFY_Q8.launches
+    if kind == "paged":
+        store, table = _to_pages(cache, 16)
+        got, _ = model.verify_step_paged(qp, {k: v.clone() for k, v in
+                                              store.items()},
+                                         burst, table, cache["len"])
+        steps = []
+        for i in range(4):
+            lg, store = model.decode_step_paged(qp, store, burst[:, i:i + 1],
+                                                table, cache["len"] + i)
+            steps.append(lg)
+    else:
+        got, after = model.verify_step(qp, clone(cache), burst)
+        assert torch.equal(after["len"], cache["len"] + 4)
+        steps, c = [], clone(cache)
+        for i in range(4):
+            lg, c = model.decode_step(qp, c, burst[:, i:i + 1])
+            steps.append(lg)
+    launched = fd.VERIFY.launches + fd.VERIFY_PAGED.launches \
+        + fd.VERIFY_Q8.launches - before
+    assert launched == cfg.n_layers       # one verify launch per layer
+    assert torch.equal(got, torch.cat(steps, dim=1))

@@ -47,6 +47,8 @@ def test_port_imports_with_jax_unimportable():
             "sys.modules['jaxlib'] = None\n"
             "import repro_torch.launch.serve\n"
             "import repro_torch.bridge\n"
+            "import repro_torch.serve.spec, repro_torch.serve.draft\n"
+            "import repro_torch.kernels.rms_norm\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'imported repro'\n"
             "print('ok')\n")

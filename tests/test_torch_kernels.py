@@ -16,12 +16,16 @@ from repro.core import quantize_groupwise as j_quantize
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.flash_decode import flash_decode_pallas
 from repro.kernels.quant_matmul import quant_matmul_pallas
+from repro.models.common import rms_norm as j_rms_norm
+from repro.models.common import update_cache_at as j_update_cache_at
 from repro_torch.core import QuantSpec, quantize_groupwise
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import quant_matmul as qm
-from repro_torch.models.common import chunked_attention
+from repro_torch.kernels import rms_norm as rn
+from repro_torch.models.common import (LM_HEAD_ROWS, chunked_attention,
+                                       logits_from_hidden, update_cache_at)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -131,6 +135,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         fd.flash_decode(torch.zeros(2, 2, 4, 8), torch.zeros(2, 2, 16, 8),
                         torch.zeros(2, 2, 16, 8), torch.ones(2))
+    with pytest.raises(ValueError, match="B, T, H"):
+        fd.flash_verify(torch.zeros(2, 0, 4, 8), torch.zeros(2, 2, 16, 8),
+                        torch.zeros(2, 2, 16, 8), torch.ones(2))
+    with pytest.raises(ValueError, match="does not match"):
+        rn.rms_norm(torch.zeros(3, 8), torch.ones(6))
 
 
 def test_cpu_tensors_never_touch_the_build(monkeypatch):
@@ -142,7 +151,8 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
 
     monkeypatch.setattr(_build, "_load", refuse)
     monkeypatch.setattr(_build, "_build_locked", refuse)
-    before = [qm.KERNEL.launches, fd.KERNEL.launches, fa.KERNEL.launches]
+    before = [qm.KERNEL.launches, fd.KERNEL.launches, fa.KERNEL.launches,
+              fd.VERIFY.launches, rn.KERNEL.launches]
     qt = quantize_groupwise(torch.randn(64, 32), QuantSpec(4, 32), pack=True)
     ops.quant_matmul(torch.randn(3, 64), qt)
     ops.decode_attention(torch.randn(2, 1, 4, 16), torch.randn(2, 2, 8, 16),
@@ -152,5 +162,85 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
                       torch.randn(1, 128, 2, 16))
     fa.flash_attention(torch.randn(2, 2, 128, 16), torch.randn(2, 128, 16),
                        torch.randn(2, 128, 16))
-    assert [qm.KERNEL.launches, fd.KERNEL.launches,
-            fa.KERNEL.launches] == before == [0, 0, 0]
+    ops.verify_attention(torch.randn(2, 3, 4, 16), torch.randn(2, 2, 8, 16),
+                         torch.randn(2, 2, 8, 16),
+                         torch.tensor([3, 5], dtype=torch.int32))
+    rn.rms_norm(torch.randn(3, 16), torch.ones(16))
+    assert [qm.KERNEL.launches, fd.KERNEL.launches, fa.KERNEL.launches,
+            fd.VERIFY.launches, rn.KERNEL.launches] == before == [0] * 5
+
+
+@pytest.mark.parametrize("shape", [(3, 128), (2, 5, 100), (1, 36)])
+def test_rms_norm_plain_matches_reference(shape):
+    rng = np.random.default_rng(len(shape))
+    x = (rng.normal(size=shape) * 3).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, size=shape[-1]).astype(np.float32)
+    got = rn.rms_norm(torch.as_tensor(x), torch.as_tensor(w), 1e-5)
+    np.testing.assert_allclose(
+        _np(got), np.asarray(j_rms_norm(jnp.asarray(x), jnp.asarray(w),
+                                        1e-5)), **TOL)
+
+
+@pytest.mark.parametrize("variant", ["dense", "q8", "paged", "paged_q8"])
+def test_verify_rows_equal_decode_on_cpu(variant):
+    """The verify wrappers' plain path: row t equals the decode wrapper at
+    base + t + 1 (the card holds the same bit for bit)."""
+    from repro_torch.models.common import quantize_kv
+
+    gen = torch.Generator().manual_seed(2)
+    b, t, h, kh, s, hd, ps = 3, 5, 4, 2, 32, 16, 8
+    q = torch.randn(b, t, h, hd, generator=gen)
+    k, v = (torch.randn(b, kh, s, hd, generator=gen) for _ in range(2))
+    base = torch.tensor([0, 6, 27], dtype=torch.int32)
+
+    def q8(c):
+        codes, scale = quantize_kv(c.transpose(1, 2))
+        return codes.transpose(1, 2), scale.transpose(1, 2)
+
+    def pages(c):
+        return c.reshape(b, kh, s // ps, ps, -1).permute(0, 2, 1, 3, 4) \
+            .reshape(b * s // ps, kh, ps, -1)
+
+    table = torch.arange(b * s // ps, dtype=torch.int32).reshape(b, -1)
+    leaves = (k, v) if variant in ("dense", "paged") else (*q8(k), *q8(v))
+    if variant.startswith("paged"):
+        args = (*(pages(x) for x in leaves), table)
+    else:
+        args = leaves
+    verify = {"dense": fd.flash_verify, "q8": fd.flash_verify_q8,
+              "paged": fd.flash_verify_paged,
+              "paged_q8": fd.flash_verify_paged_q8}[variant]
+    decode = {"dense": fd.flash_decode, "q8": fd.flash_decode_q8,
+              "paged": fd.flash_decode_paged,
+              "paged_q8": fd.flash_decode_paged_q8}[variant]
+    got = verify(q, *args, base, window=6)
+    for i in range(t):
+        torch.testing.assert_close(
+            got[:, i:i + 1], decode(q[:, i:i + 1], *args, base + i + 1,
+                                    window=6), **TOL)
+
+
+def test_update_cache_at_span_matches_reference():
+    rng = np.random.default_rng(3)
+    cache = rng.normal(size=(3, 2, 16, 8)).astype(np.float32)
+    new = rng.normal(size=(3, 2, 4, 8)).astype(np.float32)
+    pos = np.array([0, 5, 12], np.int32)
+    want = j_update_cache_at(jnp.asarray(cache), jnp.asarray(new),
+                             jnp.asarray(pos))
+    got = update_cache_at(torch.as_tensor(cache.copy()), torch.as_tensor(new),
+                          torch.as_tensor(pos))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_lm_head_rows_in_fixed_blocks():
+    """The float head multiplies in zero-padded blocks of LM_HEAD_ROWS rows:
+    any row count (one block, several, a ragged last one) gives x @ w."""
+    gen = torch.Generator().manual_seed(4)
+    w = torch.randn(32, 300, generator=gen)
+    for rows in (1, LM_HEAD_ROWS, 2 * LM_HEAD_ROWS + 3):
+        x = torch.randn(2, rows, 32, generator=gen)
+        got = logits_from_hidden(x, w, 290)
+        want = x @ w
+        assert got.shape == (2, rows, 300)
+        torch.testing.assert_close(got[..., :290], want[..., :290], **TOL)
+        assert bool((got[..., 290:] < -1e29).all())

@@ -122,11 +122,51 @@ def test_full_length_prefill_matches(models):
 
 
 def test_unported_model_options_raise(models):
-    tp = models["float"][1]
-    cache = models["tm"].init_cache(1, 8, device="cpu")
+    """Sliding-window attention arrives with the hybrid family."""
     with pytest.raises(NotImplementedError):
-        models["tm"].decode_step(tp, cache, torch.zeros(1, 2,
-                                                        dtype=torch.int32))
+        t_build(models["cfg"].scaled(sliding_window=16))
+
+
+@pytest.mark.parametrize("kind", ["float", "packed"])
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_multi_token_decode_step_matches(models, kind, kv_bits):
+    """decode_step at T = 4 (the speculative verify burst) against repro's
+    from the same prefilled cache: logits (B, 4, V), the written span and
+    ``len`` advanced by 4; then verify_step_paged gives the same logits
+    through a page table whose burst crosses a page boundary."""
+    jp, tp = models[kind]
+    cfg = models["cfg"].scaled(kv_cache_bits=kv_bits)
+    jm, tm = j_build(cfg), t_build(cfg)
+    rng = np.random.default_rng(6)
+    b, t, s = 3, 12, 32
+    toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    plen = np.array([12, 6, 9], np.int32)
+    _, jc = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(b, s),
+                       prompt_len=jnp.asarray(plen))
+    tc = {k: torch.as_tensor(np.array(v)) for k, v in jc.items()}
+    burst = rng.integers(0, cfg.vocab_size, (b, 4)).astype(np.int32)
+    jl, jc2 = jm.decode_step(jp, jc, jnp.asarray(burst))
+    tl, tc2 = tm.decode_step(tp, dict(tc), torch.as_tensor(burst))
+    assert tl.shape == (b, 4, tl.shape[-1])
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    np.testing.assert_array_equal(_np(tc2["len"]), plen + 4)
+    keys = ("k", "v") if kv_bits == 16 else ("k_scale", "v_scale")
+    for key in keys:
+        np.testing.assert_allclose(_np(tc2[key]), np.asarray(jc2[key]), **TOL)
+    # the same burst through pages of 8 positions (slot 1's span 6..9
+    # crosses into its second page)
+    ps, n_pages = 8, s // 8
+    table = (1 + np.arange(b * n_pages)).reshape(b, n_pages).astype(np.int32)
+    store = tm.init_paged_cache(1 + b * n_pages, ps, device="cpu")
+    for key, leaf in store.items():
+        dense = torch.as_tensor(np.array(jc[key]))      # (L, B, KH, S, d)
+        n_l, _, kh, _, d = dense.shape
+        leaf[:, 1:] = dense.reshape(n_l, b, kh, n_pages, ps, d) \
+            .permute(0, 1, 3, 2, 4, 5).reshape(n_l, b * n_pages, kh, ps, d)
+    pl, _ = tm.verify_step_paged(tp, store, torch.as_tensor(burst),
+                                 torch.as_tensor(table),
+                                 torch.as_tensor(plen))
+    np.testing.assert_allclose(_np(pl), np.asarray(jl), **TOL)
 
 
 @pytest.mark.parametrize("kind", ["float", "packed"])

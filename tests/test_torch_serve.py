@@ -177,8 +177,7 @@ def test_deadlines_and_zero_budget_follow_the_clock(slice_run):
     assert (m["expired"], m["truncated"], m["completed"]) == (1, 1, 1)
 
 
-@pytest.mark.parametrize("option", ["spec", "mesh", "slo", "faults",
-                                    "tracer"])
+@pytest.mark.parametrize("option", ["mesh", "slo", "faults", "tracer"])
 def test_unported_engine_options_raise(slice_run, option):
     with pytest.raises(NotImplementedError, match=option):
         ServeEngine(slice_run["tm"], slice_run["tq"], device="cpu",
