@@ -30,7 +30,11 @@ Phases (any failure exits non-zero; nothing is caught):
               single-position launch at base + t + 1, timed beside those
               4 launches and, dense, one masked scaled_dot_product_attention;
               rms_norm at 4 and 16 rows of 4096 beside
-              ``torch.nn.functional.rms_norm``);
+              ``torch.nn.functional.rms_norm``; flash_attention also with
+              a key length per row, 4 prompts of 300..450 tokens padded to
+              512, each prompt's rows bit for bit against the prompt alone
+              at its exact length, timed beside a masked
+              scaled_dot_product_attention);
 4. reference — a tiny llama3-8b on the card (kernels) against the same
               model on the CPU (plain versions): logits and greedy tokens;
 5. main path — llama3-8b at full width and depth (d_model 4096, 32 heads,
@@ -40,15 +44,16 @@ Phases (any failure exits non-zero; nothing is caught):
               then a 4-slot engine serves 8 greedy requests of 12..700
               prompt tokens (bucketed and chunked prefill) for 32 tokens
               each.  Request 0 is served again alone through the same
-              engine and must match bit for bit (slot isolation: the
-              same kernel shapes run); it is also regenerated with the
-              batch-1 ``generate``, and both outputs must be greedy
-              decodes of a teacher-forced exact-length forward up to
-              ``TIE_TOL`` (bf16 logits of a batch-4 bucket-padded and a
-              batch-1 exact-length prefill may round differently at a
-              tie: the plain chunked attention of bucket-padded prefill
-              picks its summation order by shape; decode rows are
-              batch-invariant, checked below).  Then, on the same packed weights: the
+              engine and must match bit for bit; every request admitted
+              whole (prompt within the 512-token chunk) is regenerated
+              with the batch-1 ``generate`` and must match the engine bit
+              for bit (bucket-padded prefill runs the length-masked
+              flash-attention kernel, whose rows do not depend on the
+              bucket or the batch; decode rows are batch-invariant); the
+              two chunked requests, whose prompt tails go through decode
+              steps by design, must be greedy decodes of a teacher-forced
+              exact-length forward up to ``TIE_TOL``.  Then, on the same
+              packed weights: the
               paged engine serves the same requests and must give the
               dense engine's tokens bit for bit; 8 requests sharing a
               256-token prefix are served twice (prefix hits, the second
@@ -67,11 +72,23 @@ Phases (any failure exits non-zero; nothing is caught):
               int8 KV, equal to plain serving bit for bit; the 8 mixed
               requests greedy up to ties; an independent 2-layer
               llama3-8b-width draft with random weights, equal to plain
-              serving bit for bit.  The launch counters are zeroed just
-              before each of these paths and read just after it;
-6. profile  — torch.profiler over one short serve: device busy time
-              against wall time, device operations per engine step, and
-              the top kernels.
+              serving bit for bit.  Then the serving layers above the
+              engine: 12 Poisson requests (12..700-token prompts) through
+              ``Scheduler.run_traffic`` at half the closed-loop rate, dense
+              and paged, equal to a closed-loop serve bit for bit, with
+              TTFT, queue-delay and per-token percentiles; the same trace
+              at twice the rate under SLO admission (two tenants, quotas,
+              deadlines): every request reaches one terminal outcome and
+              some shed is retried; a paged serve with vetoed page
+              allocations, a forced preemption and a stall, whose
+              survivors equal the fault-free run bit for bit; a traced
+              serve whose trace validates and nests, its tok/s beside an
+              untraced one and its host ms per decode step by span.  The
+              launch counters are zeroed just before each of these paths
+              and read just after it;
+6. profile  — ``repro_torch.obs.profile_session`` (torch.profiler) over
+              one short serve: device busy time against wall time, device
+              operations per engine step, and the top kernels.
 
 The one reduction of the main path: prompt and calibration token ids
 come from a synthetic vocabulary capped at 4096 ids (the generator's
@@ -488,7 +505,8 @@ def kernel_phase(dev):
                      shape=f"q ({bkh},{g},{t},{hd}) bf16, k/v ({bkh},{t},"
                            f"{hd}), causal",
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=lib))
+                     bound_by=b_by, library_ms=lib,
+                     masked=masked_flash_attention(dev, gen, randn)))
     rows.append(quant_error_row(dev, gen, randn))
     rows += verify_rows(dev, gen, randn)
     rows.append(rms_norm_row(dev, gen, randn))
@@ -497,6 +515,73 @@ def kernel_phase(dev):
               f"ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}", flush=True)
     return rows
+
+
+MASKED_LENS = (300, 340, 400, 450)
+
+
+def masked_flash_attention(dev, gen, randn):
+    """flash_attention with a key length per batch row, as bucket-padded
+    prefill runs it: 4 prompts of 300..450 tokens padded to the 512 bucket
+    (llama3-8b: 8 KV heads, G 4, hd 128, bf16).  Held against the plain
+    version with the same lengths; each prompt's valid rows bit for bit
+    against the prompt run alone at its exact length (B 1); kv_lens = T
+    bit for bit against no mask; then timed beside the plain version and
+    one masked scaled_dot_product_attention.  Returns the row's second
+    shape."""
+    from repro_torch.kernels import flash_attention as fa
+    b, kh, g, t, hd = len(MASKED_LENS), 8, 4, 512, 128
+    sets = [(randn(b * kh, g, t, hd), randn(b * kh, t, hd),
+             randn(b * kh, t, hd)) for _ in range(2)]
+    lens = torch.tensor(MASKED_LENS, dtype=torch.int32, device=dev)
+    q, k, v = sets[0]
+    got = fa.flash_attention(q, k, v, kv_lens=lens)
+    err = held("masked B=4 T=512 lens 300/340/400/450", got,
+               fa.flash_attention_ref(q, k, v, kv_lens=lens),
+               rel_tol=BF16_REL_TOL)
+    for i, n in enumerate(MASKED_LENS):
+        rows = slice(kh * i, kh * (i + 1))
+        same_bits(f"masked rows of prompt {i} ({n} tokens) == the prompt "
+                  f"alone at T {n}", got[rows, :, :n],
+                  fa.flash_attention(q[rows, :, :n].contiguous(),
+                                     k[rows, :n].contiguous(),
+                                     v[rows, :n].contiguous()))
+    same_bits("kv_lens = T == no mask",
+              fa.flash_attention(q, k, v, kv_lens=torch.full_like(lens, t)),
+              fa.flash_attention(q, k, v))
+    ms = time_ms(lambda i: fa.flash_attention(*sets[i % 2], kv_lens=lens))
+    plain = time_ms(lambda i: fa.flash_attention_ref(*sets[i % 2],
+                                                     kv_lens=lens), reps=5)
+    key = torch.arange(t, device=dev)
+    mask = (torch.tril(torch.ones(t, t, dtype=torch.bool, device=dev))[None]
+            & (key < lens[:, None])[:, None, :])[:, None]   # (B, 1, T, T)
+
+    def sdpa_masked(i):
+        q_, k_, v_ = sets[i % 2]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_.reshape(b, kh * g, t, hd), k_.reshape(b, kh, t, hd),
+            v_.reshape(b, kh, t, hd), attn_mask=mask, enable_gqa=True)
+
+    lib_out = sdpa_masked(0).reshape(b * kh, g, t, hd)
+    ref = fa.flash_attention_ref(q, k, v, kv_lens=lens)
+    for i, n in enumerate(MASKED_LENS):
+        valid = slice(kh * i, kh * (i + 1))
+        held(f"library call (masked sdpa), prompt {i}",
+             lib_out[valid, :, :n], ref[valid, :, :n])
+    lib = time_ms(sdpa_masked)
+    # bytes of q, k, v and out at the valid lengths; the products' work
+    # over the valid causal triangles
+    n_tok = sum(MASKED_LENS)
+    b_ms, b_by = bound((2 * kh * g + 2 * kh) * n_tok * hd * 2,
+                       sum(4 * kh * g * hd * n * (n + 1) / 2
+                           for n in MASKED_LENS))
+    print(f"  flash_attention, length-masked: {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library (masked sdpa) {lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}", flush=True)
+    return dict(shape=f"q ({b * kh},{g},{t},{hd}) bf16, kv_lens "
+                      f"{'/'.join(map(str, MASKED_LENS))}, causal",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
 
 
 def decode_variant_rows(dev, gen, randn):
@@ -1039,29 +1124,33 @@ def main_path_phase(dev, kernels):
     check(np.array_equal(solo, results[0]),
           f"request 0: mixed batch {results[0].tolist()} != alone "
           f"{solo.tolist()}")
+    # engine == generate bit for bit for every request admitted whole:
+    # bucket-padded batched prefill gives each prompt the bits of its
+    # exact-length batch-1 prefill (length-masked flash attention), and
+    # decode rows do not depend on the batch
+    whole = [r for r in reqs if len(r.prompt) <= eng.prefill_chunk]
     t0 = time.perf_counter()
-    alone = eng.generate(Request(rid=100, prompt=reqs[0].prompt,
-                                 max_new_tokens=NEW_TOKENS))
-    times["generate"] = time.perf_counter() - t0
+    alone = {r.rid: eng.generate(Request(rid=100 + r.rid, prompt=r.prompt,
+                                         max_new_tokens=NEW_TOKENS))
+             for r in whole}
+    times["generate"] = (time.perf_counter() - t0) / len(whole)
     launches = {k.symbol: k.launches for k in kernels}
-    first_diff = next((j for j in range(NEW_TOKENS)
-                       if alone[j] != results[0][j]), None)
-    print(f"  request 0 engine:   {results[0].tolist()}\n"
-          f"  request 0 generate: {alone.tolist()}\n"
-          f"  first difference at token {first_diff}", flush=True)
-    # both must be greedy decodes of a teacher-forced exact-length
-    # forward: each chosen token within TIE_TOL of that position's top
-    for name, toks in (("engine", results[0]), ("generate", alone)):
-        margin, gap = teacher_forced(model, qparams, reqs[0].prompt, toks,
-                                     dev)
-        print(f"  {name}: max margin to the reference top logit "
-              f"{margin.max():.4f} (token {int(margin.argmax())}); top-2 gap "
-              f"there {gap[int(margin.argmax())]:.4f}; reference argmax "
-              f"agrees at {int((margin == 0).sum())}/{NEW_TOKENS}",
+    for r in whole:
+        first_diff = next((j for j in range(NEW_TOKENS)
+                           if alone[r.rid][j] != results[r.rid][j]), None)
+        print(f"  request {r.rid} ({len(r.prompt)} tokens): engine == "
+              f"generate bit for bit: {first_diff is None}"
+              + ("" if first_diff is None
+                 else f" (first difference at token {first_diff})"),
               flush=True)
-        check(float(margin.max()) <= TIE_TOL,
-              f"request 0 ({name}): token off the reference argmax by "
-              f"{margin.max():.4f} > {TIE_TOL}")
+        check(first_diff is None,
+              f"request {r.rid}: engine {results[r.rid].tolist()} != "
+              f"generate {alone[r.rid].tolist()}")
+    # chunked admissions write their prompt tail through decode steps, so
+    # their bits differ from generate's exact-length prefill by design:
+    # greedy up to TIE_TOL of a teacher-forced exact-length forward
+    check_teacher_forced("chunked requests (engine)", model, qparams,
+                         [r for r in reqs if r not in whole], results, dev)
     print(f"  serve: {m['tokens_generated']} tokens in {times['serve']:.2f} "
           f"s = {m['tokens_generated'] / times['serve']:.1f} tok/s, "
           f"{m['decode_steps']} decode steps, {m['prefill_batches']} prefill "
@@ -1069,7 +1158,8 @@ def main_path_phase(dev, kernels):
           f"{m['fill_steps']} fill steps", flush=True)
     print(f"  generate (1 slot): {NEW_TOKENS} tokens in "
           f"{times['generate']:.2f} s = "
-          f"{NEW_TOKENS / times['generate']:.1f} tok/s", flush=True)
+          f"{NEW_TOKENS / times['generate']:.1f} tok/s (mean of "
+          f"{len(whole)} requests)", flush=True)
     print(f"  phase seconds: " + ", ".join(f"{k} {v:.2f}"
                                            for k, v in times.items()))
     print(f"  max_memory_allocated: "
@@ -1080,6 +1170,8 @@ def main_path_phase(dev, kernels):
     counts_by_path.update(spec_paths(dev, kernels, cfg, model, qparams,
                                      stats, data, reqs, results,
                                      times["serve"]))
+    counts_by_path.update(traffic_paths(dev, kernels, model, qparams, data,
+                                        times["serve"]))
     for path, counts in counts_by_path.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
         for sym, n in counts.items():
@@ -1526,18 +1618,208 @@ def spec_paths(dev, kernels, cfg, model, qparams, stats, data, reqs,
     return counts
 
 
+# prompt lengths of the fault run: multiples of the 16-token page, so a
+# preempted request's registered full blocks cover its whole prompt and
+# the resume recomputes only positions that decode steps wrote the first
+# time (the bits of the fault-free run); 592 and 688 are chunked
+FAULT_LENS = (16, 48, 96, 208, 304, 448, 592, 688)
+
+
+def span_ms(events, steps):
+    """Host ms per engine step of each step-span name in a trace, and the
+    count of each page event."""
+    total, pages = {}, {}
+    for e in events:
+        if e.get("cat") == "step" and e["ph"] == "X":
+            total[e["name"]] = total.get(e["name"], 0.0) + e["dur"] / 1e3
+        elif e.get("cat") == "pages" and e["ph"] == "i":
+            pages[e["name"]] = pages.get(e["name"], 0) + 1
+    return {k: v / max(steps, 1) for k, v in sorted(total.items())}, pages
+
+
+def check_trace(name, tracer):
+    from repro_torch.obs import check_span_nesting, validate_trace
+    obj = tracer.to_json()
+    problems = validate_trace(obj) + check_span_nesting(obj["traceEvents"])
+    print(f"  {name}: {len(obj['traceEvents'])} events ({tracer.dropped} "
+          f"dropped); schema valid and spans nested: {not problems}",
+          flush=True)
+    check(not problems and tracer.dropped == 0,
+          f"{name}: trace problems {problems[:3]}, {tracer.dropped} dropped")
+
+
+def traffic_paths(dev, kernels, model, qparams, data, serve_s):
+    """Open-loop traffic through the EDF scheduler (dense and paged), SLO
+    admission with two tenants and quotas, injected faults on the paged
+    engine, and a traced serve, each with the launch counters zeroed just
+    before it and read just after.  Returns {path: launch counts}."""
+    from repro_torch.launch.serve import DATA_VOCAB_CAP
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import (FaultConfig, FaultInjector, Request,
+                                   Scheduler, ServeEngine, SLOConfig,
+                                   TrafficConfig, make_trace)
+
+    counts = {}
+    kw = dict(n_slots=4, max_len=1024, device=dev)
+    closed_rps = len(PROMPT_LENS) / serve_s
+    tkw = dict(n_requests=12, prompt_len_median=200, prompt_len_sigma=0.9,
+               prompt_len_max=700, shared_prefix_frac=0.0,
+               max_new_tokens=NEW_TOKENS, vocab_size=DATA_VOCAB_CAP, seed=0)
+
+    def trace_at(rate):
+        return make_trace(TrafficConfig(rate=rate, **tkw))
+
+    phase(f"main path: open-loop traffic, 12 Poisson requests at 0.5 x the "
+          f"closed-loop rate ({0.5 * closed_rps:.3f} requests/s), dense and "
+          f"paged")
+    base = trace_at(0.5 * closed_rps)
+    lens = [len(r.prompt) for _, r in base]
+    print(f"  prompt lengths {lens}; arrivals at "
+          f"{[round(t, 2) for t, _ in base]} s", flush=True)
+    check(min(lens) >= 12 and max(lens) <= 700, "prompt lengths off range")
+    eng_d = ServeEngine(model, qparams, **kw)
+    closed, _, _ = timed_serve("closed-loop serve, the 12 requests", eng_d,
+                               [r for _, r in base])
+
+    def traffic_report(name, res):
+        t = res.traffic
+        print(f"  {name}: {res.summary['tokens_generated']} tokens, "
+              f"{t['tokens_per_s']:.1f} tok/s over {t['duration_s']:.2f} s; "
+              f"outcomes {t['outcomes']}; TTFT ms p50/p95/p99 "
+              f"{t['ttft_ms']['p50']:.1f}/{t['ttft_ms']['p95']:.1f}/"
+              f"{t['ttft_ms']['p99']:.1f}; queue delay ms "
+              f"{t['queue_delay_ms']['p50']:.1f}/"
+              f"{t['queue_delay_ms']['p95']:.1f}/"
+              f"{t['queue_delay_ms']['p99']:.1f}; per-token ms "
+              f"{t['per_token_ms']['p50']:.1f}/"
+              f"{t['per_token_ms']['p95']:.1f}/"
+              f"{t['per_token_ms']['p99']:.1f}", flush=True)
+
+    for paged in (False, True):
+        name = f"open-loop {'paged' if paged else 'dense'}"
+        eng = (ServeEngine(model, qparams, paged=True, page_size=16, **kw)
+               if paged else eng_d)
+        res, counts[name] = counted(
+            kernels, lambda: Scheduler(eng).run_traffic(
+                trace_at(0.5 * closed_rps)))
+        traffic_report(name, res)
+        check(res.summary["completed"] == 12, f"{name}: not all completed")
+        same = [np.array_equal(res[r.rid], closed[r.rid]) for _, r in base]
+        print(f"  {name}: tokens equal the closed-loop dense serve's bit for "
+              f"bit: {sum(same)}/12", flush=True)
+        check(all(same), f"{name}: tokens differ from the closed-loop serve")
+        del eng
+
+    # deadlines in units of the closed-loop serve time: tenant a's loose,
+    # tenant b's a fraction of one request's time in a slot.  In-flight
+    # token quotas keep a slot free most of the time, so a waiting request
+    # is checked at every step; a's behind its chunked prompts wait on the
+    # quota, which drives the queue-delay estimate up, and b's that arrive
+    # then are shed (and retried) because the estimate says their deadline
+    # cannot be met
+    rel = {"a": 20 * serve_s, "b": serve_s / 16}
+    quotas = {"a": 1000, "b": 740}
+    phase(f"main path: SLO admission at 2 x that rate, tenants a (deadline "
+          f"{rel['a']:.2f} s, quota {quotas['a']} tokens in flight) and b "
+          f"(deadline {rel['b']:.2f} s, quota {quotas['b']})")
+    eng_slo = ServeEngine(model, qparams,
+                          slo=SLOConfig(seed=0, quotas=quotas), **kw)
+    trace = trace_at(2 * closed_rps)
+    for i, (_, r) in enumerate(trace):
+        r.tenant = "ab"[i % 2]
+        r.rel_deadline = rel[r.tenant]
+    res, counts["SLO open-loop"] = counted(
+        kernels, lambda: Scheduler(eng_slo).run_traffic(trace))
+    traffic_report("SLO open-loop", res)
+    s = res.summary
+    terminal = s["completed"] + s["expired"] + s["truncated"] + s["shed"]
+    print(f"  completed {s['completed']} + expired {s['expired']} + "
+          f"truncated {s['truncated']} + shed {s['shed']} = {terminal} of "
+          f"{s['requests']}; shed_retried {s['shed_retried']}; queue-delay "
+          f"estimate {eng_slo.slo.estimate():.3f} s", flush=True)
+    check(terminal == s["requests"] == 12, "SLO run: outcomes do not sum")
+    check(s["shed_retried"] >= 1, "SLO run: no shed was retried")
+    done = [r.rid for _, r in trace if r.outcome == "completed"]
+    check(all(np.array_equal(res[rid], closed[rid]) for rid in done),
+          "SLO run: a completed request's tokens differ from closed loop")
+    print(f"  completed requests equal their closed-loop tokens: "
+          f"{len(done)}/{len(done)}", flush=True)
+    del eng_slo
+
+    phase("main path: injected faults on the paged engine (page "
+          "allocations vetoed, a forced preemption, a stall), 8 requests")
+    fault_reqs = [Request(rid=700 + i,
+                          prompt=data.sequence(45_000_000 + i, n),
+                          max_new_tokens=NEW_TOKENS)
+                  for i, n in enumerate(FAULT_LENS)]
+    ref, _, ref_s = timed_serve("fault-free paged serve",
+                                ServeEngine(model, qparams, paged=True,
+                                            page_size=16, **kw), fault_reqs)
+    inj = FaultInjector(FaultConfig(alloc_fail_at=(3, 30, 90),
+                                    preempt_at=(40,), stall_at=(20,),
+                                    stall_s=0.05))
+    eng_f = ServeEngine(model, qparams, paged=True, page_size=16, faults=inj,
+                        tracer=Tracer(capacity=65536), **kw)
+    (out, m_f, sec), counts["faulted paged serve"] = counted(
+        kernels, lambda: timed_serve("faulted paged serve", eng_f,
+                                     fault_reqs))
+    f = eng_f.metrics()["faults"]
+    print(f"  faults {f}; preempted {m_f['preempted']}, resumed "
+          f"{m_f['resumed']}, pressure events {m_f['pressure_events']}, "
+          f"{sec:.2f} s against {ref_s:.2f} s fault-free", flush=True)
+    check(f["alloc_failures"] == 3 and f["forced_preempts"] == 1
+          and f["stalls"] == 1, f"faults not all injected: {f}")
+    check(m_f["preempted"] >= 1 and m_f["resumed"] == m_f["preempted"],
+          "faulted run: preemptions not all resumed")
+    same = [np.array_equal(out[r.rid], ref[r.rid]) for r in fault_reqs]
+    print(f"  survivors ({len(out)}/{len(fault_reqs)}, all completed) equal "
+          f"the fault-free run bit for bit: {sum(same)}/{len(same)}",
+          flush=True)
+    check(all(same), "faulted run: survivors differ from the fault-free run")
+    check_trace("faulted paged serve trace", eng_f.tracer)
+    per_step, pages = span_ms(eng_f.tracer.events(), m_f["decode_steps"])
+    print(f"  page events over the run: {pages}", flush=True)
+    del eng_f
+
+    phase("main path: the 12 requests closed loop without and with a tracer "
+          "(two dense engines of one configuration, back to back)")
+    _, _, plain_s = timed_serve("untraced serve", eng_d,
+                                [r for _, r in base])
+    tracer = Tracer(capacity=65536)
+    eng_t = ServeEngine(model, qparams, tracer=tracer, **kw)
+    (traced, m_t, traced_s), counts["traced serve"] = counted(
+        kernels, lambda: timed_serve("traced serve", eng_t,
+                                     [r for _, r in base]))
+    check(all(np.array_equal(traced[r.rid], closed[r.rid])
+              for _, r in base), "traced serve: tokens differ")
+    check_trace("traced serve trace", tracer)
+    tokens = m_t["tokens_generated"]
+    print(f"  serve tok/s without / with the tracer: "
+          f"{tokens / plain_s:.2f} / {tokens / traced_s:.2f}", flush=True)
+    per_step, _ = span_ms(tracer.events(), m_t["decode_steps"])
+    print(f"  host ms per decode step by span ({m_t['decode_steps']} decode "
+          f"steps): " + ", ".join(f"{k} {v:.3f}"
+                                  for k, v in per_step.items()), flush=True)
+    del eng_t, eng_d
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile_phase(eng, data, Request):
-    """Where a serving step's time goes: torch.profiler over one short
-    serve (4 requests of 12 tokens: one bucketed prefill + 8 decode steps
-    at 4 slots), device time by kernel against the wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a serving step's time goes: torch.profiler (through the
+    port's ``profile_session``, its Chrome trace written under the
+    git-ignored build directory) over one short serve (4 requests of 12
+    tokens: one bucketed prefill + 8 decode steps at 4 slots), device time
+    by kernel against the wall time."""
+    from repro_torch.obs import profile_session
 
     reqs = [Request(rid=300 + i, prompt=data.sequence(41_000_000 + i, 12),
                     max_new_tokens=9) for i in range(4)]
     eng.serve(reqs)                                   # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    logdir = Path(__file__).resolve().parent / "src" / "repro_torch" \
+        / "build" / "profile"
+    with profile_session(logdir) as prof:
         t0 = time.perf_counter()
         eng.serve(reqs)
         torch.cuda.synchronize()

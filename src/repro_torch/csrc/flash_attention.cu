@@ -31,7 +31,12 @@
 // to the f32 scores inside the exp2 argument; the output rescale is
 // skipped when no row's max moved.  Tiles wholly in a warp group's future
 // are skipped; only tiles that cross the diagonal or the ragged tail (T
-// off the tile grid) are masked.  TMA zero-fills keys past T and columns
+// off the tile grid) are masked.  An optional key length per batch row
+// (kv_lens, for bucket-padded prefill) masks keys at or past it, so a
+// prompt padded to any bucket, in a batch of any size, gives its valid rows
+// the bits of the same prompt run alone at its exact length: tiles keep
+// their offsets from key 0 and a wholly masked tile changes no row's bits.
+// TMA zero-fills keys past T and columns
 // past hd, so no uninitialised shared memory meets 0 x NaN.  The output
 // goes back through shared memory as 16-byte stores.  Blocks with the most
 // causal work launch first.  Rows that TMA cannot describe (hd % 8 != 0,
@@ -91,7 +96,8 @@ template <int DPL>                            // DPL = ceil(hd / 32)
 __global__ void __launch_bounds__(FA_THREADS)
 fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, float* __restrict__ out, int G, int t_len,
-       int hd, int causal, float scale) {
+       int hd, int causal, float scale, const int* __restrict__ kv_lens,
+       int heads_per_len) {
   extern __shared__ float smem[];
   float* qs = smem;                          // (BQ, hd), pre-scaled
   float* ks = qs + FA_BQ * hd;               // (BK, hd + 1), padded rows
@@ -115,7 +121,10 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
   }
-  const int k_end = causal ? min(t_len, q0 + FA_BQ) : t_len;
+  // keys at or past klen are masked (bucket padding); query rows there
+  // still attend the valid keys
+  const int klen = kv_lens ? min(kv_lens[bkh / heads_per_len], t_len) : t_len;
+  const int k_end = causal ? min(klen, q0 + FA_BQ) : klen;
   for (int k0 = 0; k0 < k_end; k0 += FA_BK) {
     __syncthreads();                         // previous tile consumed
     for (int i = threadIdx.x; i < FA_BK * hd; i += FA_THREADS) {
@@ -138,7 +147,7 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const float* krow = ks + lane * (hd + 1);
       float s = 0.f;
       for (int d = 0; d < hd; ++d) s = fmaf(qrow[d], krow[d], s);
-      const bool valid = kp < t_len && (!causal || kp <= qp);
+      const bool valid = kp < klen && (!causal || kp <= qp);
       const float m_new = fmaxf(m_i[r], warp_max(valid ? s : kNegInf));
       const float p = valid ? expf(s - m_new) : 0.f;
       const float corr = expf(m_i[r] - m_new);
@@ -173,8 +182,8 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DPL>
 int launch_dpl(const void* q, const void* k, const void* v, void* out, int BKH,
-               int G, int t_len, int hd, int causal, float scale,
-               cudaStream_t stream) {
+               int G, int t_len, int hd, int causal, float scale, const int* kv_lens,
+               int heads_per_len, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(FA_BQ * hd + FA_BK * (hd + 1) + FA_BK * hd) *
                       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(fa_fwd<DPL>,
@@ -184,17 +193,18 @@ int launch_dpl(const void* q, const void* k, const void* v, void* out, int BKH,
   const dim3 grid(BKH * G, (t_len + FA_BQ - 1) / FA_BQ);
   fa_fwd<DPL><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), G, t_len, hd, causal, scale);
+      static_cast<float*>(out), G, t_len, hd, causal, scale, kv_lens, heads_per_len);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, int BKH,
-           int G, int t_len, int hd, int causal, float scale, cudaStream_t s) {
+           int G, int t_len, int hd, int causal, float scale, const int* kl, int hpl,
+           cudaStream_t s) {
   switch ((hd + 31) / 32) {
-    case 1: return launch_dpl<1>(q, k, v, out, BKH, G, t_len, hd, causal, scale, s);
-    case 2: return launch_dpl<2>(q, k, v, out, BKH, G, t_len, hd, causal, scale, s);
-    case 3: return launch_dpl<3>(q, k, v, out, BKH, G, t_len, hd, causal, scale, s);
-    case 4: return launch_dpl<4>(q, k, v, out, BKH, G, t_len, hd, causal, scale, s);
+    case 1: return launch_dpl<1>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
+    case 2: return launch_dpl<2>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
+    case 3: return launch_dpl<3>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
+    case 4: return launch_dpl<4>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
     default: return static_cast<int>(cudaErrorInvalidValue);   // hd > 128
   }
 }
@@ -252,8 +262,9 @@ constexpr int tc_smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(128 * TC_NWG, 2)
 fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, int G, int t_len, int hd,
-          int causal, float scale_log2, int gb, int bq,
-          const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv) {
+          int causal, float scale_log2, int gb, int bq, const int* __restrict__ kv_lens,
+          int heads_per_len, const __grid_constant__ CUtensorMap tmk,
+          const __grid_constant__ CUtensorMap tmv) {
   constexpr int THREADS = 128 * TC_NWG, ROWS = 64 * TC_NWG, WARPS = 4 * TC_NWG;
   constexpr int QB = ROWS * HD * 2, KB = TC_BK * HD * 2;   // tile bytes
   extern __shared__ __align__(128) char tc_smem[];
@@ -272,7 +283,13 @@ fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, int G, int t_len, 
     if (gi >= gb || g >= G || pos >= t_len) return -1;
     return (static_cast<long long>(bkh) * G + g) * t_len + pos;
   };
-  const int kv_end = causal ? min(t_len, q0 + bq) : t_len;
+  // keys at or past klen are masked (bucket padding).  Tiles sit at fixed
+  // offsets from key 0, and a tile wholly masked for a row leaves its max,
+  // sum and accumulator bit for bit as they were (correction exp2(0) = 1,
+  // p = 0), so a row's bits depend on its position and its keys alone: not
+  // on T, the bucket, or the other rows of the batch
+  const int klen = kv_lens ? min(kv_lens[bkh / heads_per_len], t_len) : t_len;
+  const int kv_end = causal ? min(klen, q0 + bq) : klen;
   const int n_tiles = (kv_end + TC_BK - 1) / TC_BK;
   // K/V tile j into stage j % 2 (one thread): 64-dim panels of 64 rows, rows
   // past T zero-filled; the stage's barrier counts the bytes
@@ -295,7 +312,7 @@ fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, int G, int t_len, 
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    load_tile(0);
+    if (n_tiles > 0) load_tile(0);
     if (n_tiles > 1) load_tile(1);
   }
   stage_rows<HD, ROWS, THREADS>(qs, hd, q, [&](int r) -> const bf16* {
@@ -356,7 +373,7 @@ fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, int G, int t_len, 
       wgmma_wait0();
       fence_regs(s);
       // online softmax on the accumulators; mask only where it can bite
-      const bool edge = k0 + TC_BK > t_len || (causal && k0 + TC_BK - 1 > gmin);
+      const bool edge = k0 + TC_BK > klen || (causal && k0 + TC_BK - 1 > gmin);
       float cr[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -369,7 +386,7 @@ fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, int G, int t_len, 
             float x = s[nt][2 * h + e];
             if (edge) {
               const int key = k0 + nt * 8 + (lane & 3) * 2 + e;
-              if (key >= t_len || (causal && key > pos)) x = kNegInf;
+              if (key >= klen || (causal && key > pos)) x = kNegInf;
             }
             s[nt][2 * h + e] = x;
             mx = fmaxf(mx, x);
@@ -469,7 +486,8 @@ bool kv_map(CUtensorMap* map, const void* base, int BKH, int t_len, int hd) {
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int BKH, int G,
-              int t_len, int hd, int causal, float scale, cudaStream_t stream) {
+              int t_len, int hd, int causal, float scale, const int* kv_lens,
+              int heads_per_len, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   CUtensorMap tmk, tmv;
@@ -485,7 +503,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int BKH, i
   const dim3 grid(BKH * ngb, (t_len + bq - 1) / bq);
   fa_fwd_tc<HD><<<grid, 128 * TC_NWG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<bf16*>(out), G, t_len, hd, causal,
-      scale * kLog2e, gb, bq, tmk, tmv);
+      scale * kLog2e, gb, bq, kv_lens, heads_per_len, tmk, tmv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -494,14 +512,21 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int BKH, i
 // is_bf16: the tensor-core kernel (hd <= 64 runs the 64-wide tiles, hd <= 128
 // the 128-wide ones, zero-padded; needs hd % 8 == 0 and 16-byte aligned
 // tensors, which the wrapper arranges); otherwise the f32 CUDA-core kernel.
+// kv_lens (int32, one per batch row; row b covers heads_per_len consecutive
+// BKH entries, each >= 1) masks keys at or past kv_lens[b]; null masks
+// none.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int BKH, int G, int t_len, int hd,
                                       int causal, float scale, int is_bf16,
+                                      const void* kv_lens, int heads_per_len,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* kl = static_cast<const int*>(kv_lens);
   if (!is_bf16)
-    return launch(q, k, v, out, BKH, G, t_len, hd, causal, scale, s);
-  if (hd <= 64) return launch_tc<64>(q, k, v, out, BKH, G, t_len, hd, causal, scale, s);
-  if (hd <= 128) return launch_tc<128>(q, k, v, out, BKH, G, t_len, hd, causal, scale, s);
+    return launch(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, heads_per_len, s);
+  if (hd <= 64)
+    return launch_tc<64>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, heads_per_len, s);
+  if (hd <= 128)
+    return launch_tc<128>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, heads_per_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,6 +8,8 @@ CUDA-core one.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ._build import FLOAT, INT, PTR, Kernel
@@ -17,14 +19,21 @@ __all__ = ["KERNEL", "flash_attention", "flash_attention_ref"]
 
 KERNEL = Kernel("flash_attention.cu", "flash_attention_launch",
                 [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT,
-                 PTR])
+                 PTR, INT, PTR])
 MAX_HEAD_DIM = 128
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (BKH, G, T, hd) grouped GQA — or (BH, T, hd) for G = 1 —
-    against unrepeated k/v (BKH, T, hd), hd <= 128.  Returns q's shape."""
+    against unrepeated k/v (BKH, T, hd), hd <= 128.  Returns q's shape.
+
+    ``kv_lens`` (B,) int, B dividing BKH (row b covers BKH / B consecutive
+    entries, its KV heads), masks keys at positions >= kv_lens[b], each
+    >= 1: bucket-padded prefill.  Rows past kv_lens[b] are padding and
+    still attend the valid keys.  On the card a valid row's bits do not
+    depend on T or on the other rows."""
     q4 = q[:, None] if q.dim() == 3 else q
     if q4.dim() != 4 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"need q (BKH, G, T, hd) and equal (BKH, T, hd) "
@@ -37,8 +46,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention supports hd <= {MAX_HEAD_DIM}, "
                          f"got {hd}")
+    if kv_lens is not None and (kv_lens.dim() != 1 or kv_lens.numel() == 0
+                                or bkh % kv_lens.numel()
+                                or kv_lens.device != q.device):
+        raise ValueError(f"kv_lens must be (B,) on {q.device} with B "
+                         f"dividing {bkh}; got {tuple(kv_lens.shape)} on "
+                         f"{kv_lens.device}")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal, kv_lens=kv_lens)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -54,11 +69,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bf16 and (hd % 8 or any(x.data_ptr() % 16 for x in (q4, k, v))):
         width = -(-hd // 8) * 8
         q4, k, v = (_zero_padded(x, width) for x in (q4, k, v))
+    lens_ptr, per_len = None, 1
+    if kv_lens is not None:
+        kv_lens = kv_lens.to(torch.int32).contiguous()
+        lens_ptr, per_len = kv_lens.data_ptr(), bkh // kv_lens.numel()
     out = torch.empty_like(q4)
     if t > 0:
         KERNEL.launch(q4.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), bkh, g, t, width, int(causal),
-                      hd ** -0.5, int(bf16),
+                      hd ** -0.5, int(bf16), lens_ptr, per_len,
                       torch.cuda.current_stream(q.device).cuda_stream)
     if width != hd:
         out = out[..., :hd].contiguous()

@@ -215,18 +215,29 @@ def quant_error_ref(w: torch.Tensor, scales: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full masked softmax attention, GQA-grouped.
 
     q: (BKH, G, T, hd) — or (BH, T, hd) for G = 1 — against unrepeated
-    k/v (BKH, T, hd).  Returns q's shape and dtype."""
+    k/v (BKH, T, hd).  ``kv_lens`` (B,), B dividing BKH, masks keys at
+    positions >= kv_lens[b] for the BKH / B rows of batch row b (the
+    reference's ``chunked_attention(kv_lens=...)`` mask).  Returns q's
+    shape and dtype."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
-    t, hd = q.shape[2], q.shape[3]
+    bkh, t, hd = q.shape[0], q.shape[2], q.shape[3]
     s = torch.einsum("bgtd,bsd->bgts", q.float(), k.float()) * hd ** -0.5
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device)
     if causal:
-        mask = torch.tril(torch.ones(t, t, dtype=torch.bool, device=q.device))
+        mask = torch.tril(mask)
+    mask = mask[None, None]
+    if kv_lens is not None:
+        lens = kv_lens.to(q.device).repeat_interleave(bkh // kv_lens.numel())
+        key = torch.arange(t, device=q.device)
+        mask = mask & (key < lens[:, None])[:, None, None, :]
+    if causal or kv_lens is not None:
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgts,bsd->bgtd", p, v.float()).to(q.dtype)

@@ -6,6 +6,10 @@ serve synthetic requests.
     # speculative decoding, FAQ int8 self-draft, 3 proposals per cycle
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
         --spec-k 3 --draft self-int8
+    # SLO admission, injected faults and a Chrome trace of the run
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --paged --deadline-s 5 --fault-alloc-at 0,3 --fault-preempt-at 4 \
+        --trace-out trace.json && python -m repro_torch.obs trace.json
 
 Runs on the card by default (``--device cuda``) and fails there is none.
 At full width (``--no-tiny``) the synthetic data vocabulary is capped at
@@ -28,8 +32,11 @@ from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
                                         calibration_batches)
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.obs import Tracer, profile_session
 from repro_torch.serve.draft import registry_draft, self_int8_draft
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.faults import FaultConfig, FaultInjector
+from repro_torch.serve.overload import SLOConfig
 from repro_torch.serve.spec import SpecConfig
 
 DATA_VOCAB_CAP = 4096
@@ -47,6 +54,17 @@ def parse_chunk(arg):
         raise argparse.ArgumentTypeError(
             f"--prefill-chunk expects 'auto', an int, or 0/none, got {arg!r}")
     return n if n > 0 else None
+
+
+def parse_at(arg):
+    """Comma-separated 0-based event indices ('' = none)."""
+    if not arg:
+        return ()
+    try:
+        return tuple(int(x) for x in arg.split(",") if x.strip())
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected comma-separated integers, got {arg!r}")
 
 
 def data_for(cfg) -> SyntheticLM:
@@ -98,6 +116,43 @@ def main(argv=None):
                     help="draft source for --spec-k: 'self-int8' (FAQ int8 "
                          "self-draft sharing the target's KV) or a registry "
                          "config name for an independent draft model")
+    # -- overload response (serve/overload.py) --
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request SLO relative to submission; enables "
+                         "SLO-aware admission (doomed requests shed early)")
+    ap.add_argument("--slo-margin", type=float, default=1.0,
+                    help="shed when now + margin*queue_delay_est exceeds "
+                         "the deadline")
+    ap.add_argument("--quota-tokens", type=int, default=0,
+                    help="per-tenant in-flight token quota (0 = off)")
+    # -- deterministic fault injection (serve/faults.py) --
+    ap.add_argument("--fault-alloc-at", type=parse_at, default=(),
+                    metavar="I,J,...",
+                    help="veto the i-th page allocations (0-based) to "
+                         "exercise backpressure and preemption")
+    ap.add_argument("--fault-alloc-every", type=int, default=0,
+                    help="veto every Nth page allocation")
+    ap.add_argument("--fault-preempt-at", type=parse_at, default=(),
+                    metavar="I,J,...",
+                    help="force-preempt the latest-deadline slot at the "
+                         "i-th serve-loop iterations")
+    ap.add_argument("--fault-stall-at", type=parse_at, default=(),
+                    metavar="I,J,...",
+                    help="inject a slow step at the i-th loop iterations")
+    ap.add_argument("--fault-stall-s", type=float, default=0.0)
+    ap.add_argument("--fault-seed", type=int, default=0)
+    # -- observability (obs/) --
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export the request/step trace as Chrome/"
+                         "Perfetto trace_event JSON (check it with "
+                         "python -m repro_torch.obs PATH)")
+    ap.add_argument("--trace-capacity", type=int, default=8192,
+                    help="trace ring-buffer size (oldest events drop "
+                         "beyond it)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="run the serve under torch.profiler (Chrome trace "
+                         "DIR/trace.json) with every engine step in a named "
+                         "region")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -124,20 +179,43 @@ def main(argv=None):
                  else registry_draft(args.draft, tiny=args.tiny,
                                      device=device))
         spec = SpecConfig(k=args.spec_k, draft=draft)
+    slo = None
+    if args.deadline_s is not None or args.quota_tokens > 0:
+        slo = SLOConfig(margin=args.slo_margin,
+                        quota_tokens=args.quota_tokens,
+                        seed=args.fault_seed)
+    faults = None
+    if (args.fault_alloc_at or args.fault_alloc_every
+            or args.fault_preempt_at or args.fault_stall_at):
+        faults = FaultInjector(FaultConfig(
+            seed=args.fault_seed,
+            alloc_fail_at=args.fault_alloc_at,
+            alloc_fail_every=args.fault_alloc_every,
+            preempt_at=args.fault_preempt_at,
+            stall_at=args.fault_stall_at, stall_s=args.fault_stall_s))
+    tracer = (Tracer(capacity=args.trace_capacity)
+              if args.trace_out else None)
     eng = ServeEngine(model, qparams,
                       n_slots=min(args.n_slots, args.requests),
                       max_len=args.max_len, paged=args.paged,
                       page_size=args.page_size, n_pages=args.n_pages,
                       prefill_chunk=args.prefill_chunk, spec=spec,
-                      device=device)
+                      device=device, slo=slo, faults=faults, tracer=tracer,
+                      profile=bool(args.profile_dir))
     if args.paged and not eng.paged:
         print("note: model cache layout does not support paging; serving "
               "from the dense cache")
     reqs = [Request(rid=i, prompt=data.sequence(40_000_000 + i, 12),
                     max_new_tokens=args.new_tokens)
             for i in range(args.requests)]
+    if args.deadline_s is not None:
+        t_sub = eng.clock()
+        for r in reqs:
+            r.arrival = t_sub
+            r.deadline = t_sub + args.deadline_s
     t0 = time.time()
-    results = eng.serve(reqs)
+    with profile_session(args.profile_dir):
+        results = eng.serve(reqs)
     dt = time.time() - t0
     tok = sum(len(v) for v in results.values())
     for rid in sorted(results):
@@ -159,6 +237,20 @@ def main(argv=None):
               f"{m['pages_total']} pages ({m['peak_cache_bytes'] / 1e6:.2f} "
               f"MB), prefix hits {m['prefix_hits']}, cow copies "
               f"{m['cow_copies']}, preempted {m['preempted']}")
+    if slo is not None or faults is not None or m["preempted"]:
+        print(f"overload: shed {m['shed']} (+{m['shed_retried']} retried), "
+              f"expired {m['expired']}, truncated {m['truncated']}, "
+              f"preempted {m['preempted']}, resumed {m['resumed']}, "
+              f"pressure events {m['pressure_events']}")
+    if m["faults"] is not None:
+        print(f"faults: {m['faults']}")
+    if args.trace_out:
+        eng.export_trace(args.trace_out)
+        print(f"trace: {m['trace']['events']} events "
+              f"({m['trace']['dropped']} dropped) -> {args.trace_out}")
+    if args.profile_dir:
+        print(f"profile: torch.profiler trace in "
+              f"{args.profile_dir}/trace.json")
     return results
 
 

@@ -84,11 +84,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     >= kv_lens[b] — the length-aware causal mask for bucket-padded batched
     prefill.
 
-    On a CUDA tensor, causal self-attention from position 0 with T a
-    multiple of 128, hd <= 128 and no window or ``kv_lens`` runs the
-    flash-attention kernel in the grouped GQA layout (the reference's TPU
-    dispatch condition, with "q is on CUDA" for "the backend is TPU").
-    Everything else runs the chunked path below in plain PyTorch.
+    On a CUDA tensor, self-attention from position 0 (Tq == Tk) with hd <=
+    128 and no window runs the flash-attention kernel in the grouped GQA
+    layout, at any T and with or without ``kv_lens``: every prefill.  The
+    kernel's rows do not depend on T, the bucket or the batch, so a
+    bucket-padded batched prefill gives each prompt the bits of its exact-
+    length batch-1 prefill.  (The reference's TPU condition, T a multiple
+    of 128 and no ``kv_lens``, is a TPU tiling rule, not semantics.)
+    Everything else, and every CPU tensor, runs the chunked path below in
+    plain PyTorch, the parity path against the reference.
     """
     b, tq, h, hd = q.shape
     tk, kh = k.shape[1], k.shape[2]
@@ -98,13 +102,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "block-local sliding-window attention arrives with the hybrid "
             "family")
     if (q.is_cuda and window is None and q_offset == 0 and tq == tk
-            and hd <= MAX_HEAD_DIM and tq % 128 == 0 and kv_lens is None):
+            and hd <= MAX_HEAD_DIM):
         g = h // kh
         qr = q.reshape(b, tq, kh, g, hd).permute(0, 2, 3, 1, 4) \
               .reshape(b * kh, g, tq, hd)
         kr = k.permute(0, 2, 1, 3).reshape(b * kh, tk, hd)
         vr = v.permute(0, 2, 1, 3).reshape(b * kh, tk, hd)
-        o = flash_attention(qr, kr, vr, causal=causal)
+        o = flash_attention(qr, kr, vr, causal=causal, kv_lens=kv_lens)
         return o.reshape(b, kh, g, tq, hd).permute(0, 3, 1, 2, 4) \
                 .reshape(b, tq, h, hd)
     k = _repeat_kv(k, h // kh)

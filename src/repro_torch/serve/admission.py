@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import instrument
 from .buckets import bucket_for
 from .pages import PagePressure, block_hashes
 from .slots import SlotTable, effective_prompt
@@ -39,6 +40,8 @@ class PrefixHitAdmission:
         eng = self.engine
         st, stp = run.st, eng._stepper
         head = run.queue[0]
+        if not eng._eligible(head):
+            return False
         eff = effective_prompt(head)
         hashes = run.hashes_of(head)
         if not stp.pool.lookup_blocks(hashes):
@@ -62,6 +65,7 @@ class PrefixHitAdmission:
         st.fill[s] = eff[cached:]
         eng._m["prefix_hits"] += 1
         eng._m["prefix_hit_tokens"] += cached
+        instrument.page_event(eng, "prefix_hit", slot=s, cached=cached)
         return True
 
 
@@ -81,13 +85,24 @@ class BucketedAdmission:
         def admit_len(n: int) -> int:
             return min(n, chunk) if chunk else n
 
-        progress = False
-        while queue and eng._handle_immediate(queue[0], run.results):
-            queue.pop(0)
-            progress = True
-        if not queue:
+        # head = the first *eligible* request (a tenant over its quota is
+        # skipped, not shed: it stays queued until in-flight work releases
+        # its tokens); immediates (expired / shed / zero budget) drain as
+        # they are met
+        progress, head = False, None
+        i = 0
+        while i < len(queue):
+            r = queue[i]
+            if eng._handle_immediate(r, run.results):
+                queue.pop(i)
+                progress = True
+                continue
+            if eng._eligible(r):
+                head = r
+                break
+            i += 1
+        if head is None:
             return progress
-        head = queue[0]
         b = bucket_for(eng.buckets, admit_len(len(effective_prompt(head))))
         group, seen_block0 = [], set()
         # paged capacity pre-check: never bind more prompt pages than the
@@ -99,6 +114,9 @@ class BucketedAdmission:
             if eng._handle_immediate(r, run.results):
                 queue.pop(i)
                 progress = True
+                continue
+            if not eng._eligible(r):
+                i += 1
                 continue
             eff = effective_prompt(r)
             al = admit_len(len(eff))
@@ -125,8 +143,8 @@ class BucketedAdmission:
                     [stp.pool.pages_for(admit_len(len(eff)))
                      for (_, _, eff) in group])
             except PagePressure:
-                # nothing was bound: re-queue the group, let the engine
-                # relieve the pressure
+                # an injected allocation fault mid-reservation: nothing was
+                # bound; re-queue the group and let the engine relieve it
                 for (r, _, _) in reversed(group):
                     queue.insert(0, r)
                 raise
@@ -149,6 +167,10 @@ class BucketedAdmission:
                 # continuation, discarded)
                 st.fill[s] = eff[al:]
                 eng._m["chunked_admissions"] += 1
+                if eng.tracer is not None:
+                    eng.tracer.instant("chunked_admit", cat="step",
+                                       args=dict(slot=s, chunk=al,
+                                                 total=len(eff)))
             placed.append((req, s))
         stp.admit_group(st, tokens, plen, admit_mask, placed, reserved)
         eng._m["prefill_batches"] += 1
@@ -167,13 +189,17 @@ class SingleAdmission:
         eng = self.engine
         st = run.st
         progress, req = False, None
-        while run.queue:
-            cand = run.queue.pop(0)
+        i = 0
+        while i < len(run.queue):
+            cand = run.queue[i]
             if eng._handle_immediate(cand, run.results):
+                run.queue.pop(i)
                 progress = True
                 continue
-            req = cand
-            break
+            if eng._eligible(cand):
+                req = run.queue.pop(i)
+                break
+            i += 1
         if req is None:
             return progress
         s = free[0]

@@ -28,10 +28,27 @@ quantized matmul runs through the dequant-matmul kernel on the card.
 ``spec=SpecConfig(k, draft)`` turns decode steps into speculative draft +
 verify cycles (:mod:`.spec`) with greedy output unchanged.
 
-``clock=`` injects the deadline clock (default ``time.time``).  Tensor
-parallelism, SLO admission, fault injection and tracing arrive in later
-slices; their constructor arguments raise ``NotImplementedError`` until
-then.
+``clock=`` injects the engine's clock (default ``time.time``): one seam
+for deadlines, the open-loop traffic harness (:mod:`.loadgen`), span
+timestamps and injected stalls, so tests drive all of them with a fake
+clock.  ``serve()`` also accepts a ``feed`` (an
+:class:`.loadgen.ArrivalFeed` or anything with ``poll`` / ``pending`` /
+``next_time``): requests are then admitted as their arrival times pass
+instead of all up front.
+
+Overload and observability (:mod:`.overload`, :mod:`.faults`,
+:mod:`.instrument`): ``slo=`` (an :class:`.overload.SLOConfig` or
+:class:`.overload.SLOAdmission`) sheds requests whose deadline the
+queue-delay estimate says cannot be met, with seeded jittered retries,
+and holds tenants to in-flight token quotas; ``faults=`` (a
+:class:`.faults.FaultInjector`) vetoes page allocations, stalls loop
+iterations and forces preemptions on a seeded schedule; ``registry=``
+(a :class:`repro_torch.obs.MetricsRegistry`) holds every component's
+counters; ``tracer=`` (a :class:`repro_torch.obs.Tracer`, its clock
+re-pointed at the engine's) records request and step spans;
+``profile=True`` runs every engine step inside a named
+``torch.profiler`` region.  Tensor parallelism (``mesh=``) is not
+ported: it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,16 +60,17 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import MetricsRegistry
+from . import instrument
 from .admission import AdmissionPipeline, ServeRun
 from .buckets import bucket_for, default_buckets
-from .overload import relieve_pressure
+from .overload import (SLOAdmission, never_admissible, pick_victim,
+                       preempt_slot, relieve_pressure, shed_request)
 from .pages import PagePressure
 from .slots import Request, effective_prompt, empty_tokens
 from .stepper import DenseStepper, PagedStepper
 
 __all__ = ["Request", "ServeEngine"]
-
-_LATER = ("mesh", "slo", "faults", "tracer")
 
 
 def _first_tensor(tree):
@@ -72,12 +90,11 @@ class ServeEngine:
                  prefill_chunk="auto", clock=None, device="cuda",
                  paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None, spec=None, mesh=None,
-                 slo=None, faults=None, tracer=None):
-        given = dict(mesh=mesh, slo=slo, faults=faults, tracer=tracer)
-        for name in _LATER:
-            if given[name]:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet")
+                 slo=None, faults=None, tracer=None, registry=None,
+                 profile: bool = False):
+        if mesh is not None:
+            raise NotImplementedError("ServeEngine(mesh=...) is not ported "
+                                      "yet")
         self.device = resolve_device(device)
         leaf = _first_tensor(params)
         if leaf is not None and leaf.device.type != self.device.type:
@@ -86,6 +103,24 @@ class ServeEngine:
         self.model = model
         self.params = params
         self.clock = clock if clock is not None else time.time
+        # one registry for every component's counters, and an optional
+        # span tracer whose clock is the engine's seam; both exist before
+        # the stepper and spec runner so their groups land in it
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry())
+        self.tracer = tracer
+        if tracer is not None:
+            tracer.clock = self.clock
+        self._profile = bool(profile)
+        # overload seams, bound before the stepper so the page pool sees
+        # the injector
+        self.faults = faults
+        self.slo = (slo if slo is None or isinstance(slo, SLOAdmission)
+                    else SLOAdmission(slo))
+        if self.faults is not None:
+            self.faults.counts.rebind(self.registry)
+        if self.slo is not None:
+            self.slo.bind_registry(self.registry)
         self.n_slots = n_slots
         self.max_len = max_len
         self.cfg = model.cfg
@@ -125,13 +160,17 @@ class ServeEngine:
             from .spec import SpecRunner
             self._spec = SpecRunner(self, spec)
         self._admission = AdmissionPipeline(self)
-        self._m = dict(tokens_generated=0, decode_steps=0, prefill_batches=0,
-                       admitted=0, completed=0, expired=0, truncated=0,
-                       prefix_hits=0, prefix_hit_tokens=0, fill_steps=0,
-                       chunked_admissions=0, serve_time_s=0.0, preempted=0,
-                       resumed=0, pressure_events=0, shed=0)
+        self._m = self.registry.group("serve").init(
+            tokens_generated=0, decode_steps=0, prefill_batches=0,
+            admitted=0, completed=0, expired=0, truncated=0,
+            prefix_hits=0, prefix_hit_tokens=0, fill_steps=0,
+            chunked_admissions=0, serve_time_s=0.0,
+            shed=0, shed_retried=0, preempted=0, resumed=0,
+            pressure_events=0)
+        self._stall_spins = 0
         # one-iteration admission hold after a pressure-relieving preemption
         self._hold_fill = False
+        self._req_stats: dict = {}   # rid -> dict(tokens=..., steps=...)
 
     # -- paged state -----------------------------------------------------------
     def _paged_stepper(self) -> PagedStepper:
@@ -164,12 +203,6 @@ class ServeEngine:
             raise ValueError(
                 f"req {req.rid}: prompt length {n} exceeds {limit}")
         return n
-
-    def _never_fits(self, req: Request) -> bool:
-        """True when the (effective) prompt needs more pages than the whole
-        pool: it can never bind, however long it waits."""
-        need = self._stepper.pages_needed(len(effective_prompt(req)) + 1)
-        return need is not None and not self._stepper.fits_pool(need)
 
     # -- single-request path -------------------------------------------------
     def generate(self, request: Request) -> np.ndarray:
@@ -204,6 +237,7 @@ class ServeEngine:
         req.outcome = counter
         results[req.rid] = out
         self._m[counter] += 1
+        instrument.settled(self, req, counter)
         if req.on_finish:
             req.on_finish(req.rid, out)
 
@@ -212,7 +246,9 @@ class ServeEngine:
         deadline exactly at the admission instant still admits (the
         cutoff is strict ``>``).  A resumed preempted request that expires
         while re-queued keeps the tokens it already produced (truncated,
-        not expired)."""
+        not expired).  The SLO shed gate runs last: fresh requests whose
+        deadline the queue-delay estimate says cannot be met are rejected
+        before they waste a slot."""
         if req.deadline is not None and self.clock() > req.deadline:
             out = (np.asarray(req.out_tokens, np.int32)
                    if req.resume and req.out_tokens else empty_tokens())
@@ -222,15 +258,49 @@ class ServeEngine:
         if req.max_new_tokens <= 0:
             self._settle(req, results, empty_tokens(), "completed")
             return True
+        if self.slo is not None and not req.resume \
+                and self.slo.should_shed(req, self.clock()):
+            shed_request(self, req, results)
+            return True
         return False
 
+    def _eligible(self, req: Request) -> bool:
+        """Admissible right now (tenant under its in-flight quota)."""
+        return self.slo is None or self.slo.quota_ok(req)
+
     def _emit(self, req: Request, tok: int):
+        if req.t_first is None:
+            instrument.first_token(self, req)
         req.out_tokens.append(tok)
         self._m["tokens_generated"] += 1
+        self._req_stats.setdefault(
+            req.rid, dict(tokens=0, steps=0))["tokens"] += 1
         if req.on_token:
             req.on_token(req.rid, tok)
 
+    def _count_step(self, rid: int):
+        """One engine step (prefill, decode step or spec cycle) in which
+        request ``rid`` held a live slot: the denominator of its
+        ``tokens_per_step``."""
+        self._req_stats.setdefault(
+            rid, dict(tokens=0, steps=0))["steps"] += 1
+
+    def request_summary(self) -> dict:
+        """Per-request ``tokens_per_step`` of the last serve (tokens
+        emitted per engine step while resident; > 1 only with speculative
+        bursts)."""
+        return {rid: s["tokens"] / max(s["steps"], 1)
+                for rid, s in self._req_stats.items()}
+
     def _admit_bind(self, run: ServeRun, req: Request, s: int):
+        """Bind + engine-level admission accounting (every admission
+        strategy).  Admission is where the SLO layer observes queue delay
+        (arrival to bind, the quantity the traffic percentiles report) and
+        charges the tenant's in-flight quota."""
+        if self.slo is not None:
+            self.slo.acquire(req)
+            if req.arrival is not None:
+                self.slo.observe(self.clock() - req.arrival)
         if req.resume:
             self._m["resumed"] += 1
         if self._spec is not None:
@@ -238,14 +308,17 @@ class ServeEngine:
             # plus emitted tokens for a resumed request) into its own cache
             self._spec.admit_slot(s, effective_prompt(req))
         run.st.bind(req, s)
+        instrument.bound(self, req, s)
         req.resume = False
         self._m["admitted"] += 1
+        self._req_stats.setdefault(req.rid, dict(tokens=0, steps=0))
         if req.on_admit:
             req.on_admit(req.rid)
 
     def _post_admit(self, run: ServeRun, req: Request, s: int, tok: int):
         """First-token emission for a fully-prefilled admission (chunked
         admissions emit nothing until their fill drains)."""
+        self._count_step(req.rid)
         self._emit(req, tok)
         self._finish_checks(run, req, s, None)
 
@@ -256,6 +329,9 @@ class ServeEngine:
         run.results[req.rid] = out
         req.outcome = counter
         self._m[counter] += 1
+        instrument.retired(self, req, counter)
+        if self.slo is not None:
+            self.slo.release(req)
         st.clear(s)
         self._stepper.retire(st, s)
         if req.on_finish:
@@ -271,29 +347,42 @@ class ServeEngine:
             self._finish(run, s, counter="truncated")
 
     # -- continuous-batching loop --------------------------------------------
-    def serve(self, requests: List[Request] = ()) -> dict:
+    def serve(self, requests: List[Request] = (), *, feed=None) -> dict:
         """Run requests to completion with slot-based batching.
 
         Returns {rid: np.ndarray of generated tokens}.  Requests with
         ``max_new_tokens=0`` complete immediately with an empty sequence;
         requests whose ``deadline`` already passed at admission expire
         with an empty sequence; a running request whose deadline passes
-        mid-decode is truncated at the tokens produced so far.  A queue
-        head that needs more pages than the whole pool is shed (outcome
-        ``"shed"``, an empty sequence) once no slot is active, and the
-        others are served, as the reference's no-progress guard does.
+        mid-decode is truncated at the tokens produced so far.
+
+        With ``feed`` (open-loop traffic), arrivals whose time has passed
+        are polled into the queue every iteration, and the loop idles —
+        without spinning the decode step — until the feed drains.
 
         Page exhaustion never escapes this loop: a step (or an admission
-        reservation) raising :class:`.pages.PagePressure` is relieved by
-        preempting the latest-deadline slot and retrying.
+        reservation vetoed by an injected fault) raising
+        :class:`.pages.PagePressure` is relieved by preempting the
+        latest-deadline slot and retrying.  A queue head that can never
+        bind (more pages than the whole pool, or more tokens than its
+        tenant's whole quota) is shed once no slot is active.
         """
+        self._req_stats = {}         # per-serve scope
         t0 = self.clock()
         for r in requests:
             self._check_prompt(r)
+            instrument.enqueued(self, r)
         run = ServeRun(self, requests)
         st = run.st
         self._stepper.begin()
         while True:
+            if self.faults is not None:
+                self._inject_faults(run)
+            if feed is not None:
+                for r in feed.poll(self.clock()):
+                    self._check_prompt(r)
+                    instrument.enqueued(self, r)
+                    run.queue.append(r)
             try:
                 # a pressure-relieving preemption holds admission for one
                 # iteration: the retried step gets first claim on the
@@ -301,17 +390,14 @@ class ServeEngine:
                 # right back into the same shortage, a livelock)
                 hold_fill, self._hold_fill = self._hold_fill, False
                 if run.queue and st.free() and not hold_fill:
-                    self._admission.fill_slots(run)
+                    with instrument.step_span(self, "admit"):
+                        self._admission.fill_slots(run)
                 if not st.any_active():
-                    if run.queue and self._never_fits(run.queue[0]):
-                        # no slot holds a page, so a head that cannot bind
-                        # now never will: shed it (the reference's
-                        # no-progress guard, its pool half)
-                        req = run.queue.pop(0)
-                        self._settle(req, run.results,
-                                     np.asarray(req.out_tokens, np.int32)
-                                     if req.out_tokens else empty_tokens(),
-                                     "shed")
+                    waiting = feed is not None and feed.pending()
+                    if run.queue and self._stall_shed(run, waiting):
+                        continue
+                    if waiting:
+                        self._idle_wait(feed)
                         continue
                     if run.queue:
                         continue    # immediates drained; re-admit
@@ -322,22 +408,64 @@ class ServeEngine:
                 else:
                     self._plain_step(run)
             except PagePressure as pp:
+                instrument.page_event(self, "page_pressure", slot=pp.slot)
                 self._hold_fill = relieve_pressure(self, run, pp)
         self._m["serve_time_s"] += self.clock() - t0
         return run.results
+
+    def _inject_faults(self, run: ServeRun):
+        """Consume this iteration's injected faults: a scheduled stall
+        burns through the injector's ``advance``; a scheduled forced
+        preemption evicts the normal victim (preempt / resume without page
+        pressure, dense included)."""
+        self.faults.on_loop()
+        if self.faults.take_preempt():
+            victim = pick_victim(run.st)
+            if victim is not None:
+                self.faults.count_preempt()
+                preempt_slot(self, run, victim)
+
+    def _stall_shed(self, run: ServeRun, waiting: bool) -> bool:
+        """No slot active but the queue is not empty: with every quota free
+        and the pool at its emptiest, a head that still cannot bind never
+        will — shed it terminally.  A bounded spin backstop catches
+        anything else (a pathological fault schedule) unless arrivals are
+        still pending (``waiting``: idling is then right, not a stall)."""
+        head = run.queue[0]
+        stuck = never_admissible(self, head)
+        self._stall_spins = 0 if stuck or waiting else self._stall_spins + 1
+        if stuck is None and self._stall_spins < 4096:
+            return False
+        self._stall_spins = 0
+        shed_request(self, run.queue.pop(0), run.results, terminal=True)
+        return True
+
+    def _idle_wait(self, feed):
+        """No active slot but arrivals still pending: sleep (real time,
+        capped small so a fake clock cannot wedge the loop) until the next
+        scheduled arrival."""
+        nxt = feed.next_time()
+        if nxt is None:
+            time.sleep(2e-4)
+            return
+        time.sleep(min(max(nxt - self.clock(), 0.0), 5e-3))
 
     def _plain_step(self, run: ServeRun):
         """One masked decode step + post-step bookkeeping (teacher-forced
         fill consumption, emission, finish checks)."""
         st = run.st
-        self._stepper.plain_step(st)
-        toks = st.slot_last.cpu().numpy()   # one int32 per slot per step
+        with instrument.step_span(self, "decode_step"):
+            self._stepper.plain_step(st)
+            with instrument.step_span(self, "sampler_sync"):
+                # one int32 per slot per step
+                toks = st.slot_last.cpu().numpy()
         self._m["decode_steps"] += 1
         now = self.clock()
         for s in range(self.n_slots):
             req = st.req[s]
             if req is None or not st.active[s]:
                 continue
+            self._count_step(req.rid)
             st.slot_len[s] += 1
             if st.slot_len[s] > self.max_len:
                 raise RuntimeError(f"slot {s}: cache len {st.slot_len[s]} "
@@ -353,6 +481,7 @@ class ServeEngine:
                 # the sampled token is the first output
                 st.fill[s] = None
                 self._stepper.fill_done(st, s)
+                instrument.fill_done(self, req)
             self._emit(req, int(toks[s]))
             self._finish_checks(run, req, s, now)
 
@@ -360,14 +489,18 @@ class ServeEngine:
         """One speculative draft + verify burst and its emission; rejected
         suffixes roll back through the stepper hooks."""
         st = run.st
-        out, n_acc = self._stepper.spec_cycle(st, k_eff)
-        last = st.slot_last.cpu().numpy().copy()
+        with instrument.step_span(self, "spec_cycle", k=k_eff) as sa:
+            out, n_acc = self._stepper.spec_cycle(st, k_eff)
+            sa["accepted"] = int(n_acc.sum())
+            with instrument.step_span(self, "sampler_sync"):
+                last = st.slot_last.cpu().numpy().copy()
         self._m["decode_steps"] += 1
         now = self.clock()
         for s in range(self.n_slots):
             req = st.req[s]
             if req is None or not st.active[s]:
                 continue
+            self._count_step(req.rid)
             consumed = 0
             for i in range(int(n_acc[s]) + 1):
                 consumed = i + 1
@@ -409,43 +542,16 @@ class ServeEngine:
 
     # -- observability -------------------------------------------------------
     def metrics(self) -> dict:
-        """Counter snapshot (a plain dict) plus the engine's settings; a
-        paged engine adds its pool's numbers.  ``peak_cache_bytes`` counts
-        the peak of *pinned* pages (what a deployment would size
-        ``n_pages`` from); ``alloc_cache_bytes`` is the whole store."""
-        m = dict(self._m)
-        m["tokens_per_step"] = (m["tokens_generated"]
-                                / max(m["decode_steps"], 1))
-        m["spec"] = self._spec is not None
-        if self._spec is not None:
-            m.update(self._spec.metrics())
-            m["accept_rate"] = (m["accepted_tokens"]
-                                / max(m["proposed_tokens"], 1))
-            # share of emitted tokens the draft proposed (the rest are
-            # first tokens and verify corrections or bonuses); counts the
-            # emitted ones, since a burst cut by a budget accepts more
-            m["draft_share"] = (m["emitted_draft_tokens"]
-                                / max(m["tokens_generated"], 1))
-        m["buckets"] = list(self.buckets)
-        m["prefill_chunk"] = self.prefill_chunk or 0
-        m["paged"] = self.paged
-        if self.paged:
-            pool = self.pool
-            m["page_size"] = self.page_size
-            m["pages_total"] = self.n_pages - 1      # minus the trash page
-            m["pages_in_use"] = pool.pages_in_use()
-            m["pages_peak"] = pool.in_use_peak
-            m["page_bytes"] = self.page_bytes()
-            m["peak_cache_bytes"] = pool.in_use_peak * self.page_bytes()
-            m["alloc_cache_bytes"] = sum(leaf.numel() * leaf.element_size()
-                                         for leaf in self._store.values())
-            m["page_allocs"] = pool.alloc_count
-            m["cow_copies"] = pool.cow_copies
-            m["page_evictions"] = pool.evictions
-            m["prefix_index_blocks"] = len(pool.index)
-            m["prefix_lookups"] = pool.prefix_lookups
-            m["prefix_block_hits"] = pool.prefix_block_hits
-        return m
+        """Counter snapshot plus the engine's settings, assembled by
+        :func:`.instrument.collect_metrics` from the registry-backed groups
+        with the reference's key set; a paged engine adds its pool's
+        numbers, ``faults`` the injector's counts."""
+        return instrument.collect_metrics(self)
+
+    def export_trace(self, path) -> str:
+        """Write this engine's span trace as Chrome/Perfetto trace_event
+        JSON (needs ``tracer=`` at construction)."""
+        return instrument.export_trace(self, path)
 
     def page_bytes(self) -> int:
         """Device bytes of one physical KV page (every leaf, all layers);

@@ -11,7 +11,8 @@ map their leading pages to the *same* physical blocks.
 Everything here is host-side bookkeeping (plain Python / numpy over int
 page ids); the device page store and its writes live in
 ``models/dense.py`` and ``serve/cache_ops.py``, its reads in the paged
-flash-decode kernel.  The counters are plain ints.
+flash-decode kernel.  The counters are a labeled group of the engine's
+metrics registry (``pool.*{cache_kind=paged}``).
 
 Invariants:
 
@@ -34,6 +35,15 @@ import hashlib
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from repro_torch.obs import MetricsRegistry
+
+
+def _pool_counter(name: str):
+    """Property pair keeping the attribute surface (``pool.cow_copies +=
+    1``) while every mutation lands in the registry-backed group."""
+    return property(lambda self: self.m[name],
+                    lambda self, v: self.m.__setitem__(name, v))
 
 
 class PoolExhausted(RuntimeError):
@@ -80,24 +90,37 @@ class PagePool:
 
     TRASH = 0
 
-    def __init__(self, n_pages: int, page_size: int):
+    def __init__(self, n_pages: int, page_size: int, faults=None,
+                 registry=None):
         if n_pages < 2:
             raise ValueError("need at least the trash page plus one "
                              f"allocatable page, got n_pages={n_pages}")
         self.n_pages = n_pages
         self.page_size = page_size
+        # fault-injection seam (serve/faults.py): when set, alloc_ok() may
+        # deterministically veto an allocation, which then goes through the
+        # backpressure protocol exactly as an exhausted pool does
+        self.faults = faults
         # pop() hands out ascending ids (cosmetic; readable tests and logs)
         self.free = list(range(n_pages - 1, 0, -1))
         self.ref = np.zeros(n_pages, np.int64)
         self.ref[self.TRASH] = 1          # pinned forever
         self.index: dict = {}             # block hash -> phys page
         self._page_hash: dict = {}        # phys page -> block hash
-        self.alloc_count = 0
-        self.cow_copies = 0
-        self.evictions = 0
-        self.prefix_lookups = 0
-        self.prefix_block_hits = 0
-        self.in_use_peak = 0
+        # counters surfaced via ServeEngine.metrics(): a cache-kind
+        # labeled group in the engine's registry (a standalone pool gets a
+        # private registry, so the surface is the same)
+        reg = registry if registry is not None else MetricsRegistry()
+        self.m = reg.group("pool", cache_kind="paged").init(
+            alloc_count=0, cow_copies=0, evictions=0, prefix_lookups=0,
+            prefix_block_hits=0, in_use_peak=0)
+
+    alloc_count = _pool_counter("alloc_count")
+    cow_copies = _pool_counter("cow_copies")
+    evictions = _pool_counter("evictions")
+    prefix_lookups = _pool_counter("prefix_lookups")
+    prefix_block_hits = _pool_counter("prefix_block_hits")
+    in_use_peak = _pool_counter("in_use_peak")
 
     # -- capacity ------------------------------------------------------------
     def pages_in_use(self) -> int:
@@ -121,9 +144,12 @@ class PagePool:
 
     def try_alloc(self) -> Optional[int]:
         """Take a fresh page (refcount 1), or ``None`` when the pool is
-        exhausted after the index-eviction fallback.  This is the *only*
-        allocator on the serve path: exhaustion goes through the engine's
-        backpressure protocol instead of an exception."""
+        exhausted after the index-eviction fallback or an injected fault
+        vetoes the allocation.  This is the *only* allocator on the serve
+        path: exhaustion goes through the engine's backpressure protocol
+        instead of an exception."""
+        if self.faults is not None and not self.faults.alloc_ok():
+            return None
         if not self.free and not self._evict_one():
             return None
         p = self.free.pop()

@@ -31,9 +31,21 @@ class Request:
     on_finish: Optional[Callable[[int, np.ndarray], None]] = None
     on_admit: Optional[Callable[[int], None]] = None
     out_tokens: Optional[list] = None
+    # overload machinery (serve/overload.py, serve/loadgen.py)
+    tenant: str = "default"      # quota/fairness bucket
+    rel_deadline: Optional[float] = None  # deadline relative to arrival
+    arrival: Optional[float] = None       # stamped by the arrival feed
+    on_shed: Optional[Callable] = None    # (req, retry_after_s) on shed
+    retries: int = 0             # shed-retry re-arrivals so far
     preempts: int = 0            # times evicted from a slot
     resume: bool = False         # re-queued mid-flight; keep out_tokens
-    outcome: Optional[str] = None    # completed|expired|truncated
+    outcome: Optional[str] = None    # completed|expired|truncated|shed
+    # lifecycle stamps (serve/instrument.py): engine-clock times of the
+    # current queue/prefill/decode phase boundaries; a preemption resets
+    # them so the resume traces as a fresh triple
+    t_enqueue: Optional[float] = None
+    t_bind: Optional[float] = None
+    t_first: Optional[float] = None
 
 
 def effective_prompt(req: Request) -> np.ndarray:

@@ -73,8 +73,9 @@ class SpecRunner:
         if not self.shares:
             self.dcache = self.dmodel.init_cache(
                 engine.n_slots, engine.max_len, device=engine.device)
-        self.m = dict(spec_cycles=0, draft_steps=0, proposed_tokens=0,
-                      accepted_tokens=0, emitted_draft_tokens=0)
+        self.m = engine.registry.group("spec").init(
+            spec_cycles=0, draft_steps=0, proposed_tokens=0,
+            accepted_tokens=0, emitted_draft_tokens=0)
 
     # -- admission and plain-step tracking ------------------------------------
     def admit_slot(self, slot: int, prompt):

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import instrument
 from .cache_ops import (copy_page, merge_slots, scatter_prefill_pages,
                         truncate_slot, write_slot)
 from .pages import PagePool, PagePressure, block_hashes
@@ -44,6 +45,7 @@ class DenseStepper:
     def __init__(self, engine):
         self.engine = engine
         self.cache = None
+        self.prefill_calls = 0      # model prefill calls (metrics())
 
     # -- lifecycle -----------------------------------------------------------
     def begin(self):
@@ -107,6 +109,7 @@ class DenseStepper:
         (first token (1,), cache)."""
         eng = self.engine
         cache = eng.model.init_cache(1, eng.max_len, device=eng.device)
+        self.prefill_calls += 1
         logits, cache = eng.model.prefill(eng.params, tokens, cache)
         return self._sample(logits[:, 0], policy), cache
 
@@ -137,6 +140,7 @@ class DenseStepper:
         dev = eng.device
         mask = torch.as_tensor(admit_mask, device=dev)
         scratch = eng.model.init_cache(eng.n_slots, eng.max_len, device=dev)
+        self.prefill_calls += 1
         logits, new = eng.model.prefill(
             eng.params, torch.as_tensor(tokens, device=dev), scratch,
             torch.as_tensor(plen, device=dev))
@@ -208,7 +212,8 @@ class PagedStepper(DenseStepper):
         # slot can hold a full max_len sequence (+1 trash page)
         self.n_pages = (int(n_pages) if n_pages
                         else 1 + eng.n_slots * self.pages_per_slot)
-        self.pool = PagePool(self.n_pages, page_size)
+        self.pool = PagePool(self.n_pages, page_size, faults=eng.faults,
+                             registry=eng.registry)
         # persists across serve() calls so the prefix index keeps paying
         # off between bursts
         self.store = eng.model.init_paged_cache(self.n_pages, page_size,
@@ -300,12 +305,15 @@ class PagedStepper(DenseStepper):
         phys = int(self.table[s, lp])
         if phys == PagePool.TRASH:
             self.table[s, lp] = self._take_page(s)
+            instrument.page_event(self.engine, "page_alloc", slot=s,
+                                  block=lp)
         elif self.pool.is_shared(phys):
             fresh = self._take_page(s)
             copy_page(self.store, phys, fresh)
             self.pool.decref(phys)
             self.table[s, lp] = fresh
             self.pool.cow_copies += 1
+            instrument.page_event(self.engine, "cow", slot=s, block=lp)
 
     def register_prompt_pages(self, st: SlotTable, s: int):
         """Publish the slot's hashed full blocks for future reuse (the index
@@ -333,6 +341,7 @@ class PagedStepper(DenseStepper):
         mask = torch.as_tensor(admit_mask, device=dev)
         scratch = eng.model.init_cache(eng.n_slots, n_scratch_pages * ps,
                                        device=dev)
+        self.prefill_calls += 1
         logits, scratch = eng.model.prefill(
             eng.params, torch.as_tensor(tokens, device=dev), scratch,
             torch.as_tensor(plen, device=dev))
@@ -404,6 +413,7 @@ class PagedStepper(DenseStepper):
         were allocated (or copied) for this burst and are exclusively owned;
         shared prefix pages all sit below ``slot_len``."""
         ps = self.page_size
+        trimmed = 0
         for j in range(self.pages_per_slot):
             phys = int(self.table[s, j])
             if phys != PagePool.TRASH and j * ps >= st.slot_len[s]:
@@ -412,6 +422,10 @@ class PagedStepper(DenseStepper):
                                        f"accepted depth is shared")
                 self.pool.decref(phys)
                 self.table[s, j] = PagePool.TRASH
+                trimmed += 1
+        if trimmed:
+            instrument.page_event(self.engine, "page_trim", slot=s,
+                                  pages=trimmed)
 
     def spec_rollback(self, st: SlotTable):
         pass    # per-slot page trim happens in post_spec_slot

@@ -34,6 +34,12 @@ full width (2 of its 32 layers, RTN int4 weights), one decode step gives
 each slot the same logits at batch 1, 2 and 4, and ``verify_step`` over a
 4-token burst the logits of 4 sequential ``decode_step`` calls, bit for
 bit, for the bf16, int8 and paged caches.
+
+Prefill: flash_attention with a key length per batch row (bucket padding)
+is held to the plain version with the same lengths, and each prompt's
+valid rows equal the prompt run alone at its exact length bit for bit
+(kv_lens = T equals no mask); at full width a prompt's prefill logits and
+K/V do not depend on the bucket (16, 64, 512) or the batch (1, 2, 4).
 """
 import ctypes
 import math
@@ -243,6 +249,41 @@ def test_flash_attention_bf16_head_groups(dev, g):
     k, v = (torch.randn(2, 150, 64, generator=gen, device=dev).bfloat16()
             for _ in range(2))
     _bf16_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [16, 64, 512])
+def test_flash_attention_kv_lens_rows_equal_exact_length(dev, t, dtype):
+    """Length-masked (bucket-padded) rows: held against the plain version
+    with the same kv_lens, and (bf16, the main path's route) each valid
+    row bit for bit equal to its prompt run alone at its exact length;
+    kv_lens = T gives the unmasked call's bits."""
+    b, g, hd = 4, 4, 128
+    lens = [max(1, t - d) for d in (0, 3, t // 2, t - 1)]
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q = torch.randn(b * 8, g, t, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b * 8, t, hd, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, kv_lens=kv_lens)
+    assert fa.KERNEL.launches == before + 1
+    want = fa.flash_attention_ref(q, k, v, kv_lens=kv_lens)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    full = torch.full((b,), t, dtype=torch.int32, device=dev)
+    assert torch.equal(fa.flash_attention(q, k, v, kv_lens=full),
+                       fa.flash_attention(q, k, v))
+    if dtype != torch.bfloat16:
+        return
+    for i, n in enumerate(lens):
+        rows = slice(8 * i, 8 * i + 8)
+        alone = fa.flash_attention(q[rows, :, :n].contiguous(),
+                                   k[rows, :n].contiguous(),
+                                   v[rows, :n].contiguous())
+        assert torch.equal(got[rows, :, :n], alone), (i, n)
 
 
 def _q8(cache):
@@ -723,3 +764,31 @@ def test_verify_step_equals_sequential_decode_steps(full_width, kind):
         + fd.VERIFY_Q8.launches - before
     assert launched == cfg.n_layers       # one verify launch per layer
     assert torch.equal(got, torch.cat(steps, dim=1))
+
+
+@pytest.mark.parametrize("bucket", [16, 64, 512])
+def test_prefill_rows_do_not_depend_on_batch_or_bucket(full_width, bucket):
+    """A prompt's prefill (its last logits and its K/V) has the bits of its
+    exact-length batch-1 prefill whatever bucket it is padded to and
+    whatever batch (1, 2 or 4) it shares: every prefill attention runs the
+    length-masked kernel."""
+    cfg, qp, tokens, _ = full_width
+    model = build_model(cfg)
+    lens = [12, 7, 16, 3]
+    alone = []
+    for i, n in enumerate(lens):
+        lg, c = model.prefill(qp, tokens[i:i + 1, :n].cuda(),
+                              model.init_cache(1, 512))
+        alone.append((lg[0], c["k"][:, 0, :, :n], c["v"][:, 0, :, :n]))
+    for b in (1, 2, 4):
+        toks = torch.zeros((b, bucket), dtype=torch.int32)
+        for i in range(b):
+            toks[i, :lens[i]] = tokens[i, :lens[i]]
+        lg, c = model.prefill(qp, toks.cuda(), model.init_cache(b, 512),
+                              torch.tensor(lens[:b], dtype=torch.int32,
+                                           device="cuda"))
+        for i in range(b):
+            n = lens[i]
+            assert torch.equal(lg[i], alone[i][0]), (b, i)
+            assert torch.equal(c["k"][:, i, :, :n], alone[i][1]), (b, i)
+            assert torch.equal(c["v"][:, i, :, :n], alone[i][2]), (b, i)

@@ -49,6 +49,9 @@ def test_port_imports_with_jax_unimportable():
             "import repro_torch.bridge\n"
             "import repro_torch.serve.spec, repro_torch.serve.draft\n"
             "import repro_torch.kernels.rms_norm\n"
+            "import repro_torch.obs, repro_torch.obs.__main__\n"
+            "import repro_torch.serve.scheduler, repro_torch.serve.loadgen\n"
+            "import repro_torch.serve.faults, repro_torch.serve.instrument\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'imported repro'\n"
             "print('ok')\n")

@@ -124,6 +124,58 @@ def test_flash_attention_grouped_layout_matches_chunked():
     torch.testing.assert_close(out, expect, **TOL)
 
 
+def _grouped(q, k, v):
+    """(B, T, H, hd) q and (B, T, KH, hd) k/v in the grouped layout."""
+    b, t, h, hd = q.shape
+    kh = k.shape[2]
+    qr = q.reshape(b, t, kh, h // kh, hd).permute(0, 2, 3, 1, 4) \
+          .reshape(b * kh, h // kh, t, hd)
+    return (qr, k.permute(0, 2, 1, 3).reshape(b * kh, t, hd),
+            v.permute(0, 2, 1, 3).reshape(b * kh, t, hd))
+
+
+def _ungrouped(o, b, h):
+    bkh, g, t, hd = o.shape
+    return o.reshape(b, bkh // b, g, t, hd).permute(0, 3, 1, 2, 4) \
+            .reshape(b, t, h, hd)
+
+
+@pytest.mark.parametrize("t,lens", [(16, (12, 16, 1)), (150, (37, 150, 90))])
+def test_flash_attention_kv_lens_plain_matches_reference(t, lens):
+    """The length mask of the plain version is the reference's
+    ``chunked_attention(kv_lens=...)`` mask, padding rows included."""
+    from repro.models.common import chunked_attention as j_chunked
+    b, h, kh, hd = len(lens), 4, 2, 32
+    rng = np.random.default_rng(t)
+    q, k, v = (rng.normal(size=(b, t, n, hd)).astype(np.float32)
+               for n in (h, kh, kh))
+    kv_lens = np.asarray(lens, np.int32)
+    ref = j_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=True, chunk=64, kv_lens=jnp.asarray(kv_lens))
+    got = fa.flash_attention(*_grouped(*(torch.as_tensor(a)
+                                         for a in (q, k, v))),
+                             kv_lens=torch.as_tensor(kv_lens))
+    np.testing.assert_allclose(_np(_ungrouped(got, b, h)), _np(ref), **TOL)
+
+
+def test_flash_attention_kv_lens_plain_matches_port_chunked():
+    """The port's CPU chunked path (the prefill's) and the kernel's plain
+    version agree under the mask; kv_lens = T is the unmasked call."""
+    b, t, h, kh, hd = 3, 70, 4, 1, 16
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, t, n, hd))
+                               .astype(np.float32)) for n in (h, kh, kh))
+    lens = torch.tensor([5, 70, 33], dtype=torch.int32)
+    expect = chunked_attention(q, k, v, causal=True, chunk=32, kv_lens=lens)
+    got = fa.flash_attention(*_grouped(q, k, v), kv_lens=lens)
+    torch.testing.assert_close(_ungrouped(got, b, h), expect, **TOL)
+    full = torch.full((b,), t, dtype=torch.int32)
+    torch.testing.assert_close(fa.flash_attention(*_grouped(q, k, v),
+                                                  kv_lens=full),
+                               fa.flash_attention(*_grouped(q, k, v)),
+                               atol=0, rtol=0)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(2, 1, 64, 160)
     with pytest.raises(ValueError, match="hd <= 128"):
@@ -140,6 +192,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                         torch.zeros(2, 2, 16, 8), torch.ones(2))
     with pytest.raises(ValueError, match="does not match"):
         rn.rms_norm(torch.zeros(3, 8), torch.ones(6))
+    with pytest.raises(ValueError, match="kv_lens"):
+        fa.flash_attention(torch.zeros(3, 1, 8, 16), torch.zeros(3, 8, 16),
+                           torch.zeros(3, 8, 16),
+                           kv_lens=torch.ones(2, dtype=torch.int32))
 
 
 def test_cpu_tensors_never_touch_the_build(monkeypatch):

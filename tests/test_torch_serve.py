@@ -177,11 +177,62 @@ def test_deadlines_and_zero_budget_follow_the_clock(slice_run):
     assert (m["expired"], m["truncated"], m["completed"]) == (1, 1, 1)
 
 
-@pytest.mark.parametrize("option", ["mesh", "slo", "faults", "tracer"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_unported_engine_options_raise(slice_run, option):
     with pytest.raises(NotImplementedError, match=option):
         ServeEngine(slice_run["tm"], slice_run["tq"], device="cpu",
                     **{option: True})
+
+
+def _serve_with(slice_run, **option):
+    """Serve the slice's prompts on an engine built with ``option`` and on
+    a plain one; returns (engine, tokens, plain tokens)."""
+    reqs = lambda: [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(slice_run["prompts"])]
+    kw = dict(n_slots=2, max_len=64, device="cpu")
+    plain = ServeEngine(slice_run["tm"], slice_run["tq"], **kw).serve(reqs())
+    eng = ServeEngine(slice_run["tm"], slice_run["tq"], **kw, **option)
+    return eng, eng.serve(reqs()), plain
+
+
+def test_engine_serves_with_slo(slice_run):
+    from repro_torch.serve import SLOAdmission, SLOConfig
+    eng, out, plain = _serve_with(slice_run, slo=SLOConfig(seed=0))
+    assert isinstance(eng.slo, SLOAdmission)
+    for rid in plain:
+        np.testing.assert_array_equal(out[rid], plain[rid])
+    assert eng.slo._inflight == {"default": 0}     # released at finish
+
+
+def test_engine_serves_with_faults(slice_run):
+    from repro_torch.serve import FaultConfig, FaultInjector
+    inj = FaultInjector(FaultConfig(preempt_at=(2,)))
+    eng, out, plain = _serve_with(slice_run, faults=inj)
+    for rid in plain:
+        np.testing.assert_array_equal(out[rid], plain[rid])
+    m = eng.metrics()
+    assert m["faults"]["forced_preempts"] == m["preempted"] == 1
+
+
+def test_engine_serves_with_tracer_and_registry(slice_run, tmp_path):
+    from repro_torch.obs import MetricsRegistry, Tracer, validate_trace
+    reg, tracer = MetricsRegistry(), Tracer()
+    eng, out, plain = _serve_with(slice_run, tracer=tracer, registry=reg)
+    for rid in plain:
+        np.testing.assert_array_equal(out[rid], plain[rid])
+    assert eng.registry is reg and tracer.clock is eng.clock
+    assert reg.snapshot()["serve.completed"] == len(plain)
+    assert validate_trace(eng.export_trace(tmp_path / "t.json")) == []
+
+
+def test_engine_serves_with_profile(slice_run):
+    from torch.profiler import profile
+    with profile() as prof:
+        eng, out, plain = _serve_with(slice_run, profile=True)
+    for rid in plain:
+        np.testing.assert_array_equal(out[rid], plain[rid])
+    names = {e.key for e in prof.key_averages()}
+    assert {"admit", "decode_step", "sampler_sync"} <= names
 
 
 def test_launch_serve_cli_on_cpu(capsys):

@@ -243,6 +243,63 @@ def test_spec_deadline_mid_burst_truncates(fp_setup):
     assert streamed == out[0].tolist()
 
 
+def test_edf_deadline_expires_mid_decode_spec_burst(fp_setup):
+    """The scheduler half of the test above (the reference's
+    ``test_edf_deadline_expires_mid_decode_spec_burst``): a request
+    submitted through the EDF Scheduler with a deadline that passes while
+    a speculative burst overshoots is truncated, streams exactly what it
+    returns, and the run's summary counts the truncation."""
+    from repro_torch.serve import Scheduler
+    cfg, m, params = fp_setup[:3]
+    draft = self_int8_draft(m, params)
+    prompt = (np.arange(7) % cfg.vocab_size).astype(np.int32)
+    ref = ServeEngine(m, params, n_slots=1, max_len=64, **CPU,
+                      spec=SpecConfig(k=3, draft=draft)).serve(
+        [Request(rid=9, prompt=prompt, max_new_tokens=40)])[9]
+    clock = {"t": 0.0}
+
+    def fake_time():
+        clock["t"] += 1.0
+        return clock["t"]
+
+    eng = ServeEngine(m, params, n_slots=1, max_len=64, clock=fake_time,
+                      spec=SpecConfig(k=3, draft=draft), **CPU)
+    sched = Scheduler(eng)
+    streamed = []
+    sched.submit(Request(rid=0, prompt=prompt, max_new_tokens=40),
+                 deadline=6.5, on_token=lambda rid, t: streamed.append(t))
+    out = sched.run()
+    assert eng.metrics()["truncated"] == 1
+    assert eng.metrics()["expired"] == 0
+    assert 0 < len(out[0]) < 40
+    np.testing.assert_array_equal(out[0], ref[:len(out[0])])
+    assert streamed == out[0].tolist()
+    assert out.summary["truncated"] == 1
+
+
+def test_scheduler_run_surfaces_spec_summary(fp_setup):
+    from repro_torch.serve import Scheduler
+    cfg, m, params = fp_setup[:3]
+    draft = self_int8_draft(m, params)
+    eng = ServeEngine(m, params, n_slots=2, max_len=64, **CPU,
+                      spec=SpecConfig(k=3, draft=draft))
+    sched = Scheduler(eng)
+    prompt = np.arange(5) % cfg.vocab_size
+    for rid, budget in ((0, 12), (1, 3)):
+        sched.submit(Request(rid=rid, prompt=prompt, max_new_tokens=budget))
+    out = sched.run()
+    s = out.summary
+    assert s["spec"] is True
+    assert s["requests"] == 2 and s["completed"] == 2
+    assert 0.0 <= s["accept_rate"] <= 1.0
+    assert s["draft_kind"] == "self-int8" and s["spec_k"] == 3
+    assert set(s["tokens_per_step_by_request"]) == {0, 1}
+    # the long request rides speculative bursts: > 1 token per step
+    assert s["tokens_per_step_by_request"][0] > 1.0
+    assert s["tokens_per_step"] > 1.0
+    assert s["tokens_generated"] == 15
+
+
 def test_spec_draft_vocab_mismatch_fails_fast(fp_setup):
     """An independent draft with another vocabulary cannot feed the
     elementwise accept rule: refused when the engine is built."""
