@@ -88,10 +88,35 @@ def search_alpha(w: torch.Tensor, a_stat: torch.Tensor, spec: QuantSpec,
                  sample: Optional[torch.Tensor] = None) -> SearchResult:
     """Grid-search α minimizing the quantized-output error for one site.
 
-    Sequential over the grid so peak memory stays at one weight copy
-    regardless of grid size.  Ties resolve to the first grid point, as
-    ``argmin`` does in the reference.
-    """
+    Ties resolve to the first grid point, as ``argmin`` does in the
+    reference.  On a CUDA tensor the diagonal loss (``mean_sq`` given, no
+    ``sample``) is the function of the fused quant-error kernel, so the
+    whole grid and the RTN loss (a candidate of ones) are scored in one
+    :func:`~repro_torch.kernels.ops.quant_error_batch` launch; otherwise
+    the grid runs as :func:`search_alpha_plain`."""
+    if not (w.is_cuda and sample is None and mean_sq is not None):
+        return search_alpha_plain(w, a_stat, spec, alpha_grid,
+                                  mean_sq=mean_sq, sample=sample)
+    from repro_torch.kernels.ops import quant_error_batch
+    grid = torch.tensor(alpha_grid, dtype=torch.float32, device=w.device)
+    scales = torch.stack([candidate_scale(a_stat, grid[i])
+                          for i in range(grid.shape[0])]
+                         + [torch.ones_like(a_stat, dtype=torch.float32)])
+    losses = quant_error_batch(w, scales, mean_sq, spec)
+    idx = torch.argmin(losses[:-1])
+    return SearchResult(act_scale=scales[idx], alpha=grid[idx],
+                        loss=losses[idx], rtn_loss=losses[-1])
+
+
+@torch.no_grad()
+def search_alpha_plain(w: torch.Tensor, a_stat: torch.Tensor,
+                       spec: QuantSpec,
+                       alpha_grid: tuple = DEFAULT_ALPHA_GRID,
+                       mean_sq: Optional[torch.Tensor] = None,
+                       sample: Optional[torch.Tensor] = None) -> SearchResult:
+    """:func:`search_alpha` one candidate at a time in plain PyTorch, so
+    peak memory stays at one weight copy regardless of grid size (the CPU
+    path, the parity path against the reference)."""
     grid = torch.tensor(alpha_grid, dtype=torch.float32, device=w.device)
     losses = torch.stack([
         quant_error(w, spec, candidate_scale(a_stat, grid[i]),
@@ -155,3 +180,54 @@ def site_stat_for_method(method: str, mean_abs: torch.Tensor,
     if method == "faq":
         return fuse_stats(mean_abs, gamma=gamma, window=window)
     raise ValueError(f"unknown method {method!r}")
+
+
+FULL_SEARCH_GAMMAS = (0.6, 0.7, 0.8, 0.85, 0.9, 0.95)
+FULL_SEARCH_WINDOWS = (1, 2, 3, 4)
+
+
+@torch.no_grad()
+def full_search_faq(w_stack: torch.Tensor, mean_abs: torch.Tensor,
+                    spec: QuantSpec, gammas=FULL_SEARCH_GAMMAS,
+                    windows=FULL_SEARCH_WINDOWS,
+                    alpha_grid: tuple = DEFAULT_ALPHA_GRID,
+                    mean_sq: Optional[torch.Tensor] = None,
+                    sample: Optional[torch.Tensor] = None) -> dict:
+    """Paper Eq. 8: joint (γ, j, α) search, per layer.
+
+    ``w_stack`` (L, n_in, n_out), ``mean_abs`` (L, n_in); returns the
+    per-layer best ``{act_scale (L, n_in), alpha (L,), loss (L,), gamma
+    (L,) f32, window (L,) int32}``.  Loops over the (γ, j) grid and the
+    layers; a later combination replaces the best only where its loss is
+    strictly smaller, so the first one wins ties, as in the reference.
+    Without ``mean_sq`` the diagonal loss weights every channel by 1.  Each
+    (combination, layer) is one :func:`search_alpha`: on the card, for the
+    diagonal loss, one quant_error_batch launch."""
+    n_layers = w_stack.shape[0]
+    dev = w_stack.device
+    msq = mean_sq if mean_sq is not None else torch.ones_like(mean_abs)
+    best = None
+    for gamma in gammas:
+        for window in windows:
+            fused = fuse_stats(mean_abs, gamma, window)
+            res = [search_alpha(w_stack[l], fused[l], spec, alpha_grid,
+                                mean_sq=None if sample is not None
+                                else msq[l],
+                                sample=None if sample is None else sample[l])
+                   for l in range(n_layers)]
+            cand = dict(
+                act_scale=torch.stack([r.act_scale for r in res]),
+                alpha=torch.stack([r.alpha for r in res]),
+                loss=torch.stack([r.loss for r in res]),
+                gamma=torch.full((n_layers,), gamma, dtype=torch.float32,
+                                 device=dev),
+                window=torch.full((n_layers,), window, dtype=torch.int32,
+                                  device=dev))
+            if best is None:
+                best = cand
+                continue
+            take = cand["loss"] < best["loss"]
+            best = {k: torch.where(take.reshape((-1,) + (1,) * (v.dim() - 1)),
+                                   cand[k], v)
+                    for k, v in best.items()}
+    return best

@@ -28,6 +28,7 @@ __all__ = [
     "quant_dequant",
     "pack_codes",
     "unpack_codes",
+    "storage_bits",
 ]
 
 
@@ -74,6 +75,11 @@ class QuantizedTensor:
     n_in: int
     packed: bool
     act_scale: Optional[torch.Tensor] = None
+
+    @property
+    def shape(self):
+        """(n_in, n_out) of one layer's weight."""
+        return (self.n_in, self.codes.shape[-1])
 
     def __getitem__(self, i) -> "QuantizedTensor":
         """Layer ``i`` of a layer-stacked tensor (views, no copies)."""
@@ -200,6 +206,15 @@ def unpack_codes(packed: torch.Tensor, bits: int, n_in: int) -> torch.Tensor:
     lo = packed & 0x0F
     hi = (packed >> 4) & 0x0F
     return torch.stack([lo, hi], dim=1).reshape(n_in, packed.shape[-1])
+
+
+def storage_bits(qt: QuantizedTensor) -> float:
+    """Average stored bits per weight element (for reporting)."""
+    n_in, n_out = qt.shape
+    code_bits = qt.codes.numel() * 8
+    meta_bits = (qt.scale.numel() + qt.zero.numel()) * 32
+    act_bits = 0 if qt.act_scale is None else qt.act_scale.numel() * 32
+    return (code_bits + meta_bits + act_bits) / (n_in * n_out)
 
 
 def numpy_quant_reference(w: np.ndarray, spec: QuantSpec,

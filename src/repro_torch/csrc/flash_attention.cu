@@ -55,6 +55,12 @@
 // card checks apply (max error 1e-2 * max|plain|, and the error's norm
 // 1e-2 * the plain output's).  l sums the f32 P.
 //
+// Training (kernels/flash_attention.py's autograd.Function) asks both
+// routes for each row's log-sum-exp of its scaled scores as well (lse, f32,
+// natural log): the backward, flash_attention_bwd.cu, rebuilds the
+// probabilities from it.  The bf16 route has it from its own max (log2
+// units) and sum; without the request nothing else changes, bits included.
+//
 // f32 route (no main path passes it), fa_fwd: the first port's CUDA-core
 // kernel, on f32 only.  One block (4 warps) per (kv-batch-head, group head,
 // 32 query rows); it walks 32-key tiles to the causal diagonal of its last
@@ -95,8 +101,8 @@ constexpr int FA_ROWS = FA_BQ / (FA_THREADS / 32);
 template <int DPL>                            // DPL = ceil(hd / 32)
 __global__ void __launch_bounds__(FA_THREADS)
 fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
-       const float* __restrict__ v, float* __restrict__ out, int G, int t_len,
-       int hd, int causal, float scale, const int* __restrict__ kv_lens,
+       const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+       int G, int t_len, int hd, int causal, float scale, const int* __restrict__ kv_lens,
        int heads_per_len) {
   extern __shared__ float smem[];
   float* qs = smem;                          // (BQ, hd), pre-scaled
@@ -171,6 +177,8 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + warp * FA_ROWS + r;
     if (qp >= t_len) continue;
     const float inv = 1.f / fmaxf(l_i[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<size_t>(bg) * t_len + qp] = m_i[r] + logf(fmaxf(l_i[r], 1e-30f));
     float* orow = out + (static_cast<size_t>(bg) * t_len + qp) * hd;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) {
@@ -181,9 +189,9 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DPL>
-int launch_dpl(const void* q, const void* k, const void* v, void* out, int BKH,
-               int G, int t_len, int hd, int causal, float scale, const int* kv_lens,
-               int heads_per_len, cudaStream_t stream) {
+int launch_dpl(const void* q, const void* k, const void* v, void* out, float* lse,
+               int BKH, int G, int t_len, int hd, int causal, float scale,
+               const int* kv_lens, int heads_per_len, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(FA_BQ * hd + FA_BK * (hd + 1) + FA_BK * hd) *
                       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(fa_fwd<DPL>,
@@ -193,18 +201,18 @@ int launch_dpl(const void* q, const void* k, const void* v, void* out, int BKH,
   const dim3 grid(BKH * G, (t_len + FA_BQ - 1) / FA_BQ);
   fa_fwd<DPL><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), G, t_len, hd, causal, scale, kv_lens, heads_per_len);
+      static_cast<float*>(out), lse, G, t_len, hd, causal, scale, kv_lens, heads_per_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* q, const void* k, const void* v, void* out, int BKH,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int BKH,
            int G, int t_len, int hd, int causal, float scale, const int* kl, int hpl,
            cudaStream_t s) {
   switch ((hd + 31) / 32) {
-    case 1: return launch_dpl<1>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
-    case 2: return launch_dpl<2>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
-    case 3: return launch_dpl<3>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
-    case 4: return launch_dpl<4>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
+    case 1: return launch_dpl<1>(q, k, v, out, lse, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
+    case 2: return launch_dpl<2>(q, k, v, out, lse, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
+    case 3: return launch_dpl<3>(q, k, v, out, lse, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
+    case 4: return launch_dpl<4>(q, k, v, out, lse, BKH, G, t_len, hd, causal, scale, kl, hpl, s);
     default: return static_cast<int>(cudaErrorInvalidValue);   // hd > 128
   }
 }
@@ -219,6 +227,7 @@ constexpr int TC_NWG = 2;                  // warp groups (64 query rows each)
 constexpr int TC_BK = 64;                  // keys per K/V tile
 constexpr int TC_MAX_HEADS = 8;            // grouped heads per block
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -261,7 +270,8 @@ constexpr int tc_smem_bytes() {
 // its place.
 template <int HD>
 __global__ void __launch_bounds__(128 * TC_NWG, 2)
-fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, int G, int t_len, int hd,
+fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, float* __restrict__ lse,
+          int G, int t_len, int hd,
           int causal, float scale_log2, int gb, int bq, const int* __restrict__ kv_lens,
           int heads_per_len, const __grid_constant__ CUtensorMap tmk,
           const __grid_constant__ CUtensorMap tmv) {
@@ -452,6 +462,11 @@ fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, int G, int t_len, 
     l += __shfl_xor_sync(repro::kFullMask, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int r = ra + 8 * h;
+    if (lse != nullptr && (lane & 3) == 0) {
+      // m is in log2 units of the scaled scores
+      const long long row = row_index(r);
+      if (row >= 0) lse[row] = (m_r[h] + log2f(fmaxf(l, 1e-30f))) * kLn2;
+    }
 #pragma unroll
     for (int dt = 0; dt < HD / 8; ++dt)
       *reinterpret_cast<uint32_t*>(qs + tile_off<ROWS>(r, dt) + (lane & 3) * 4) =
@@ -485,8 +500,8 @@ bool kv_map(CUtensorMap* map, const void* base, int BKH, int t_len, int hd) {
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int BKH, int G,
-              int t_len, int hd, int causal, float scale, const int* kv_lens,
+int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int BKH,
+              int G, int t_len, int hd, int causal, float scale, const int* kv_lens,
               int heads_per_len, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
@@ -502,7 +517,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int BKH, i
   const int ngb = (G + gb - 1) / gb;
   const dim3 grid(BKH * ngb, (t_len + bq - 1) / bq);
   fa_fwd_tc<HD><<<grid, 128 * TC_NWG, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<bf16*>(out), G, t_len, hd, causal,
+      static_cast<const bf16*>(q), static_cast<bf16*>(out), lse, G, t_len, hd, causal,
       scale * kLog2e, gb, bq, kv_lens, heads_per_len, tmk, tmv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -514,19 +529,25 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int BKH, i
 // tensors, which the wrapper arranges); otherwise the f32 CUDA-core kernel.
 // kv_lens (int32, one per batch row; row b covers heads_per_len consecutive
 // BKH entries, each >= 1) masks keys at or past kv_lens[b]; null masks
-// none.
+// none.  lse (f32, one per row of q, (BKH, G, T)), when not null, takes each
+// row's log-sum-exp of its scaled scores, natural log, for the backward
+// (flash_attention_bwd.cu); null writes nothing and leaves out's bits as
+// they are.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int BKH, int G, int t_len, int hd,
                                       int causal, float scale, int is_bf16,
                                       const void* kv_lens, int heads_per_len,
-                                      void* stream) {
+                                      void* lse_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(kv_lens);
+  float* lse = static_cast<float*>(lse_out);
   if (!is_bf16)
-    return launch(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, heads_per_len, s);
+    return launch(q, k, v, out, lse, BKH, G, t_len, hd, causal, scale, kl, heads_per_len, s);
   if (hd <= 64)
-    return launch_tc<64>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, heads_per_len, s);
+    return launch_tc<64>(q, k, v, out, lse, BKH, G, t_len, hd, causal, scale, kl,
+                         heads_per_len, s);
   if (hd <= 128)
-    return launch_tc<128>(q, k, v, out, BKH, G, t_len, hd, causal, scale, kl, heads_per_len, s);
+    return launch_tc<128>(q, k, v, out, lse, BKH, G, t_len, hd, causal, scale, kl,
+                          heads_per_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

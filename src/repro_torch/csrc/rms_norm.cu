@@ -28,6 +28,7 @@ namespace {
 
 constexpr int RN_THREADS = 256;
 constexpr int RN_CHUNK = 8;
+constexpr int RN_BWD_ROWS = 16;   // rows per block of the backward
 
 // The 8 elements of chunk c (those past d read as 0), as floats.
 template <typename T>
@@ -97,6 +98,89 @@ rms_norm_rows(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ 
   }
 }
 
+// Backward of one row block: rows [r0, r0 + RN_BWD_ROWS).  For each row,
+// with r = rsqrt(mean(x^2) + eps) summed exactly as the forward sums it,
+//   dx = r * w * dy - x * r^3 * mean(x * w * dy),
+// and this block's partial dw (d,) = sum over its rows, in row order, of
+// x * r * dy, kept per element by the thread that owns the element and
+// written to part[block].  rms_norm_dw then adds the partials in block
+// order: no atomics, so dw's bits are the same on every run.
+template <typename T>
+__global__ void __launch_bounds__(RN_THREADS)
+rms_norm_bwd_rows(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
+                  T* __restrict__ dx, float* __restrict__ part, int rows, int d, float eps,
+                  bool vec) {
+  extern __shared__ float dwp[];             // (d) this block's partial dw
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_chunks = (d + RN_CHUNK - 1) / RN_CHUNK;
+  __shared__ float part_sq[RN_THREADS / 32], part_dot[RN_THREADS / 32];
+  __shared__ float row_scale, row_dot;
+  for (int e = tid; e < d; e += RN_THREADS) dwp[e] = 0.f;
+  const int r0 = blockIdx.x * RN_BWD_ROWS, r1 = min(rows, r0 + RN_BWD_ROWS);
+  for (int r = r0; r < r1; ++r) {
+    const size_t off = static_cast<size_t>(r) * d;
+    float sq = 0.f, dot = 0.f;
+    for (int c = tid; c < n_chunks; c += RN_THREADS) {
+      float v[RN_CHUNK], g[RN_CHUNK], dv[RN_CHUNK];
+      load_chunk(x + off, c, d, vec, v);
+      load_chunk(w, c, d, vec, g);
+      load_chunk(dy + off, c, d, vec, dv);
+#pragma unroll
+      for (int i = 0; i < RN_CHUNK; ++i) {
+        sq = fmaf(v[i], v[i], sq);
+        dot = fmaf(v[i] * g[i], dv[i], dot);
+      }
+    }
+    sq = repro::warp_sum(sq);
+    dot = repro::warp_sum(dot);
+    if (lane == 0) {
+      part_sq[warp] = sq;
+      part_dot[warp] = dot;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int i = 0; i < RN_THREADS / 32; ++i) {
+        s1 += part_sq[i];
+        s2 += part_dot[i];
+      }
+      row_scale = rsqrtf(s1 / static_cast<float>(d) + eps);
+      row_dot = s2 / static_cast<float>(d);
+    }
+    __syncthreads();
+    const float rs = row_scale, mdot = row_dot;
+    const float c3 = rs * rs * rs * mdot;
+    for (int c = tid; c < n_chunks; c += RN_THREADS) {
+      float v[RN_CHUNK], g[RN_CHUNK], dv[RN_CHUNK];
+      load_chunk(x + off, c, d, vec, v);
+      load_chunk(w, c, d, vec, g);
+      load_chunk(dy + off, c, d, vec, dv);
+      const int e0 = c * RN_CHUNK;
+#pragma unroll
+      for (int i = 0; i < RN_CHUNK; ++i) {
+        if (e0 + i < d) {
+          repro::store_as(dx + off + e0 + i, rs * g[i] * dv[i] - v[i] * c3);
+          dwp[e0 + i] = fmaf(v[i] * rs, dv[i], dwp[e0 + i]);
+        }
+      }
+    }
+    __syncthreads();                         // row_scale / row_dot reused
+  }
+  float* pb = part + static_cast<size_t>(blockIdx.x) * d;
+  for (int e = tid; e < d; e += RN_THREADS) pb[e] = dwp[e];
+}
+
+// dw[e] = sum over blocks b, in order, of part[b][e]
+template <typename T>
+__global__ void __launch_bounds__(RN_THREADS)
+rms_norm_dw(const float* __restrict__ part, T* __restrict__ dw, int n_blocks, int d) {
+  const int e = blockIdx.x * RN_THREADS + threadIdx.x;
+  if (e >= d) return;
+  float acc = 0.f;
+  for (int b = 0; b < n_blocks; ++b) acc += part[static_cast<size_t>(b) * d + e];
+  repro::store_as(dw + e, acc);
+}
+
 template <typename T>
 int launch(const void* x, const void* w, void* out, int rows, int d, float eps,
            cudaStream_t stream) {
@@ -110,7 +194,43 @@ int launch(const void* x, const void* w, void* out, int rows, int d, float eps,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw, float* part,
+               int rows, int d, float eps, cudaStream_t stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(dy);
+  const bool vec = d % RN_CHUNK == 0 && addr % 16 == 0;
+  const int smem = d * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(rms_norm_bwd_rows<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_blocks = (rows + RN_BWD_ROWS - 1) / RN_BWD_ROWS;
+  rms_norm_bwd_rows<T><<<n_blocks, RN_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), part, rows, d, eps, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rms_norm_dw<T><<<(d + RN_THREADS - 1) / RN_THREADS, RN_THREADS, 0, stream>>>(
+      part, static_cast<T*>(dw), n_blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The number of (d,) f32 partials rms_norm_bwd_launch's `part` must hold.
+extern "C" int rms_norm_bwd_blocks(int rows) { return (rows + RN_BWD_ROWS - 1) / RN_BWD_ROWS; }
+
+// Backward of rms_norm_launch: x, dy, dx (rows, d) and w, dw (d,) contiguous,
+// all f32 or all bf16; part f32 scratch of rms_norm_bwd_blocks(rows) * d.
+// rows >= 1; d * 4 bytes of shared memory per block (d <= 32768).
+extern "C" int rms_norm_bwd_launch(const void* x, const void* w, const void* dy, void* dx,
+                                   void* dw, void* part, int rows, int d, float eps,
+                                   int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if (is_bf16) return launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, p, rows, d, eps, st);
+  return launch_bwd<float>(x, w, dy, dx, dw, p, rows, d, eps, st);
+}
 
 // x (rows, d) and w (d,) contiguous, both f32 or both bf16; out like x.
 // rows >= 1 and rows < 2^31.

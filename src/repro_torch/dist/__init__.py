@@ -1,1 +1,2 @@
-"""Distributed helpers the port needs so far (the data resume layout)."""
+"""Distributed helpers the port needs so far: checkpoints in the
+reference's format, the tree key paths they use, the data resume layout."""

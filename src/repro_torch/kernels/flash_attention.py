@@ -1,10 +1,17 @@
-"""Causal flash-attention forward, GQA-grouped.
+"""Causal flash attention, GQA-grouped, forward and backward.
 
 Wrapper of ``csrc/flash_attention.cu``, the port of
-``repro/kernels/flash_attention.py::flash_attention_pallas``.  A CPU
-tensor takes the plain version :func:`flash_attention_ref`; a CUDA tensor
-launches the kernel or raises: bf16 the tensor-core kernel, f32 the
-CUDA-core one.
+``repro/kernels/flash_attention.py::flash_attention_pallas``, and of
+``csrc/flash_attention_bwd.cu``, its backward (the reference has none: it
+trains through its jnp attention).  A CPU tensor takes the plain versions
+:func:`flash_attention_ref` / :func:`flash_attention_bwd_ref`; a CUDA
+tensor launches the kernels or raises: bf16 the tensor-core forward, f32
+the CUDA-core one, and the CUDA-core backward for both.
+
+When grad is enabled and an input requires it, :func:`flash_attention`
+runs as a ``torch.autograd.Function``: the forward kernel also writes each
+row's log-sum-exp, and the backward kernel rebuilds the probabilities from
+it.  Without grad the forward launch is the same as ever.
 """
 from __future__ import annotations
 
@@ -13,13 +20,17 @@ from typing import Optional
 import torch
 
 from ._build import FLOAT, INT, PTR, Kernel
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["KERNEL", "flash_attention", "flash_attention_ref"]
+__all__ = ["KERNEL", "KERNEL_BWD", "flash_attention", "flash_attention_bwd",
+           "flash_attention_ref", "flash_attention_bwd_ref"]
 
 KERNEL = Kernel("flash_attention.cu", "flash_attention_launch",
                 [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT,
-                 PTR, INT, PTR])
+                 PTR, INT, PTR, PTR])
+KERNEL_BWD = Kernel("flash_attention_bwd.cu", "flash_attention_bwd_launch",
+                    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
+                     INT, INT, INT, INT, FLOAT, INT, PTR])
 MAX_HEAD_DIM = 128
 
 
@@ -33,7 +44,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     entries, its KV heads), masks keys at positions >= kv_lens[b], each
     >= 1: bucket-padded prefill.  Rows past kv_lens[b] are padding and
     still attend the valid keys.  On the card a valid row's bits do not
-    depend on T or on the other rows."""
+    depend on T or on the other rows.
+
+    Differentiable in q, k and v (without ``kv_lens``, which training
+    never passes): under grad it runs as :class:`_FlashAttention`."""
     q4 = q[:, None] if q.dim() == 3 else q
     if q4.dim() != 4 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"need q (BKH, G, T, hd) and equal (BKH, T, hd) "
@@ -52,17 +66,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kv_lens must be (B,) on {q.device} with B "
                          f"dividing {bkh}; got {tuple(kv_lens.shape)} on "
                          f"{kv_lens.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if kv_lens is not None:
+            raise ValueError("flash_attention: no backward with kv_lens "
+                             "(training never masks keys by length)")
+        out = _FlashAttention.apply(q4, k, v, causal)
+        return out[:, 0] if q.dim() == 3 else out
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, kv_lens=kv_lens)
+    out = _forward(q4, k, v, causal, kv_lens, with_lse=False)[0]
+    return out[:, 0] if q.dim() == 3 else out
+
+
+def _check_cuda(*xs: torch.Tensor) -> None:
+    q = xs[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share an f32/bf16 dtype; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+            any(x.dtype != q.dtype for x in xs):
+        raise ValueError(f"flash_attention: tensors must share an f32/bf16 "
+                         f"dtype; got {[x.dtype for x in xs]}")
+
+
+def _forward(q4, k, v, causal, kv_lens, with_lse):
+    """The forward launch on (BKH, G, T, hd) q; returns (out, lse or
+    None), lse (BKH, G, T) f32."""
+    _check_cuda(q4, k, v)
+    bkh, g, t, hd = q4.shape
     q4, k, v = q4.contiguous(), k.contiguous(), v.contiguous()
-    bf16 = q.dtype == torch.bfloat16
+    bf16 = q4.dtype == torch.bfloat16
     # the bf16 kernel loads rows by TMA: 16-byte aligned, hd % 8 == 0; pad
     # other rows with zeros (which add nothing to any score or output)
     width = hd
@@ -74,14 +107,74 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_lens = kv_lens.to(torch.int32).contiguous()
         lens_ptr, per_len = kv_lens.data_ptr(), bkh // kv_lens.numel()
     out = torch.empty_like(q4)
+    lse = (torch.empty((bkh, g, t), dtype=torch.float32, device=q4.device)
+           if with_lse else None)
     if t > 0:
         KERNEL.launch(q4.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), bkh, g, t, width, int(causal),
                       hd ** -0.5, int(bf16), lens_ptr, per_len,
-                      torch.cuda.current_stream(q.device).cuda_stream)
+                      None if lse is None else lse.data_ptr(),
+                      torch.cuda.current_stream(q4.device).cuda_stream)
     if width != hd:
         out = out[..., :hd].contiguous()
-    return out[:, 0] if q.dim() == 3 else out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True):
+    """dq, dk, dv of :func:`flash_attention` for q, out, dout (BKH, G, T,
+    hd) and k, v (BKH, T, hd), given the forward's ``out`` and per-row
+    ``lse`` (BKH, G, T) f32.  A CPU tensor takes the plain version
+    :func:`flash_attention_bwd_ref` (which recomputes out and lse); a CUDA
+    tensor launches ``csrc/flash_attention_bwd.cu`` or raises."""
+    bkh, g, t, hd = q.shape
+    if k.shape != (bkh, t, hd) or v.shape != k.shape or \
+            dout.shape != q.shape or hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: need q, dout (BKH, G, T, hd "
+                         f"<= {MAX_HEAD_DIM}) and k, v (BKH, T, hd); got "
+                         f"{tuple(q.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    _check_cuda(q, k, v, out, dout)
+    if out.shape != q.shape or lse.shape != (bkh, g, t) or \
+            lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: need out like q and f32 lse "
+                         f"(BKH, G, T); got {tuple(out.shape)}, "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    q, k, v, out, dout, lse = (x.contiguous()
+                               for x in (q, k, v, out, dout, lse))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty((bkh, g, t), dtype=torch.float32, device=q.device)
+    if t > 0:
+        KERNEL_BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                          dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), bkh, g, t, hd, int(causal),
+                          hd ** -0.5, int(q.dtype == torch.bfloat16),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention on (BKH, G, T, hd) q with its backward: the kernels
+    on a CUDA tensor, the plain versions on a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, q4, k, v, causal):
+        if q4.device.type == "cpu":
+            out, lse = flash_attention_ref(q4, k, v, causal=causal), None
+        else:
+            out, lse = _forward(q4, k, v, causal, None, with_lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q4, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q4, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q4, k, v, out, lse, dout,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def _zero_padded(x: torch.Tensor, width: int) -> torch.Tensor:

@@ -48,6 +48,20 @@ def rms_norm_ref(x: torch.Tensor, w: torch.Tensor,
     return (x32 * w.float()).to(x.dtype)
 
 
+def rms_norm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-6):
+    """Gradients of :func:`rms_norm_ref` for the upstream gradient ``dy``,
+    in f32: with r = rsqrt(mean(x^2) + eps) per row, ``dx = r w dy - x r^3
+    mean(x w dy)`` (cast to x's dtype) and ``dw`` the sum over rows of ``x
+    r dy`` (cast to w's dtype)."""
+    x32, w32, dy32 = x.float(), w.float(), dy.float()
+    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    dot = torch.mean(x32 * w32 * dy32, dim=-1, keepdim=True)
+    dx = r * w32 * dy32 - x32 * r ** 3 * dot
+    dw = (x32 * r * dy32).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
 def _attend_core(q, k, v, lens, window, k_fold=None, v_fold=None):
     """Masked attention of T positions per slot, shared by every decode and
     verify plain version.  q: (B, T, H, hd); k/v: (B, KH, S, hd) in any type
@@ -242,3 +256,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgts,bsd->bgtd", p, v.float()).to(q.dtype)
     return out[:, 0] if squeeze else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, causal: bool = True):
+    """Gradients of :func:`flash_attention_ref` (no key lengths) for the
+    upstream gradient ``dout``, written out in f32: with S = q k^T hd^-0.5
+    masked, P = softmax(S), O = P v,
+    ``dv = sum_g P^T dO``, ``dP = dO v^T``, ``dS = P (dP - rowsum(dO O))``,
+    ``dq = dS k hd^-0.5`` and ``dk = sum_g dS^T q hd^-0.5``.
+    q, dout: (BKH, G, T, hd); k, v: (BKH, T, hd).  Returns (dq, dk, dv) in
+    the inputs' dtypes."""
+    t, hd = q.shape[2], q.shape[3]
+    scale = hd ** -0.5
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bgtd,bsd->bgts", q32, k32) * scale
+    if causal:
+        mask = torch.tril(torch.ones(t, t, dtype=torch.bool, device=q.device))
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgts,bsd->bgtd", p, v32)
+    dv = torch.einsum("bgts,bgtd->bsd", p, do32)
+    dp = torch.einsum("bgtd,bsd->bgts", do32, v32)
+    ds = p * (dp - (do32 * o).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bgts,bsd->bgtd", ds, k32) * scale
+    dk = torch.einsum("bgts,bgtd->bsd", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,5 +1,5 @@
-"""Serving entry point: init, calibrate, FAQ-quantize to packed int4, and
-serve synthetic requests.
+"""Serving entry point: load a checkpoint (or init), calibrate,
+FAQ-quantize to packed int4, and serve synthetic requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --tiny --device cpu --requests 4
@@ -10,6 +10,10 @@ serve synthetic requests.
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
         --paged --deadline-s 5 --fault-alloc-at 0,3 --fault-preempt-at 4 \
         --trace-out trace.json && python -m repro_torch.obs trace.json
+    # the params of a training checkpoint (repro_torch.launch.train, or the
+    # reference's: the format is shared)
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --ckpt-dir /tmp/lt
 
 Runs on the card by default (``--device cuda``) and fails there is none.
 At full width (``--no-tiny``) the synthetic data vocabulary is capped at
@@ -31,6 +35,7 @@ from repro_torch.core import QuantSpec, quantize_model, run_calibration
 from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
                                         calibration_batches)
 from repro_torch.device import resolve_device
+from repro_torch.dist import checkpoint as ckpt
 from repro_torch.models.registry import build_model
 from repro_torch.obs import Tracer, profile_session
 from repro_torch.serve.draft import registry_draft, self_int8_draft
@@ -74,6 +79,18 @@ def data_for(cfg) -> SyntheticLM:
                                                  DATA_VOCAB_CAP)))
 
 
+def load_params(ckpt_dir: str, params):
+    """The ``{"params"}`` of the newest complete checkpoint in
+    ``ckpt_dir`` (a training checkpoint of this package or the
+    reference's), on the devices of ``params``, which gives the tree's
+    structure; ``params`` itself where there is no checkpoint."""
+    step = ckpt.latest_step(ckpt_dir)
+    if step is None:
+        return params
+    print(f"loaded checkpoint step {step}")
+    return ckpt.restore(ckpt_dir, step, {"params": params})["params"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=sorted(ARCHS))
@@ -83,6 +100,10 @@ def main(argv=None):
                     help="torch device; 'cpu' runs every kernel's plain "
                          "PyTorch version")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the {'params'} of this checkpoint's latest "
+                         "step (a training checkpoint) instead of random "
+                         "weights")
     ap.add_argument("--bits", type=int, default=4)
     ap.add_argument("--method", default="faq", choices=["rtn", "awq", "faq"])
     ap.add_argument("--requests", type=int, default=4)
@@ -159,6 +180,8 @@ def main(argv=None):
     cfg = ARCHS[args.arch].tiny() if args.tiny else ARCHS[args.arch]
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
+    if args.ckpt_dir:
+        params = load_params(args.ckpt_dir, params)
     data = data_for(cfg)
     if data.cfg.vocab_size < cfg.vocab_size:
         print(f"data vocabulary capped at {data.cfg.vocab_size} of "

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.stats import site_stat
@@ -184,13 +185,17 @@ class DenseLM:
         return x, kv, stats
 
     # -- entry points --------------------------------------------------------
-    @torch.no_grad()
     def forward(self, params, batch, collect_stats: bool = False):
-        """Full causal forward (evaluation / calibration).
+        """Full causal forward (training / evaluation / calibration).
 
         Returns (logits, aux) with aux = {"stats": ..., "moe_aux": scalar};
         ``stats[site][key]`` is stacked over layers (``(L, d)`` moments,
-        ``(L, K, d)`` samples)."""
+        ``(L, K, d)`` samples).  Differentiable: gradients reach every
+        parameter that requires grad (on the card through the
+        flash-attention and rms_norm kernels' backward).  ``cfg.remat``
+        recomputes each block in the backward (``torch.utils.checkpoint``,
+        the reference's ``jax.checkpoint``).  Calibration calls it under
+        ``torch.no_grad()``."""
         tokens = batch["tokens"]
         b, t = tokens.shape
         positions = batch.get("positions")
@@ -199,9 +204,15 @@ class DenseLM:
         x = embed_tokens(params["embed"], tokens).to(self.dtype)
         per_layer = []
         blocks = params["blocks"]
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for l in range(self.cfg.n_layers):
-            x, _, stats = self._block(_layer(blocks, l), x, positions,
-                                      collect_stats)
+            if remat:
+                x, _, stats = checkpoint(self._block, _layer(blocks, l), x,
+                                         positions, collect_stats,
+                                         use_reentrant=False)
+            else:
+                x, _, stats = self._block(_layer(blocks, l), x, positions,
+                                          collect_stats)
             per_layer.append(stats)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)

@@ -792,3 +792,155 @@ def test_prefill_rows_do_not_depend_on_batch_or_bucket(full_width, bucket):
             assert torch.equal(lg[i], alone[i][0]), (b, i)
             assert torch.equal(c["k"][:, i, :, :n], alone[i][1]), (b, i)
             assert torch.equal(c["v"][:, i, :, :n], alone[i][2]), (b, i)
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels: flash_attention_bwd.cu and rms_norm.cu's backward
+# ---------------------------------------------------------------------------
+
+def _grad_close(got, want):
+    """bf16: the forward's limits (max error 1e-2 * max|plain| and ||error||
+    <= 1e-2 * ||plain||); f32: max error 1e-4 * max(1, max|plain|)."""
+    if want.dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+def _attention_inputs(dev, g, t, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(2, g, t, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(2, t, hd, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    dout = torch.randn(2, g, t, hd, generator=gen, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t", [16, 64, 512])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_attention_bwd_matches_plain(dev, g, t, hd, dtype):
+    """Autograd through flash_attention launches the backward kernel once;
+    dq, dk, dv against flash_attention_bwd_ref; a second backward gives
+    the same bits (no atomics)."""
+    q, k, v, dout = _attention_inputs(dev, g, t, hd, dtype, g * t + hd)
+    want = fa.flash_attention_bwd_ref(q, k, v, dout)
+    grads = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = fa.KERNEL_BWD.launches
+        out = fa.flash_attention(*leaves)
+        grads.append(torch.autograd.grad(out, leaves, dout))
+        assert fa.KERNEL_BWD.launches == before + 1
+    for got, ref in zip(grads[0], want):
+        assert got.dtype == dtype
+        _grad_close(got, ref)
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [37, 200])
+def test_flash_attention_bwd_odd_shapes(dev, t, causal):
+    """T off the 32-row tile, hd 36 (not a multiple of 32), causal or not."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, dout = _attention_inputs(dev, 3, t, 36, dtype, t)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(fa.flash_attention(*leaves, causal=causal),
+                                  leaves, dout)
+        for a, b in zip(got, fa.flash_attention_bwd_ref(q, k, v, dout,
+                                                        causal=causal)):
+            _grad_close(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_forward_bits_do_not_depend_on_grad_mode(dev, dtype):
+    q, k, v, _ = _attention_inputs(dev, 4, 512, 128, dtype, 3)
+    plain = fa.flash_attention(q, k, v)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    assert torch.equal(fa.flash_attention(*leaves).detach(), plain)
+    with torch.no_grad():
+        assert torch.equal(fa.flash_attention(*leaves), plain)
+
+
+def test_flash_attention_refuses_kv_lens_under_grad(dev):
+    q, k, v, _ = _attention_inputs(dev, 1, 16, 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="kv_lens"):
+        fa.flash_attention(q.requires_grad_(), k, v,
+                           kv_lens=torch.tensor([16, 16], device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", [(2048, 4096), (37, 100), (5, 36)])
+def test_rms_norm_bwd_matches_plain(dev, rows, d, dtype):
+    """dx and dw against rms_norm_bwd_ref, the same bits twice; the forward
+    under grad gives the no-grad forward's bits."""
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=gen, device=dev) * 3).to(dtype)
+    w = torch.randn(d, generator=gen, device=dev).to(dtype)
+    dy = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+    want = rn.rms_norm_bwd_ref(x, w, dy, 1e-5)
+    grads = []
+    for _ in range(2):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = rn.KERNEL_BWD.launches
+        out = rn.rms_norm(xl, wl, 1e-5)
+        assert torch.equal(out.detach(), rn.rms_norm(x, w, 1e-5))
+        grads.append(torch.autograd.grad(out, (xl, wl), dy))
+        assert rn.KERNEL_BWD.launches == before + 1
+    for got, ref in zip(grads[0], want):
+        assert got.dtype == dtype
+        if dtype == torch.bfloat16:
+            _bf16_close(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+class _PlainKernels:
+    """The model's attention and rms_norm swapped for their plain versions
+    (autograd through plain PyTorch) for the duration of a with-block."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import common, dense
+        monkeypatch.setattr(common, "flash_attention",
+                            lambda q, k, v, causal=True, kv_lens=None:
+                            fa.flash_attention_ref(q, k, v, causal=causal,
+                                                   kv_lens=kv_lens))
+        monkeypatch.setattr(common, "rms_norm", rn.rms_norm_ref)
+        monkeypatch.setattr(dense, "rms_norm", rn.rms_norm_ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_train_step_on_the_card(dev, dtype, monkeypatch):
+    """One make_train_step step of the tiny llama3-8b on the card: both
+    backward kernels launch, every gradient is non-zero, and each leaf's
+    gradient is within a relative norm of 1e-4 (f32) / 5e-2 (bf16) of the
+    same step through the plain versions."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.dist._tree import leaves_with_keys
+    from repro_torch.train.trainer import make_loss_fn, value_and_grad
+
+    cfg = ARCHS["llama3-8b"].tiny().scaled(dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(0, 4, 64).items()}
+    loss_fn = make_loss_fn(model, 0.0)
+    counts = (fa.KERNEL_BWD.launches, rn.KERNEL_BWD.launches)
+    (loss, _), grads = value_and_grad(loss_fn, params, batch)
+    assert fa.KERNEL_BWD.launches == counts[0] + cfg.n_layers
+    assert rn.KERNEL_BWD.launches == counts[1] + 2 * cfg.n_layers + 1
+    with monkeypatch.context() as mp:
+        _PlainKernels(mp)
+        (plain_loss, _), plain = value_and_grad(loss_fn, params, batch)
+    plain = dict(leaves_with_keys(plain))
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    assert abs(float(loss) - float(plain_loss)) <= tol * float(plain_loss)
+    for key, g in leaves_with_keys(grads):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), key
+        rel = float((g.float() - plain[key].float()).norm()
+                    / plain[key].float().norm())
+        assert rel <= tol, (key, rel)

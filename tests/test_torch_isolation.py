@@ -52,6 +52,10 @@ def test_port_imports_with_jax_unimportable():
             "import repro_torch.obs, repro_torch.obs.__main__\n"
             "import repro_torch.serve.scheduler, repro_torch.serve.loadgen\n"
             "import repro_torch.serve.faults, repro_torch.serve.instrument\n"
+            "import repro_torch.dist.checkpoint, repro_torch.dist._tree\n"
+            "import repro_torch.train, repro_torch.train.grad_compress\n"
+            "import repro_torch.launch.train, repro_torch.launch.quantize\n"
+            "import repro_torch.core.theory\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'imported repro'\n"
             "print('ok')\n")
@@ -78,6 +82,12 @@ def test_entry_points_refuse_to_run_without_a_card():
         ServeEngine(model, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--tiny", "--requests", "1"])
+    from repro_torch.launch import quantize as launch_quantize
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_quantize.main(["--tiny"])
 
 
 def test_engine_rejects_params_on_another_device():
