@@ -35,17 +35,23 @@ Phases (any failure exits non-zero; nothing is caught):
               512, each prompt's rows bit for bit against the prompt alone
               at its exact length, timed beside a masked
               scaled_dot_product_attention); the two backward kernels
-              (flash_attention at q (32, 4, 512, 128), bf16 and f32,
+              (flash_attention at q (32, 4, 512, 128), bf16 on the tensor
+              cores and f32 on the CUDA cores, and bf16 at the
+              reference's training length q (8, 4, 4096, 128), each
               beside the backward of scaled_dot_product_attention;
               rms_norm at (2048, 4096) beside ``F.rms_norm``'s), each
-              against its plain version and bit for bit on a second run;
+              against its plain version (at T 4096 against SDPA) and bit
+              for bit on a second run; the build phase fails on a
+              register spill in the redesigned backward kernels;
 4. reference — a tiny llama3-8b on the card (kernels) against the same
               model on the CPU (plain versions): logits and greedy tokens;
    train    — llama3-8b at full width cut to 2 layers: step 1's gradients
               (every leaf non-zero, held per leaf against the plain
               versions' step), 20 AdamW steps of 4 x 512 tokens, a
               save_async of {params, opt} after step 10 restored bit for
-              bit and resumed to the same loss bits, and the trained
+              bit and resumed to the same loss bits (the first resumed
+              step under torch.profiler: device busy share and the top
+              device operations of a train step), and the trained
               params' checkpoint served through launch/serve.py's restore
               with the in-memory params' tokens;
 5. main path — llama3-8b at full width and depth (d_model 4096, 32 heads,
@@ -170,6 +176,9 @@ BF16_REL_TOL = 1e-2
 # plain version by f32 summation order only (readings up to 6.6e-5 on the
 # H100); rounding every weight to bf16 reads 2.4e-3 and more
 EXACT_REL_TOL = 5e-4
+# kernels whose every instantiation must compile without a register spill
+NO_SPILL = ("fa_bwd_dkdv_tc", "fa_bwd_dq_tc", "fa_bwd_prep",
+            "rms_norm_bwd_rows", "rms_norm_dw")
 
 
 def fail(msg: str):
@@ -850,70 +859,96 @@ def rms_norm_row(dev, gen, randn):
 
 
 def flash_attention_bwd_row(dev, gen, randn):
-    """flash_attention's backward kernel at the train path's attention
+    """flash_attention's backward kernels at the train path's attention
     shape (B 4, T 512, 32 heads on 8 KV heads, hd 128: q (32, 4, 512,
-    128)), bf16 and f32: dq, dk, dv against flash_attention_bwd_ref with
-    the forward's tolerances, the same bits on a second run (no atomics),
-    then (bf16) timed beside the plain version and the backward of
-    scaled_dot_product_attention (GQA) under autograd."""
+    128)), bf16 (the tensor-core route) and f32 (the CUDA-core route), and
+    at the reference's training length (B 1, T 4096: q (8, 4, 4096, 128)),
+    bf16: at T 512 dq, dk, dv against flash_attention_bwd_ref with the
+    forward's tolerances, at both lengths the same bits on a second run (no
+    atomics), then (bf16) timed beside the backward of
+    scaled_dot_product_attention (GQA) under autograd, whose dq is held to
+    the kernel's, and at T 512 beside the plain version."""
     from repro_torch.kernels import flash_attention as fa
 
     phase("kernel flash_attention_bwd")
-    bkh, g, t, hd = 32, 4, 512, 128
-    errs = {}
-    for dt in (torch.bfloat16, torch.float32):
+    g, hd = 4, 128
+
+    def case(bkh, t, dt):
+        """(max abs error against the plain version at T 512, else None;
+        the inputs) of one shape, held and repeated"""
         q, do = randn(bkh, g, t, hd, dtype=dt), randn(bkh, g, t, hd, dtype=dt)
         k_, v_ = randn(bkh, t, hd, dtype=dt), randn(bkh, t, hd, dtype=dt)
         o, lse = fa._forward(q, k_, v_, True, None, with_lse=True)
         got = fa.flash_attention_bwd(q, k_, v_, o, lse, do)
-        want = fa.flash_attention_bwd_ref(q, k_, v_, do)
-        bf16 = dt == torch.bfloat16
-        errs[dt] = max(held(f"{name} q ({bkh},{g},{t},{hd}) {str(dt)[6:]}", a,
-                            b, rel_tol=BF16_REL_TOL if bf16 else None)
-                       for name, a, b in zip(("dq", "dk", "dv"), got, want))
+        err = None
+        if t == 512:
+            want = fa.flash_attention_bwd_ref(q, k_, v_, do)
+            bf16 = dt == torch.bfloat16
+            err = max(held(f"{name} q ({bkh},{g},{t},{hd}) {str(dt)[6:]}", a,
+                           b, rel_tol=BF16_REL_TOL if bf16 else None)
+                      for name, a, b in zip(("dq", "dk", "dv"), got, want))
+            del want
         again = fa.flash_attention_bwd(q, k_, v_, o, lse, do)
-        same_bits(f"{str(dt)[6:]}: a second backward",
+        same_bits(f"({bkh},{g},{t},{hd}) {str(dt)[6:]}: a second backward",
                   torch.cat([x.flatten() for x in again]),
                   torch.cat([x.flatten() for x in got]))
-        if bf16:
-            sets = (q, k_, v_, o, lse, do)
-    q, k_, v_, o, lse, do = sets
-    ms = time_ms(lambda i: fa.flash_attention_bwd(q, k_, v_, o, lse, do),
-                 reps=10, inner=3)
+        return err, (q, k_, v_, o, lse, do)
+
+    def timed(bkh, t, sets):
+        """kernel ms, SDPA backward ms (dq held to the kernel's), bound"""
+        q, k_, v_, o, lse, do = sets
+        ms = time_ms(lambda i: fa.flash_attention_bwd(q, k_, v_, o, lse, do),
+                     reps=10, inner=3)
+        b, kh = bkh // 8, 8
+        leaves = [x.reshape(shape).detach().requires_grad_() for x, shape in
+                  ((q, (b, kh * g, t, hd)), (k_, (b, kh, t, hd)),
+                   (v_, (b, kh, t, hd)))]
+        sd = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True)
+        do_r = do.reshape(b, kh * g, t, hd)
+
+        def sdpa_bwd(i):
+            return torch.autograd.grad(sd, leaves, do_r, retain_graph=True)
+
+        held(f"library call (sdpa backward) dq, T {t}, against the kernel's",
+             sdpa_bwd(0)[0].reshape(q.shape),
+             fa.flash_attention_bwd(q, k_, v_, o, lse, do)[0],
+             rel_tol=BF16_REL_TOL)
+        lib = time_ms(sdpa_bwd, reps=10, inner=3)
+        # the function's bytes (q, k, v, o, dO, lse read; dq, dk, dv
+        # written) and its five products over the causal triangle
+        e = 2
+        b_ms, b_by = bound((3 * bkh * g * t * hd + 2 * bkh * t * hd) * e
+                           + bkh * g * t * 4
+                           + (bkh * g * t * hd + 2 * bkh * t * hd) * e,
+                           10 * hd * bkh * g * t * (t + 1) / 2)
+        print(f"  bf16 T {t}: {ms:.4f} ms, library (sdpa backward) "
+              f"{lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}", flush=True)
+        return ms, lib, b_ms, b_by
+
+    err, sets = case(32, 512, torch.bfloat16)
+    f32_err, _ = case(32, 512, torch.float32)
+    ms, lib, b_ms, b_by = timed(32, 512, sets)
+    q, k_, v_, _, _, do = sets
     plain = time_ms(lambda i: fa.flash_attention_bwd_ref(q, k_, v_, do),
                     reps=3, inner=2)
-    leaves = [x.reshape(shape).detach().requires_grad_() for x, shape in
-              ((q, (4, 8 * g, t, hd)), (k_, (4, 8, t, hd)),
-               (v_, (4, 8, t, hd)))]
-    sd = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=True, enable_gqa=True)
-    do_r = do.reshape(4, 8 * g, t, hd)
-
-    def sdpa_bwd(i):
-        return torch.autograd.grad(sd, leaves, do_r, retain_graph=True)
-
-    held("library call (sdpa backward) dq", sdpa_bwd(0)[0].reshape(q.shape),
-         fa.flash_attention_bwd_ref(q, k_, v_, do)[0], rel_tol=BF16_REL_TOL)
-    lib = time_ms(sdpa_bwd, reps=10, inner=3)
-    e = 2
-    b_ms, b_by = bound((3 * bkh * g * t * hd + 2 * bkh * t * hd) * e
-                       + bkh * g * t * 4
-                       + (bkh * g * t * hd + 2 * bkh * t * hd) * e,
-                       10 * hd * bkh * g * t * (t + 1) / 2)
-    print(f"  bf16: {ms:.4f} ms, plain {plain:.4f} ms, library (sdpa "
-          f"backward) {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}",
-          flush=True)
+    print(f"  bf16 T 512: plain {plain:.4f} ms", flush=True)
+    del sets, q, k_, v_, do
+    _, sets = case(8, 4096, torch.bfloat16)
+    ms4k, lib4k, b4k, _ = timed(8, 4096, sets)
+    del sets
+    torch.cuda.empty_cache()
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/csrc/flash_attention_bwd.cu",
                 replaces="none: a kernel of the port only (repro has no "
                          "backward kernel and trains through its jnp "
                          "attention; forward src/repro/kernels/"
                          "flash_attention.py:92)",
-                shape=f"q/o/dO ({bkh},{g},{t},{hd}) bf16, k/v ({bkh},{t},"
+                shape=f"q/o/dO (32,{g},512,{hd}) bf16, k/v (32,512,"
                       f"{hd}), lse f32, causal",
-                max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain,
+                max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                f32_max_abs_err=errs[torch.float32])
+                f32_max_abs_err=f32_err, t4096_ms=ms4k, t4096_library_ms=lib4k, t4096_bound_ms=b4k)
 
 
 def rms_norm_bwd_row(dev, gen, randn):
@@ -1249,6 +1284,7 @@ def train_paths(dev, kernels):
     from repro_torch.dist._tree import leaves_with_keys
     from repro_torch.launch.serve import data_for, load_params
     from repro_torch.models.registry import build_model
+    from repro_torch.obs import profile_session
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.train.trainer import (TrainConfig, make_loss_fn,
                                            make_train_step, value_and_grad)
@@ -1355,13 +1391,29 @@ def train_paths(dev, kernels):
             p, o = restored.pop("params"), restored.pop("opt")
             out = []
             for s in range(RESUME_AT, TRAIN_STEPS):
-                p, o, met = step_fn(p, o, batches[s])
-                out.append(float(met["loss"]))
+                if s > RESUME_AT:
+                    p, o, met = step_fn(p, o, batches[s])
+                    out.append(float(met["loss"]))
+                    continue
+                # where a train step's time goes: the first resumed step
+                # under torch.profiler (the same step, the same bits)
+                torch.cuda.synchronize()
+                with profile_session(logdir) as prof:
+                    t0 = time.perf_counter()
+                    p, o, met = step_fn(p, o, batches[s])
+                    out.append(float(met["loss"]))
+                    torch.cuda.synchronize()
+                    run["profile"] = (prof, (time.perf_counter() - t0) * 1e3)
             return out, p, o
 
+        logdir = Path(__file__).resolve().parent / "src" / "repro_torch" \
+            / "build" / "profile_train"
         (resumed, p, o), counts["checkpoint resume"] = counted(kernels,
                                                                resume)
         del restored
+        phase(f"profile: train step {RESUME_AT + 1} (resumed), {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens")
+        report_profile(*run.pop("profile"), 1, "train step", top=14)
         same = resumed == losses[RESUME_AT:]
         print(f"  steps {RESUME_AT + 1}..{TRAIN_STEPS} from the checkpoint: "
               f"loss bits equal the uninterrupted run's: {same}; final "
@@ -2388,18 +2440,32 @@ def profile_phase(eng, data, Request):
         eng.serve(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-            for e in prof.key_averages()]
+    phase("profile: 4 x 12-token requests, 1 prefill + 8 decode steps")
+    report_profile(prof, wall_ms, 9, "engine step (1 prefill + 8 decode "
+                                     "steps)", top=8)
+
+
+def on_device(e) -> bool:
+    """A profiler event (or average) that ran on the card: a kernel, copy
+    or fill, not the host-side op that launched it."""
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def report_profile(prof, wall_ms, steps, step_name, top):
+    """Device busy time against ``wall_ms``, device operations per step
+    and the ``top`` device operations by time, from a finished
+    ``torch.profiler`` session.  Only device events count: a host op's
+    self device time is its kernels' time again."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if on_device(e)]
     rows = [r for r in rows if r[1] > 0]
     busy_ms = sum(r[1] for r in rows)
-    on_device = sum(1 for e in prof.events()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    phase("profile: 4 x 12-token requests, 1 prefill + 8 decode steps")
+    n_ops = sum(1 for e in prof.events() if on_device(e))
     print(f"  wall {wall_ms:.1f} ms (profiler on), device busy "
           f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall; "
-          f"{on_device} device operations = {on_device / 9:.0f} per engine "
-          f"step (1 prefill + 8 decode steps)", flush=True)
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+          f"{n_ops} device operations = {n_ops / steps:.0f} per "
+          f"{step_name}", flush=True)
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {ms:9.3f} ms  x{count:<6d} {key[:90]}", flush=True)
 
 
@@ -2437,9 +2503,20 @@ def main():
     built = _build.build()
     print(f"  nvcc: {', '.join(f'{s} {t:.1f}s' for s, t in built.items())} "
           f"(all in {time.perf_counter() - t0:.1f} s, parallel)", flush=True)
+    redesigned = []
     for src_name, log in _build.build_logs.items():
         for kernel, report in ptxas_report(log):
             print(f"  {src_name} {kernel}: {report}", flush=True)
+            if kernel.startswith(NO_SPILL):
+                redesigned.append((kernel, report))
+    if redesigned:
+        spilled = [k for k, r in redesigned if "spills 0 B stored / 0 B" not in r]
+        print(f"  spills in the {len(redesigned)} instantiations of "
+              f"{', '.join(NO_SPILL)}: {spilled or 'none'}", flush=True)
+        check(not spilled, f"ptxas spills in {spilled}")
+    else:
+        print("  (kernels were built by an earlier process: no ptxas report)",
+              flush=True)
 
     # every kernel, in the order of the TPU kernel table (PERF.md)
     by_name = {"quant_matmul": qm.KERNEL, "flash_decode": fd.KERNEL,

@@ -75,8 +75,6 @@ using repro::kNegInf;
 using repro::kFullMask;
 using repro::warp_max;
 using repro::warp_sum;
-using repro::encode_tiled;
-using repro::EncodeTiled;
 using repro::fence_regs;
 using repro::mbar_expect_tx;
 using repro::mbar_init;
@@ -226,34 +224,11 @@ using bf16 = __nv_bfloat16;
 constexpr int TC_NWG = 2;                  // warp groups (64 query rows each)
 constexpr int TC_BK = 64;                  // keys per K/V tile
 constexpr int TC_MAX_HEADS = 8;            // grouped heads per block
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage R rows into a swizzled tile by 16-byte cp.async (the caller
-// commits).  row_of(r) gives row r's first element, or nullptr for a
-// padding row; padding rows and columns past hd become zeros.
-template <int HD, int R, int THREADS, typename RowOf>
-__device__ __forceinline__ void stage_rows(char* tile, int hd, const bf16* any, RowOf row_of) {
-  constexpr int CPR = HD / 8;              // 16-byte chunks per row
-  const uint32_t base = repro::smem_u32(tile);
-  for (int i = threadIdx.x; i < R * CPR; i += THREADS) {
-    const int r = i / CPR, c = i % CPR;
-    const bf16* row = row_of(r);
-    const bool live = row != nullptr && c * 8 < hd;
-    repro::cp_async<16>(base + tile_off<R>(r, c), live ? row + c * 8 : any, live ? 16 : 0);
-  }
-}
+using repro::fast_exp2;
+using repro::kLog2e;
+using repro::pack_bf16;
+using repro::stage_rows;
 
 // Shared memory of one block: q (later out), two K and two V stages, the
 // warps' position ranges and two stage barriers; +1024 to align the tiles
@@ -483,36 +458,24 @@ fa_fwd_tc(const bf16* __restrict__ q, bf16* __restrict__ out, float* __restrict_
   }
 }
 
-// (hd, T, BKH) bf16 as 64 x 64 x 1 boxes in the 128-byte swizzle
-bool kv_map(CUtensorMap* map, const void* base, int BKH, int t_len, int hd) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(t_len),
-                              static_cast<cuuint64_t>(BKH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(t_len) * hd * 2};
-  const cuuint32_t box[3] = {64, TC_BK, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int BKH,
               int G, int t_len, int hd, int causal, float scale, const int* kv_lens,
               int heads_per_len, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  CUtensorMap tmk, tmv;
-  if (hd % 8 != 0 || addr % 16 != 0 || !kv_map(&tmk, k, BKH, t_len, hd) ||
-      !kv_map(&tmv, v, BKH, t_len, hd))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // first a runtime call that needs the context: it makes the context
+  // current in this thread, which cuTensorMapEncodeTiled needs
   constexpr int smem = tc_smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(fa_fwd_tc<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tmk, tmv;
+  // (hd, T, BKH) bf16 as 64 x 64 x 1 boxes in the 128-byte swizzle
+  if (hd % 8 != 0 || addr % 16 != 0 ||
+      !repro::tensor_map_3d(&tmk, k, false, hd, t_len, BKH, 64, TC_BK) ||
+      !repro::tensor_map_3d(&tmv, v, false, hd, t_len, BKH, 64, TC_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int gb = min(G, TC_MAX_HEADS), bq = 64 * TC_NWG / gb;
   const int ngb = (G + gb - 1) / gb;
   const dim3 grid(BKH * ngb, (t_len + bq - 1) / bq);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) tensor-core and copy helpers shared by the hand-written
 // kernels of repro_torch: warpgroup wgmma with its shared-memory
-// descriptors, mbarriers, TMA loads and the tensor-map encoder.  One copy,
-// so every kernel uses the same layouts.
+// descriptors, mbarriers, TMA loads and the tensor-map encoder, and the
+// row staging and bf16 packing of the flash-attention kernels (forward and
+// backward).  One copy, so every kernel uses the same layouts.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (types only: the encoder is fetched at run time)
@@ -111,6 +112,36 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// --- flash attention's register and staging helpers --------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Stage R rows into a swizzled tile by 16-byte cp.async (the caller
+// commits).  row_of(r) gives row r's first element, or nullptr for a
+// padding row; padding rows and columns past hd become zeros.
+template <int HD, int R, int THREADS, typename RowOf>
+__device__ __forceinline__ void stage_rows(char* tile, int hd, const __nv_bfloat16* any,
+                                           RowOf row_of) {
+  constexpr int CPR = HD / 8;              // 16-byte chunks per row
+  const uint32_t base = smem_u32(tile);
+  for (int i = threadIdx.x; i < R * CPR; i += THREADS) {
+    const int r = i / CPR, c = i % CPR;
+    const __nv_bfloat16* row = row_of(r);
+    const bool live = row != nullptr && c * 8 < hd;
+    cp_async<16>(base + tile_off<R>(r, c), live ? row + c * 8 : any, live ? 16 : 0);
+  }
+}
+
 // --- mbarriers and TMA (sm_90) ---------------------------------------------
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
@@ -158,6 +189,26 @@ inline EncodeTiled encode_tiled() {
     if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A (d0, d1, d2) tensor, d0 contiguous, as boxes of (b0, b1, 1): bf16 rows
+// (hd, rows, heads) in 64 x 64 boxes in the 128-byte swizzle, or f32 in
+// plain boxes.  False if the encoder refuses it.
+inline bool tensor_map_3d(CUtensorMap* map, const void* base, bool is_f32, int d0, int d1,
+                          int d2, int b0, int b1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t e = is_f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {dims[0] * e, dims[0] * dims[1] * e};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, is_f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            is_f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace repro

@@ -28,7 +28,7 @@ namespace {
 
 constexpr int RN_THREADS = 256;
 constexpr int RN_CHUNK = 8;
-constexpr int RN_BWD_ROWS = 16;   // rows per block of the backward
+constexpr int RN_BWD_ROWS = 8;    // rows per block of the backward (256 blocks at 2048)
 
 // The 8 elements of chunk c (those past d read as 0), as floats.
 template <typename T>
@@ -98,87 +98,224 @@ rms_norm_rows(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ 
   }
 }
 
+// One chunk's 8 elements as stored (16 bytes of bf16, 32 of f32): held
+// this way, two rows ahead fit in the registers one row of floats takes.
+template <typename T>
+struct Raw {
+  uint4 u[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ Raw<T> to_raw(const float (&v)[RN_CHUNK]) {
+  Raw<T> r;
+  if constexpr (sizeof(T) == 2) {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(r.u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      r.u[i] = make_uint4(__float_as_uint(v[4 * i]), __float_as_uint(v[4 * i + 1]),
+                          __float_as_uint(v[4 * i + 2]), __float_as_uint(v[4 * i + 3]));
+  }
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void from_raw(const Raw<T>& r, float (&v)[RN_CHUNK]) {
+  if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(r.u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      v[4 * i] = __uint_as_float(r.u[i].x);
+      v[4 * i + 1] = __uint_as_float(r.u[i].y);
+      v[4 * i + 2] = __uint_as_float(r.u[i].z);
+      v[4 * i + 3] = __uint_as_float(r.u[i].w);
+    }
+  }
+}
+
+// Chunk c as stored (elements past d read as 0).
+template <typename T>
+__device__ __forceinline__ Raw<T> load_raw(const T* row, int c, int d, bool vec) {
+  if (vec) return *reinterpret_cast<const Raw<T>*>(row + c * RN_CHUNK);
+  float v[RN_CHUNK];
+  load_chunk(row, c, d, false, v);
+  return to_raw<T>(v);
+}
+
+// Stores the 8 elements of chunk c (those past d are dropped).
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* row, int c, int d, bool vec,
+                                            const float (&v)[RN_CHUNK]) {
+  const int e0 = c * RN_CHUNK;
+  if (vec) {
+    *reinterpret_cast<Raw<T>*>(row + e0) = to_raw<T>(v);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < RN_CHUNK; ++i)
+    if (e0 + i < d) repro::store_as(row + e0 + i, v[i]);
+}
+
 // Backward of one row block: rows [r0, r0 + RN_BWD_ROWS).  For each row,
-// with r = rsqrt(mean(x^2) + eps) summed exactly as the forward sums it,
+// with r = rsqrt(mean(x^2) + eps) summed exactly as the forward sums it
+// (thread i owns chunks i + 256 k, k < NC, the same butterfly, the warps'
+// sums added in warp order),
 //   dx = r * w * dy - x * r^3 * mean(x * w * dy),
 // and this block's partial dw (d,) = sum over its rows, in row order, of
-// x * r * dy, kept per element by the thread that owns the element and
-// written to part[block].  rms_norm_dw then adds the partials in block
+// x * r * dy, kept in registers by the thread that owns the element and
+// written to part[block].  A thread keeps its chunks of x and dy in
+// registers, as stored, across both phases of a row, so each element is
+// read once; rows up to 4096 wide (NC <= 2) have the next two rows' chunks
+// in flight while the current row's sums cross the block.  One barrier per
+// row: the warps' sums go to one of two buffers by row parity, and every
+// thread adds them itself.  rms_norm_dw then adds the partials in block
 // order: no atomics, so dw's bits are the same on every run.
-template <typename T>
+//
+// What bounds it: bytes, x and dy read once and dx written once (50 MB at
+// the train path's (2048, 4096) bf16, 0.015 ms at 3.35 TB/s).  What holds
+// it back (PERF.md): a block's rows run in turn, one barrier each, so at
+// 256 blocks (about 2 per SM) the loads two rows ahead are all that keeps
+// memory busy; the partials add 2 x 4 MB and a second launch.
+template <typename T, int NC>
 __global__ void __launch_bounds__(RN_THREADS)
 rms_norm_bwd_rows(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
                   T* __restrict__ dx, float* __restrict__ part, int rows, int d, float eps,
                   bool vec) {
-  extern __shared__ float dwp[];             // (d) this block's partial dw
+  constexpr int AHEAD = NC <= 2 ? 2 : 0;      // rows loaded beyond the current one
+  constexpr int WARPS = RN_THREADS / 32;
+  __shared__ float red[2][2][WARPS];          // [row parity][squares, dot][warp]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_chunks = (d + RN_CHUNK - 1) / RN_CHUNK;
-  __shared__ float part_sq[RN_THREADS / 32], part_dot[RN_THREADS / 32];
-  __shared__ float row_scale, row_dot;
-  for (int e = tid; e < d; e += RN_THREADS) dwp[e] = 0.f;
   const int r0 = blockIdx.x * RN_BWD_ROWS, r1 = min(rows, r0 + RN_BWD_ROWS);
-  for (int r = r0; r < r1; ++r) {
-    const size_t off = static_cast<size_t>(r) * d;
-    float sq = 0.f, dot = 0.f;
-    for (int c = tid; c < n_chunks; c += RN_THREADS) {
-      float v[RN_CHUNK], g[RN_CHUNK], dv[RN_CHUNK];
-      load_chunk(x + off, c, d, vec, v);
-      load_chunk(w, c, d, vec, g);
-      load_chunk(dy + off, c, d, vec, dv);
+  Raw<T> xr[AHEAD + 1][NC], yr[AHEAD + 1][NC];   // slot i: row r + i
+  float dwp[NC][RN_CHUNK];
 #pragma unroll
-      for (int i = 0; i < RN_CHUNK; ++i) {
-        sq = fmaf(v[i], v[i], sq);
-        dot = fmaf(v[i] * g[i], dv[i], dot);
+  for (int k = 0; k < NC; ++k)
+#pragma unroll
+    for (int i = 0; i < RN_CHUNK; ++i) dwp[k][i] = 0.f;
+
+  auto load_row = [&](int r, int slot) {
+    const size_t off = static_cast<size_t>(r) * d;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + RN_THREADS * k;
+      if (c < n_chunks) {
+        xr[slot][k] = load_raw(x + off, c, d, vec);
+        yr[slot][k] = load_raw(dy + off, c, d, vec);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < AHEAD; ++i)
+    if (r0 + i < r1) load_row(r0 + i, i);
+  for (int r = r0, par = 0; r < r1; ++r, par ^= 1) {
+    if (r + AHEAD < r1) load_row(r + AHEAD, AHEAD);
+    float sq = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + RN_THREADS * k;
+      if (c < n_chunks) {
+        float xv[RN_CHUNK], yv[RN_CHUNK], g[RN_CHUNK];
+        from_raw(xr[0][k], xv);
+        from_raw(yr[0][k], yv);
+        load_chunk(w, c, d, vec, g);
+#pragma unroll
+        for (int i = 0; i < RN_CHUNK; ++i) {
+          sq = fmaf(xv[i], xv[i], sq);
+          dot = fmaf(xv[i] * g[i], yv[i], dot);
+        }
       }
     }
     sq = repro::warp_sum(sq);
     dot = repro::warp_sum(dot);
     if (lane == 0) {
-      part_sq[warp] = sq;
-      part_dot[warp] = dot;
+      red[par][0][warp] = sq;
+      red[par][1][warp] = dot;
     }
     __syncthreads();
-    if (tid == 0) {
-      float s1 = 0.f, s2 = 0.f;
-      for (int i = 0; i < RN_THREADS / 32; ++i) {
-        s1 += part_sq[i];
-        s2 += part_dot[i];
-      }
-      row_scale = rsqrtf(s1 / static_cast<float>(d) + eps);
-      row_dot = s2 / static_cast<float>(d);
-    }
-    __syncthreads();
-    const float rs = row_scale, mdot = row_dot;
-    const float c3 = rs * rs * rs * mdot;
-    for (int c = tid; c < n_chunks; c += RN_THREADS) {
-      float v[RN_CHUNK], g[RN_CHUNK], dv[RN_CHUNK];
-      load_chunk(x + off, c, d, vec, v);
-      load_chunk(w, c, d, vec, g);
-      load_chunk(dy + off, c, d, vec, dv);
-      const int e0 = c * RN_CHUNK;
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int i = 0; i < RN_CHUNK; ++i) {
-        if (e0 + i < d) {
-          repro::store_as(dx + off + e0 + i, rs * g[i] * dv[i] - v[i] * c3);
-          dwp[e0 + i] = fmaf(v[i] * rs, dv[i], dwp[e0 + i]);
+    for (int i = 0; i < WARPS; ++i) {
+      s1 += red[par][0][i];
+      s2 += red[par][1][i];
+    }
+    const float rs = rsqrtf(s1 / static_cast<float>(d) + eps);
+    const float c3 = rs * rs * rs * (s2 / static_cast<float>(d));
+    const size_t off = static_cast<size_t>(r) * d;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + RN_THREADS * k;
+      if (c < n_chunks) {
+        float xv[RN_CHUNK], yv[RN_CHUNK], g[RN_CHUNK], out[RN_CHUNK];
+        from_raw(xr[0][k], xv);
+        from_raw(yr[0][k], yv);
+        load_chunk(w, c, d, vec, g);
+#pragma unroll
+        for (int i = 0; i < RN_CHUNK; ++i) {
+          out[i] = rs * g[i] * yv[i] - xv[i] * c3;
+          dwp[k][i] = fmaf(xv[i] * rs, yv[i], dwp[k][i]);
         }
+        store_chunk(dx + off, c, d, vec, out);
       }
     }
-    __syncthreads();                         // row_scale / row_dot reused
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i)
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        xr[i][k] = xr[i + 1][k];
+        yr[i][k] = yr[i + 1][k];
+      }
   }
   float* pb = part + static_cast<size_t>(blockIdx.x) * d;
-  for (int e = tid; e < d; e += RN_THREADS) pb[e] = dwp[e];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int c = tid + RN_THREADS * k;
+    if (c < n_chunks) store_chunk(pb, c, d, vec, dwp[k]);
+  }
 }
 
-// dw[e] = sum over blocks b, in order, of part[b][e]
+// dw[e] = the sum over blocks b, in order, of part[b][e]: each of the 8
+// warps adds a run of consecutive blocks (runs in block order), then warp 0
+// adds the runs' sums in order.  32 elements per block, a lane each; the
+// order depends on n_blocks alone.
 template <typename T>
 __global__ void __launch_bounds__(RN_THREADS)
 rms_norm_dw(const float* __restrict__ part, T* __restrict__ dw, int n_blocks, int d) {
-  const int e = blockIdx.x * RN_THREADS + threadIdx.x;
-  if (e >= d) return;
+  constexpr int WARPS = RN_THREADS / 32;
+  __shared__ float run[WARPS][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int e = blockIdx.x * 32 + lane;
+  const int per = (n_blocks + WARPS - 1) / WARPS;
+  const int b1 = min(n_blocks, (warp + 1) * per);
   float acc = 0.f;
-  for (int b = 0; b < n_blocks; ++b) acc += part[static_cast<size_t>(b) * d + e];
-  repro::store_as(dw + e, acc);
+  if (e < d) {
+    int b = warp * per;
+    for (; b + 8 <= b1; b += 8) {             // 8 loads in flight, added in order
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = part[static_cast<size_t>(b + u) * d + e];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc += v[u];
+    }
+    for (; b < b1; ++b) acc += part[static_cast<size_t>(b) * d + e];
+  }
+  run[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && e < d) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) sum += run[i][lane];
+    repro::store_as(dw + e, sum);
+  }
 }
 
 template <typename T>
@@ -194,25 +331,37 @@ int launch(const void* x, const void* w, void* out, int rows, int d, float eps,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw, float* part,
-               int rows, int d, float eps, cudaStream_t stream) {
+template <typename T, int NC>
+int launch_bwd(const T* x, const T* w, const T* dy, T* dx, T* dw, float* part, int rows, int d,
+               float eps, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                         reinterpret_cast<uintptr_t>(dy);
+                         reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx) |
+                         reinterpret_cast<uintptr_t>(part);
   const bool vec = d % RN_CHUNK == 0 && addr % 16 == 0;
-  const int smem = d * static_cast<int>(sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(rms_norm_bwd_rows<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int n_blocks = (rows + RN_BWD_ROWS - 1) / RN_BWD_ROWS;
-  rms_norm_bwd_rows<T><<<n_blocks, RN_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(dy),
-      static_cast<T*>(dx), part, rows, d, eps, vec);
-  e = cudaGetLastError();
+  rms_norm_bwd_rows<T, NC><<<n_blocks, RN_THREADS, 0, stream>>>(x, w, dy, dx, part, rows, d,
+                                                                 eps, vec);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rms_norm_dw<T><<<(d + RN_THREADS - 1) / RN_THREADS, RN_THREADS, 0, stream>>>(
-      part, static_cast<T*>(dw), n_blocks, d);
+  rms_norm_dw<T><<<(d + 31) / 32, RN_THREADS, 0, stream>>>(part, dw, n_blocks, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// chunks per thread: 1, 2, 4 or 8 (d <= 16384)
+template <typename T>
+int launch_bwd_t(const void* x, const void* w, const void* dy, void* dx, void* dw, float* part,
+                 int rows, int d, float eps, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  T* dwt = static_cast<T*>(dw);
+  const int per_thread = ((d + RN_CHUNK - 1) / RN_CHUNK + RN_THREADS - 1) / RN_THREADS;
+  if (per_thread <= 1) return launch_bwd<T, 1>(xt, wt, dyt, dxt, dwt, part, rows, d, eps, s);
+  if (per_thread <= 2) return launch_bwd<T, 2>(xt, wt, dyt, dxt, dwt, part, rows, d, eps, s);
+  if (per_thread <= 4) return launch_bwd<T, 4>(xt, wt, dyt, dxt, dwt, part, rows, d, eps, s);
+  if (per_thread <= 8) return launch_bwd<T, 8>(xt, wt, dyt, dxt, dwt, part, rows, d, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -222,14 +371,14 @@ extern "C" int rms_norm_bwd_blocks(int rows) { return (rows + RN_BWD_ROWS - 1) /
 
 // Backward of rms_norm_launch: x, dy, dx (rows, d) and w, dw (d,) contiguous,
 // all f32 or all bf16; part f32 scratch of rms_norm_bwd_blocks(rows) * d.
-// rows >= 1; d * 4 bytes of shared memory per block (d <= 32768).
+// rows >= 1; d <= 16384 (8 chunks of 8 per thread, held in registers).
 extern "C" int rms_norm_bwd_launch(const void* x, const void* w, const void* dy, void* dx,
                                    void* dw, void* part, int rows, int d, float eps,
                                    int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
-  if (is_bf16) return launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, p, rows, d, eps, st);
-  return launch_bwd<float>(x, w, dy, dx, dw, p, rows, d, eps, st);
+  if (is_bf16) return launch_bwd_t<__nv_bfloat16>(x, w, dy, dx, dw, p, rows, d, eps, st);
+  return launch_bwd_t<float>(x, w, dy, dx, dw, p, rows, d, eps, st);
 }
 
 // x (rows, d) and w (d,) contiguous, both f32 or both bf16; out like x.

@@ -5,8 +5,10 @@ Wrapper of ``csrc/flash_attention.cu``, the port of
 ``csrc/flash_attention_bwd.cu``, its backward (the reference has none: it
 trains through its jnp attention).  A CPU tensor takes the plain versions
 :func:`flash_attention_ref` / :func:`flash_attention_bwd_ref`; a CUDA
-tensor launches the kernels or raises: bf16 the tensor-core forward, f32
-the CUDA-core one, and the CUDA-core backward for both.
+tensor launches the kernels or raises, routed by dtype alone: bf16 the
+tensor-core (wgmma + TMA) forward and backward, f32 the CUDA-core ones.
+The bf16 kernels load rows by TMA, so the wrapper zero-pads rows it cannot
+describe (:func:`_tma_operands`) and slices the results back.
 
 When grad is enabled and an input requires it, :func:`flash_attention`
 runs as a ``torch.autograd.Function``: the forward kernel also writes each
@@ -15,6 +17,7 @@ it.  Without grad the forward launch is the same as ever.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -94,14 +97,8 @@ def _forward(q4, k, v, causal, kv_lens, with_lse):
     None), lse (BKH, G, T) f32."""
     _check_cuda(q4, k, v)
     bkh, g, t, hd = q4.shape
-    q4, k, v = q4.contiguous(), k.contiguous(), v.contiguous()
     bf16 = q4.dtype == torch.bfloat16
-    # the bf16 kernel loads rows by TMA: 16-byte aligned, hd % 8 == 0; pad
-    # other rows with zeros (which add nothing to any score or output)
-    width = hd
-    if bf16 and (hd % 8 or any(x.data_ptr() % 16 for x in (q4, k, v))):
-        width = -(-hd // 8) * 8
-        q4, k, v = (_zero_padded(x, width) for x in (q4, k, v))
+    width, (q4, k, v) = _tma_operands(bf16, q4, k, v)
     lens_ptr, per_len = None, 1
     if kv_lens is not None:
         kv_lens = kv_lens.to(torch.int32).contiguous()
@@ -141,17 +138,24 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True):
         raise ValueError(f"flash_attention_bwd: need out like q and f32 lse "
                          f"(BKH, G, T); got {tuple(out.shape)}, "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    q, k, v, out, dout, lse = (x.contiguous()
-                               for x in (q, k, v, out, dout, lse))
+    bf16 = q.dtype == torch.bfloat16
+    width, (q, k, v, out, dout) = _tma_operands(bf16, q, k, v, out, dout)
+    lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dvec = torch.empty((bkh, g, t), dtype=torch.float32, device=q.device)
     if t > 0:
+        # f32 scratch: D (and, bf16, lse * log2(e)) per row, by tile
+        size = KERNEL_BWD.lib().flash_attention_bwd_scratch
+        size.argtypes, size.restype = [INT, INT, INT, INT], ctypes.c_longlong
+        scratch = torch.empty(size(bkh, g, t, int(bf16)), dtype=torch.float32,
+                              device=q.device)
         KERNEL_BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                          dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), bkh, g, t, hd, int(causal),
-                          hd ** -0.5, int(q.dtype == torch.bfloat16),
+                          scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), bkh, g, t, width, int(causal),
+                          hd ** -0.5, int(bf16),
                           torch.cuda.current_stream(q.device).cuda_stream)
+    if width != hd:
+        dq, dk, dv = (x[..., :hd].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -177,8 +181,19 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def _zero_padded(x: torch.Tensor, width: int) -> torch.Tensor:
-    """A fresh copy of ``x`` with its last dim zero-padded to ``width``."""
-    out = x.new_zeros(x.shape[:-1] + (width,))
-    out[..., :x.shape[-1]] = x
-    return out
+def _tma_operands(bf16: bool, *xs: torch.Tensor):
+    """(width, tensors) as the kernels take them: contiguous, and for bf16,
+    whose kernels load rows by TMA (16-byte aligned, hd % 8 == 0), rows it
+    cannot describe zero-padded to ``width``, hd rounded up to 8 (zeros add
+    nothing to any score, output or gradient).  width is hd otherwise."""
+    xs = tuple(x.contiguous() for x in xs)
+    hd = xs[0].shape[-1]
+    if not bf16 or (hd % 8 == 0 and all(x.data_ptr() % 16 == 0 for x in xs)):
+        return hd, xs
+    width = -(-hd // 8) * 8
+    padded = []
+    for x in xs:
+        out = x.new_zeros(x.shape[:-1] + (width,))
+        out[..., :hd] = x
+        padded.append(out)
+    return width, tuple(padded)

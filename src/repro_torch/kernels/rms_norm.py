@@ -8,8 +8,9 @@ alone.  A CPU tensor takes the plain versions :func:`rms_norm_ref` /
 :func:`rms_norm_bwd_ref`; a CUDA tensor launches the kernels or raises.
 When grad is enabled and x or w requires it, :func:`rms_norm` runs as a
 ``torch.autograd.Function`` whose backward is the same source's
-``rms_norm_bwd_launch`` (dw summed from per-block partials in a fixed
-order, no atomics).
+``rms_norm_bwd_launch`` (x and dy read once into registers, dw summed
+from per-block partials in a fixed order, no atomics; rows up to
+``MAX_BWD_WIDTH`` wide, wider ones raise).
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ KERNEL = Kernel("rms_norm.cu", "rms_norm_launch",
                 [PTR, PTR, PTR, INT, INT, FLOAT, INT, PTR])
 KERNEL_BWD = Kernel("rms_norm.cu", "rms_norm_bwd_launch",
                     [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, FLOAT, INT, PTR])
-MAX_BWD_WIDTH = 32768        # d floats of shared memory per backward block
+# the backward keeps each thread's 8 chunks of 8 elements of x, dy and dw in
+# registers (llama3-405b's 16384 is the widest config in the registry)
+MAX_BWD_WIDTH = 16384
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -35,6 +35,13 @@ each slot the same logits at batch 1, 2 and 4, and ``verify_step`` over a
 4-token burst the logits of 4 sequential ``decode_step`` calls, bit for
 bit, for the bf16, int8 and paged caches.
 
+Training: the backward kernels (flash_attention's bf16 tensor-core and
+f32 CUDA-core routes, rms_norm's) are held to their plain versions with
+the forward's limits, launch once per backward and give the same bits on
+a second call; flash_attention's at T off the 64-row tile, hd 36 / 64 /
+128, G 1 / 3 / 4 / 8 / 16, causal or not, unaligned bases, T 4096 and
+from a thread that has made no CUDA call yet.
+
 Prefill: flash_attention with a key length per batch row (bucket padding)
 is held to the plain version with the same lengths, and each prompt's
 valid rows equal the prompt run alone at its exact length bit for bit
@@ -808,50 +815,123 @@ def _grad_close(got, want):
         assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
 
 
-def _attention_inputs(dev, g, t, hd, dtype, seed):
+def _attention_inputs(dev, g, t, hd, dtype, seed, bkh=2):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(2, g, t, hd, generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn(2, t, hd, generator=gen, device=dev).to(dtype)
+    q = torch.randn(bkh, g, t, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(bkh, t, hd, generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    dout = torch.randn(2, g, t, hd, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(bkh, g, t, hd, generator=gen, device=dev).to(dtype)
     return q, k, v, dout
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("t", [16, 64, 512])
-@pytest.mark.parametrize("g", [1, 4])
-def test_flash_attention_bwd_matches_plain(dev, g, t, hd, dtype):
-    """Autograd through flash_attention launches the backward kernel once;
-    dq, dk, dv against flash_attention_bwd_ref; a second backward gives
-    the same bits (no atomics)."""
-    q, k, v, dout = _attention_inputs(dev, g, t, hd, dtype, g * t + hd)
-    want = fa.flash_attention_bwd_ref(q, k, v, dout)
+def _bwd_held(q, k, v, dout, causal=True):
+    """Two backwards through autograd, one KERNEL_BWD launch each: dq, dk,
+    dv against flash_attention_bwd_ref (:func:`_grad_close`), and the
+    second gives the first's bits (no atomics)."""
+    want = fa.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
     grads = []
     for _ in range(2):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         before = fa.KERNEL_BWD.launches
-        out = fa.flash_attention(*leaves)
+        out = fa.flash_attention(*leaves, causal=causal)
         grads.append(torch.autograd.grad(out, leaves, dout))
         assert fa.KERNEL_BWD.launches == before + 1
     for got, ref in zip(grads[0], want):
-        assert got.dtype == dtype
+        assert got.dtype == ref.dtype and got.shape == ref.shape
         _grad_close(got, ref)
     assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("t", [37, 200])
+@pytest.mark.parametrize("hd", [36, 64, 128])
+@pytest.mark.parametrize("t", [16, 37, 64, 200, 512, 1000])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_flash_attention_bwd_matches_plain(dev, g, t, hd, causal, dtype):
+    """Autograd through flash_attention launches the backward kernel once;
+    dq, dk, dv against flash_attention_bwd_ref; a second backward gives
+    the same bits (no atomics).  For the bf16 (wgmma) route's edges: T off
+    the 64-row tile (rows and keys past T masked), hd 36 (zero-padded to
+    40), 64 and 128 (its two tile widths), G folded into the dQ block's
+    rows (64, 16 and 8 positions per block), causal and not."""
+    _bwd_held(*_attention_inputs(dev, g, t, hd, dtype, g * t + hd),
+              causal=causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [37, 200, 1000])
 def test_flash_attention_bwd_odd_shapes(dev, t, causal):
-    """T off the 32-row tile, hd 36 (not a multiple of 32), causal or not."""
+    """T off the 32- and 64-row tiles, hd 36 (not a multiple of 32; bf16
+    zero-pads it to 40), G 3, causal or not, both routes."""
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, dout = _attention_inputs(dev, 3, t, 36, dtype, t)
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        got = torch.autograd.grad(fa.flash_attention(*leaves, causal=causal),
-                                  leaves, dout)
-        for a, b in zip(got, fa.flash_attention_bwd_ref(q, k, v, dout,
-                                                        causal=causal)):
+        _bwd_held(*_attention_inputs(dev, 3, t, 36, dtype, t), causal=causal)
+
+
+def _unaligned(x):
+    """x's values in a view whose base is 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 2
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bwd_unaligned_base(dev, hd, causal):
+    """bf16 operands whose bases TMA cannot describe: the wrapper pads them
+    (one launch), and the gradients equal those of aligned copies bit for
+    bit."""
+    q, k, v, dout = _attention_inputs(dev, 4, 200, hd, torch.bfloat16, hd)
+    out, lse = fa._forward(q, k, v, causal, None, with_lse=True)
+    want = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    before = fa.KERNEL_BWD.launches
+    got = fa.flash_attention_bwd(*(_unaligned(x) for x in (q, k, v, out)),
+                                 lse, _unaligned(dout), causal=causal)
+    assert fa.KERNEL_BWD.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    for a, b in zip(want, fa.flash_attention_bwd_ref(q, k, v, dout,
+                                                     causal=causal)):
+        _grad_close(a, b)
+
+
+def test_flash_attention_launches_from_a_fresh_thread(dev):
+    """The bf16 kernels encode TMA tensor maps by cuTensorMapEncodeTiled,
+    which needs the thread's context current: a thread that has made no CUDA
+    call yet (as an autograd worker may be) still launches both passes."""
+    import threading
+
+    q, k, v, dout = _attention_inputs(dev, 4, 200, 128, torch.bfloat16, 5)
+    want = fa.flash_attention_bwd_ref(q, k, v, dout)
+    got = {}
+
+    def run():
+        out, lse = fa._forward(q, k, v, True, None, with_lse=True)
+        got["grads"] = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+
+    for _ in range(2):
+        worker = threading.Thread(target=run)
+        worker.start()
+        worker.join()
+        for a, b in zip(got.pop("grads"), want):
             _grad_close(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_sixteen_heads_per_kv_head(dev, causal):
+    """G 16 (llama3-405b: 128 heads on 8 KV heads): the dQ pass splits the
+    grouped heads over two blocks of 8, the dK/dV pass walks all 16."""
+    _bwd_held(*_attention_inputs(dev, 16, 200, 128, torch.bfloat16, 16),
+              causal=causal)
+
+
+def test_flash_attention_bwd_one_kv_head_at_4096(dev):
+    """One KV head of 4 query heads at the reference's training length
+    (T 4096, hd 128, bf16, causal): 64 key blocks walk up to 64 query tiles
+    of each head."""
+    _bwd_held(*_attention_inputs(dev, 4, 4096, 128, torch.bfloat16, 4096,
+                                 bkh=1))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -872,7 +952,8 @@ def test_flash_attention_refuses_kv_lens_under_grad(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,d", [(2048, 4096), (37, 100), (5, 36)])
+@pytest.mark.parametrize("rows,d", [(2048, 4096), (37, 100), (5, 36),
+                                    (1, 14336), (8192, 14336)])
 def test_rms_norm_bwd_matches_plain(dev, rows, d, dtype):
     """dx and dw against rms_norm_bwd_ref, the same bits twice; the forward
     under grad gives the no-grad forward's bits."""
@@ -896,6 +977,14 @@ def test_rms_norm_bwd_matches_plain(dev, rows, d, dtype):
         else:
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_rms_norm_bwd_refuses_rows_past_its_width(dev):
+    """Rows wider than MAX_BWD_WIDTH raise; nothing falls back."""
+    d = rn.MAX_BWD_WIDTH + 8
+    x = torch.ones(2, d, device=dev)
+    with pytest.raises(ValueError, match="exceed"):
+        rn.rms_norm_bwd(x, torch.ones(d, device=dev), x)
 
 
 class _PlainKernels:

@@ -226,6 +226,36 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
             fd.VERIFY.launches, rn.KERNEL.launches] == before == [0] * 5
 
 
+@pytest.mark.parametrize("hd,offsets,bf16,width", [
+    (64, (0, 0), True, 64), (36, (0, 0), True, 40), (64, (0, 1), True, 64),
+    (36, (0, 0), False, 36), (64, (1, 0), False, 64)])
+def test_tma_operands_pad_only_rows_tma_cannot_describe(hd, offsets, bf16,
+                                                        width):
+    """The flash-attention wrappers' operand rule (forward and backward):
+    bf16 rows TMA cannot describe (hd % 8 != 0, or any base off 16 bytes)
+    are copied, all of them, zero-padded to hd rounded up to 8; otherwise
+    the tensors pass through as they are (f32 never pads)."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    xs, views = [], []
+    for i, off in enumerate(offsets):
+        x = torch.randn(2, 3, 5, hd, generator=torch.Generator()
+                        .manual_seed(i)).to(dtype)
+        buf = torch.zeros(x.numel() + off, dtype=dtype)
+        view = buf[off:].view(x.shape)
+        view.copy_(x)
+        xs.append(x)
+        views.append(view)
+    got_width, got = fa._tma_operands(bf16, *views)
+    assert got_width == width
+    padded = bf16 and (hd % 8 or any(offsets))
+    for x, view, y in zip(xs, views, got):
+        if not padded:
+            assert y.data_ptr() == view.data_ptr()
+            continue
+        assert y.shape == x.shape[:-1] + (width,) and y.data_ptr() % 16 == 0
+        assert torch.equal(y[..., :hd], x) and not y[..., hd:].any()
+
+
 @pytest.mark.parametrize("shape", [(3, 128), (2, 5, 100), (1, 36)])
 def test_rms_norm_plain_matches_reference(shape):
     rng = np.random.default_rng(len(shape))
