@@ -8,7 +8,10 @@ Phases (any failure exits non-zero; nothing is caught):
 1. device   — the card, its power limit, torch and CUDA versions;
 2. build    — ``nvcc`` builds every kernel in ``src/repro_torch/csrc``
               (one process per source, all started together);
-3. kernels  — each of the seven ported kernels, the four verify (T-query)
+3. kernels  — each of the seven ported kernels, quant_matmul_experts'
+              grouped launch (E 64 at C 1 and 683, each expert's rows bit
+              for bit against its single launch, timed beside 64 single
+              launches), the four verify (T-query)
               launches of the decode kernel and rms_norm against its plain
               PyTorch
               version on the same inputs, at the main path's shapes (bf16)
@@ -110,7 +113,16 @@ Phases (any failure exits non-zero; nothing is caught):
               and read just after it;
 6. profile  — ``repro_torch.obs.profile_session`` (torch.profiler) over
               one short serve: device busy time against wall time, device
-              operations per engine step, and the top kernels.
+              operations per engine step, and the top kernels;
+7. MoE      — qwen2-moe-a2.7b at full width: a 2-layer cut's logits
+              against the plain versions (each layer's routes replayed:
+              a bf16 router near a tie flips on another rounding), then
+              all 24 layers: calibrate on 16 x 512 tokens, FAQ per
+              (layer, expert), int4 pack, the FAQ int8 self-draft, one
+              slot serving 4 requests plain and speculative (k 3), bit
+              for bit, four slots serving the 8 requests of the dense run,
+              and ``paged=True`` serving from the dense cache.  Its
+              launches are counted path by path like the others.
 
 The one reduction of the main path: prompt and calibration token ids
 come from a synthetic vocabulary capped at 4096 ids (the generator's
@@ -538,6 +550,7 @@ def kernel_phase(dev):
                      masked=masked_flash_attention(dev, gen, randn)))
     rows.append(quant_error_row(dev, gen, randn))
     rows += verify_rows(dev, gen, randn)
+    rows.append(quant_matmul_experts_row(dev, gen, randn))
     rows.append(rms_norm_row(dev, gen, randn))
     rows.append(flash_attention_bwd_row(dev, gen, randn))
     rows.append(rms_norm_bwd_row(dev, gen, randn))
@@ -813,6 +826,103 @@ def verify_rows(dev, gen, randn):
             "none: no single PyTorch call reads int8 codes with folded "
             "scales or a paged store"))
     return rows
+
+
+MOE_EXPERTS = 64                   # qwen2-moe's 60 routed experts, padded
+MOE_CAL_CAP = 683                  # capacity of 16 x 512 calibration tokens
+
+
+def quant_matmul_experts_row(dev, gen, randn):
+    """The grouped launch at qwen2-moe's expert shapes (E 64, g 64): C 1
+    (decode) and C 683 (calibration), 2048 -> 1408 (gate / up) and 1408 ->
+    2048 (down), each held against the plain version, each expert's rows
+    bit for bit against the single-expert launch, the same bits on a
+    second call.  Timed at decode's gate projection beside 64 single-
+    expert launches, the plain version and, as a yardstick that is not
+    the same function (it reads the weights dequantized to bf16, 3.2x the
+    bytes), torch.bmm."""
+    from repro_torch.core import QuantSpec, quantize_groupwise
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.ops import quant_matmul_experts
+    from repro_torch.kernels.ref import quant_matmul_experts_ref
+
+    phase("kernel quant_matmul_experts (grouped launch)")
+    for src_name, log in _build.build_logs.items():
+        for kernel, report in ptxas_report(log):
+            if kernel.startswith("qmm_tc"):
+                print(f"  {src_name} {kernel}: {report}", flush=True)
+    e, g = MOE_EXPERTS, 64
+
+    def stack(k, n, act=True):
+        a = (torch.rand((e, k), generator=gen, device=dev) + 0.5
+             if act else None)
+        return quantize_groupwise(randn(e, k, n, dtype=torch.float32)
+                                  / k ** 0.5, QuantSpec(4, g), act_scale=a,
+                                  pack=True)
+
+    def qmm_bytes(c, k, n):
+        return (e * (c * k * 2 + k * n // 2 + 2 * (k // g) * n * 4
+                     + c * n * 2 + k * 4))
+
+    out = {}
+    for c in (1, MOE_CAL_CAP):
+        for k, n in ((2048, 1408), (1408, 2048)):
+            qt = stack(k, n)
+            x = randn(e, c, k) / 4
+            got = quant_matmul_experts(x, qt)
+            err = held(f"E={e} C={c} {k}->{n} bf16", got,
+                       quant_matmul_experts_ref(x, qt),
+                       rel_tol=EXACT_REL_TOL)
+            same_bits(f"E={e} C={c} {k}->{n}: a second call",
+                      quant_matmul_experts(x, qt), got)
+            xs = x / qt.act_scale[:, None, :].to(x.dtype)
+            singles = torch.stack([qm.quant_matmul(xs[i].contiguous(),
+                                                   qt.codes[i], qt.scale[i],
+                                                   qt.zero[i])
+                                   for i in range(e)])
+            same_bits(f"E={e} C={c} {k}->{n}: each expert == its single "
+                      f"launch", got, singles)
+            out[(c, k, n)] = (qt, x, err)
+    for (c, k, n), (qt, x, err) in out.items():
+        sets = [qt, stack(k, n)]        # 2 x 92 MB of codes at 2048 x 1408
+        ms = time_ms(lambda i: quant_matmul_experts(x, sets[i % 2]))
+        xs = x / qt.act_scale[:, None, :].to(x.dtype)
+        loop = time_ms(lambda i: [qm.quant_matmul(xs[j], sets[i % 2].codes[j],
+                                                  sets[i % 2].scale[j],
+                                                  sets[i % 2].zero[j])
+                                  for j in range(e)], reps=5, inner=2)
+        w16 = torch.stack([qm.dequant_ref(qt.codes[j], qt.scale[j],
+                                          qt.zero[j], k) for j in range(e)]
+                          ).to(torch.bfloat16)
+        bmm = time_ms(lambda i: torch.bmm(xs, w16), reps=10, inner=5)
+        del w16
+        b_ms, b_by = bound(qmm_bytes(c, k, n), 2 * e * c * k * n)
+        print(f"  E={e} C={c} {k}->{n}: grouped {ms:.4f} ms, 64 single "
+              f"launches {loop:.4f} ms, bound {b_ms:.4f} by {b_by}, "
+              f"yardstick torch.bmm on bf16-dequantized weights "
+              f"{bmm:.4f} ms (not the same function)", flush=True)
+        out[(c, k, n)] = dict(ms=ms, loop_ms=loop, bmm_ms=bmm, bound_ms=b_ms,
+                              bound_by=b_by, err=err)
+    dec = out[(1, 2048, 1408)]
+    qt, x = stack(2048, 1408), randn(e, 1, 2048) / 4
+    plain = time_ms(lambda i: quant_matmul_experts_ref(x, qt), reps=5,
+                    inner=2)
+    cal = {f"c{c}_{k}x{n}": v for (c, k, n), v in out.items()}
+    return dict(name="quant_matmul_experts", route="cuda",
+                source="src/repro_torch/csrc/quant_matmul.cu",
+                replaces="src/repro/kernels/ops.py:78",
+                shape=f"x ({e},1,2048) bf16, codes ({e},1024,1408), g={g}",
+                max_abs_err=max(v["err"] for v in out.values()),
+                ms=dec["ms"], plain_ms=plain, bound_ms=dec["bound_ms"],
+                bound_by=dec["bound_by"], library_ms=None,
+                library_note="none: no single PyTorch call takes this int4 "
+                             "layout; torch.bmm on bf16-dequantized weights "
+                             "is the yardstick (bmm_ms)",
+                single_launch_loop_ms=dec["loop_ms"], bmm_ms=dec["bmm_ms"],
+                shapes={kk: {f: v[f] for f in ("ms", "loop_ms", "bmm_ms",
+                                                 "bound_ms")}
+                        for kk, v in cal.items()})
 
 
 def rms_norm_row(dev, gen, randn):
@@ -1622,6 +1732,293 @@ def main_path_phase(dev, kernels):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_phase(eng, data, Request)
     return launches, {"quant_error": qe_keys}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the MoE family, qwen2-moe-a2.7b at full width and depth
+# ---------------------------------------------------------------------------
+
+MOE_PROMPTS = (12, 60, 150, 300)   # the one-slot plain vs spec serve
+
+
+@contextlib.contextmanager
+def swapped(*names):
+    """Set each (module, attribute, value) inside the with-block."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in names]
+    for mod, attr, value in names:
+        setattr(mod, attr, value)
+    try:
+        yield
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+def _experts_f64(x, qt):
+    """quant_matmul_experts_ref with the products accumulated in f64 (no
+    act_scale: the forward check's weights are RTN)."""
+    from repro_torch.kernels.ref import dequant_ref
+    return torch.stack([(x[e].double() @ dequant_ref(
+        qt.codes[e], qt.scale[e], qt.zero[e], x.shape[-1]).double()
+    ).to(x.dtype) for e in range(qt.codes.shape[0])])
+
+
+def plain_expert_products(f64=False):
+    """The MoE blocks' expert products on their plain version (in f64
+    with ``f64``)."""
+    from repro_torch.kernels.ref import quant_matmul_experts_ref
+    from repro_torch.models import moe
+    return swapped((moe, "quant_matmul_experts",
+                    _experts_f64 if f64 else quant_matmul_experts_ref))
+
+
+@contextlib.contextmanager
+def plain_moe_kernels():
+    """:func:`plain_kernels`, and also the MoE blocks' rms_norm, every
+    packed linear (quant_matmul) and the expert products
+    (quant_matmul_experts) swapped for their plain versions."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.models import moe
+
+    with plain_kernels(), plain_expert_products(), swapped(
+            (moe, "rms_norm", rn.rms_norm_ref),
+            (ops, "_quant_matmul_kernel", qm.quant_matmul_ref)):
+        yield
+
+
+def routing(record=None, replay=None):
+    """Record each MoE layer's expert choice (``record``), or replay the
+    recorded ones in order (``replay``), with the gates recomputed from
+    this run's own router logits at those experts.  A bf16 router near a
+    tie picks another expert for a different rounding of its input; the
+    replay holds two runs to the same routes, so they compare the
+    arithmetic."""
+    from repro_torch.models import moe
+
+    plain_route = moe._route
+
+    def route(x_flat, router_w, n_real, k):
+        probs, topi, aux = plain_route(x_flat, router_w, n_real, k)
+        if record is not None:
+            record.append(topi)
+        if replay is not None:
+            topi = replay.pop(0)
+            logits = (x_flat @ router_w.to(x_flat.dtype)).float()
+            probs = torch.softmax(logits.gather(1, topi), dim=-1)
+        return probs, topi, aux
+
+    return swapped((moe, "_route", route))
+
+
+def tree_gb(tree) -> float:
+    from repro_torch.dist._tree import leaves_with_keys
+    return sum(v.numel() * v.element_size()
+               for _, v in leaves_with_keys(tree)) / 1e9
+
+
+def moe_paths(dev, kernels):
+    """qwen2-moe-a2.7b at full width and depth on the card (24 layers, d
+    2048, 16 heads of 128, 60 experts padded to 64, top-4, d_ff 1408, one
+    shared expert of 5632, vocab 151936, bf16), random weights from seed
+    0: a 2-layer cut's forward held against the plain versions; then
+    calibrate on 16 x 512 tokens (one batch: capacity 683), FAQ (γ 0.85,
+    window 3) per (layer, expert), int4 pack (g = 64); the FAQ int8 self-
+    draft; one slot serving 4 requests plain and speculative (k 3), bit
+    for bit; four slots serving the 8 requests of the dense run; and
+    ``paged=True`` serving from the dense cache.  Returns {path: launch
+    counts}."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import (DEFAULT_ALPHA_GRID, QuantSpec,
+                                  quantize_model, report_summary,
+                                  run_calibration)
+    from repro_torch.data.synthetic import calibration_batches
+    from repro_torch.launch.serve import data_for
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.draft import self_int8_draft
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import SpecConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = ARCHS["qwen2-moe-a2.7b"]
+    spec = QuantSpec(bits=4, group_size=64)
+    data = data_for(full)
+    print(f"  config: {full.name} d_model={full.d_model} heads={full.n_heads}"
+          f" kv_heads={full.n_kv_heads} head_dim={full.head_dim_} experts="
+          f"{full.n_experts} (padded to {MOE_EXPERTS}) top-"
+          f"{full.experts_per_token} d_ff={full.d_ff} shared="
+          f"{full.shared_expert_ff} vocab={full.vocab_size} layers="
+          f"{full.n_layers} dtype={full.dtype}; token ids capped at "
+          f"{data.cfg.vocab_size}; memory allocated at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    counts, times = {}, {}
+
+    phase("MoE: 2-layer cut at full width, kernels against plain versions")
+    cfg2 = full.scaled(n_layers=2)
+    m2 = build_model(cfg2)
+    p2 = m2.init(0, device=dev)
+    q2, _ = quantize_model(p2, m2.quant_site_map(), None, method="rtn",
+                           spec=spec, mode="packed")
+    del p2
+    toks = torch.as_tensor(np.stack([data.sequence(50_000_000 + i, 512)
+                                     for i in range(4)]), device=dev)
+    v = full.vocab_size
+    routes = []
+    with routing(record=routes):
+        got, got_aux = m2.forward(q2, {"tokens": toks})
+    got = got[..., :v].float()
+    check(bool(torch.isfinite(got).all()), "MoE logits are not finite")
+    # Every kernel swapped for its plain version: each bf16 kernel is held
+    # to BF16_REL_TOL against its plain version, and their differences add
+    # up over the cut's layers.  The expert products alone: the grouped
+    # launch differs from its plain version by f32 summation order, which
+    # the bf16 chain of two layers amplifies; the same plain version
+    # accumulating in f64 (another exact order, no kernel) shows by how
+    # much, and the limit is BF16_REL_TOL.
+    readings = {}
+    for name, plain, tol in (
+            ("every kernel plain", plain_moe_kernels,
+             BF16_REL_TOL * cfg2.n_layers),
+            ("quant_matmul_experts plain", plain_expert_products,
+             BF16_REL_TOL),
+            ("quant_matmul_experts plain in f64",
+             lambda: plain_expert_products(f64=True), None)):
+        replay = list(routes)
+        with plain(), routing(replay=replay):
+            want, want_aux = m2.forward(q2, {"tokens": toks})
+        check(not replay, "the plain forward did not replay every route")
+        want = readings[name] = want[..., :v].float()
+        if tol is None:     # the f64 plain version against the f32 one
+            ref32 = readings["quant_matmul_experts plain"]
+            rel = float((want - ref32).norm() / ref32.norm())
+            print(f"  logits: the plain expert products accumulated in f64 "
+                  f"against f32: rel_err {rel:.3e} (the bf16 chain's "
+                  f"response to another exact summation order)",
+                  flush=True)
+            continue
+        rel = float((got - want).norm() / want.norm())
+        print(f"  logits (4 x 512 tokens) against {name}: rel_err "
+              f"{rel:.3e} (tol {tol:.0e}), max_abs_err "
+              f"{float((got - want).abs().max()):.3e}; moe_aux "
+              f"{float(got_aux['moe_aux']):.6f} vs "
+              f"{float(want_aux['moe_aux']):.6f}", flush=True)
+        check(rel <= tol, f"MoE forward disagrees with {name}")
+    del m2, q2, got, want, routes, readings
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("MoE main path: qwen2-moe-a2.7b calibrate -> FAQ -> int4 pack -> "
+          "serve")
+    model = build_model(full)
+    reqs1 = [Request(rid=i, prompt=data.sequence(60_000_000 + i, n),
+                     max_new_tokens=NEW_TOKENS)
+             for i, n in enumerate(MOE_PROMPTS)]
+    reqs8 = [Request(rid=i, prompt=data.sequence(40_000_000 + i, n),
+                     max_new_tokens=NEW_TOKENS)
+             for i, n in enumerate(PROMPT_LENS)]
+
+    def quantize_path():
+        t0 = time.perf_counter()
+        params = model.init(0, device=dev)
+        torch.cuda.synchronize()
+        times["init"] = time.perf_counter() - t0
+        print(f"  float weights {tree_gb(params):.2f} GB", flush=True)
+        t0 = time.perf_counter()
+        stats = run_calibration(model.forward, params, calibration_batches(
+            data, 16, 512, batch_size=16))
+        torch.cuda.synchronize()
+        times["calibrate"] = time.perf_counter() - t0
+        for site, st in stats.items():
+            for key, val in st.items():
+                check(bool(torch.isfinite(val).all()),
+                      f"MoE stat {site}/{key} not finite")
+        t0 = time.perf_counter()
+        qparams, report = quantize_model(params, model.quant_site_map(),
+                                         stats, method="faq", spec=spec,
+                                         mode="packed")
+        torch.cuda.synchronize()
+        times["faq_pack"] = time.perf_counter() - t0
+        del params
+        return stats, qparams, report
+
+    (stats, qparams, report), counts["MoE calibrate + FAQ + pack"] = \
+        counted(kernels, quantize_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = torch.tensor(DEFAULT_ALPHA_GRID)
+    n_l = full.n_layers
+    for path, rep in report.items():
+        alpha = rep["alpha"].cpu()
+        check(bool(torch.isin(alpha, grid).all()), f"{path}: alpha off grid")
+        check(bool((rep["loss"] <= rep["rtn_loss"] * (1 + 1e-5)).all()),
+              f"{path}: searched loss above the RTN loss")
+        if path.endswith("_exp"):
+            check(tuple(alpha.shape) == (n_l, MOE_EXPERTS),
+                  f"{path}: alpha {tuple(alpha.shape)}")
+            leaf = qparams["blocks"][path.split("/")[1]]
+            check(tuple(leaf.codes.shape[:2]) == (n_l, MOE_EXPERTS)
+                  and tuple(leaf.act_scale.shape[:2]) == (n_l, MOE_EXPERTS),
+                  f"{path}: packed leaf {tuple(leaf.codes.shape)}")
+    for path, s in report_summary(report).items():
+        print(f"  {path}: mean alpha {s['mean_alpha']:.3f}, loss "
+              f"{s['mean_loss']:.4e} vs RTN {s['mean_rtn_loss']:.4e} "
+              f"({100 * s['improvement_vs_rtn']:.1f}% better)", flush=True)
+    print(f"  packed tree {tree_gb(qparams):.2f} GB; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    t0 = time.perf_counter()
+    draft = self_int8_draft(model, qparams, stats)
+    torch.cuda.synchronize()
+    times["draft"] = time.perf_counter() - t0
+    del stats
+
+    phase("MoE main path: one slot, 4 requests, plain vs spec (self-int8, "
+          "k 3)")
+    plain_eng = ServeEngine(model, qparams, n_slots=1, max_len=512,
+                            device=dev)
+    (plain1, _, plain_s), counts["MoE plain serve, 1 slot"] = counted(
+        kernels, lambda: timed_serve("MoE plain serve, 1 slot", plain_eng,
+                                     reqs1))
+    spec_eng = ServeEngine(model, qparams, n_slots=1, max_len=512, device=dev,
+                           spec=SpecConfig(k=3, draft=draft))
+    (spec1, _, spec_s), counts["MoE spec serve, 1 slot"] = counted(
+        kernels, lambda: timed_serve("MoE spec serve, 1 slot", spec_eng,
+                                     reqs1))
+    m = spec_eng.metrics()
+    same = [np.array_equal(spec1[r.rid], plain1[r.rid]) for r in reqs1]
+    print(f"  spec: accept_rate {m['accept_rate']:.3f}, spec cycles "
+          f"{m['spec_cycles']}, {spec_s:.2f} s against the plain run's "
+          f"{plain_s:.2f} s; tokens equal the plain serve's bit for bit: "
+          f"{sum(same)}/{len(reqs1)}", flush=True)
+    check(all(same), "MoE spec serve differs from the plain serve")
+    check(m["spec_cycles"] > 0, "MoE: no spec cycle ran")
+    del spec_eng, draft, plain_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("MoE main path: four slots, the 8 requests of the dense run")
+    eng4 = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev)
+    (out4, m4, sec4), counts["MoE serve, 4 slots"] = counted(
+        kernels, lambda: timed_serve("MoE serve, 4 slots", eng4, reqs8))
+    for rid, toks_ in out4.items():
+        check(bool((toks_ >= 0).all() and (toks_ < full.vocab_size).all()),
+              f"MoE req {rid}: token outside the vocabulary")
+    paged = ServeEngine(model, qparams, n_slots=1, max_len=512, device=dev,
+                        paged=True)
+    print(f"  paged=True: engine.paged {paged.paged} (serves from the dense "
+          f"cache, as the reference's MoE)", flush=True)
+    check(not paged.paged and not model.supports_paged(),
+          "MoE paged=True did not fall back to the dense stepper")
+    print(f"  MoE phase seconds: " + ", ".join(f"{k} {v:.2f}"
+                                               for k, v in times.items()))
+    print(f"  MoE max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return counts
 
 
 # candidates whose kernel loss lies within this of the kernel's minimum are
@@ -2519,7 +2916,9 @@ def main():
               flush=True)
 
     # every kernel, in the order of the TPU kernel table (PERF.md)
-    by_name = {"quant_matmul": qm.KERNEL, "flash_decode": fd.KERNEL,
+    by_name = {"quant_matmul": qm.KERNEL,
+               "quant_matmul_experts": qm.KERNEL_EXPERTS,
+               "flash_decode": fd.KERNEL,
                "flash_decode_q8": fd.KERNEL_Q8, "flash_attention": fa.KERNEL,
                "flash_decode_paged": fd.KERNEL_PAGED,
                "flash_decode_paged_q8": fd.KERNEL_PAGED_Q8,
@@ -2539,6 +2938,8 @@ def main():
     train_counts = train_paths(dev, kernels)
     phase("main path: llama3-8b calibrate -> FAQ -> int4 pack -> serve")
     launches, row_keys = main_path_phase(dev, kernels)
+    phase("main path: the MoE family (qwen2-moe-a2.7b)")
+    train_counts.update(moe_paths(dev, kernels))
     for path, counts in train_counts.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
         for sym, n in counts.items():

@@ -1,7 +1,7 @@
-"""Dense architecture configs (one module per arch) + registry.
+"""Architecture configs (one module per arch) + registry.
 
-The port's own copies of ``repro.configs``; the other families arrive
-with their model slices.
+The port's own copies of ``repro.configs`` for the dense and MoE
+families; the other families arrive with their model slices.
 """
 from .base import ModelConfig
 
@@ -9,10 +9,12 @@ from .stablelm_12b import CONFIG as STABLELM_12B
 from .llama3_405b import CONFIG as LLAMA3_405B
 from .llama3_8b import CONFIG as LLAMA3_8B
 from .deepseek_coder_33b import CONFIG as DEEPSEEK_CODER_33B
+from .llama4_maverick_400b_a17b import CONFIG as LLAMA4_MAVERICK
+from .qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
 
 ARCHS = {
     c.name: c for c in (STABLELM_12B, LLAMA3_405B, LLAMA3_8B,
-                        DEEPSEEK_CODER_33B)
+                        DEEPSEEK_CODER_33B, LLAMA4_MAVERICK, QWEN2_MOE)
 }
 
 __all__ = ["ARCHS", "ModelConfig"]

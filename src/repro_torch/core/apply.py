@@ -1,8 +1,10 @@
 """Model-level quantization: apply RTN / AWQ / FAQ to a full parameter tree.
 
 Models expose ``quant_site_map() -> {param_path: site_key}`` where each
-mapped leaf has shape ``(L, n_in, n_out)`` (layer-stacked) and
-``stats[site_key]["mean_abs"]`` is ``(L, n_in)``.
+mapped leaf has shape ``(L, n_in, n_out)`` (layer-stacked), or ``(L, E,
+n_in, n_out)`` for MoE experts, and ``stats[site_key]["mean_abs"]`` is
+``(L, n_in)``: a layer's experts share its statistic and each gets its own
+α (one search per (layer, expert)).
 
 Two output modes, as in the reference:
 
@@ -15,18 +17,21 @@ Two output modes, as in the reference:
   unchanged model runs it as plain matmuls (the speculative self-draft,
   evaluation).
 
-The reference vmaps over the layer axis; here each leaf is quantized one
-layer at a time, so at full width peak memory holds one layer's float32
-copy of one leaf (``(4096, 14336)`` for llama3-8b's MLP), not the whole
-``(L, n_in, n_out)`` stack.  The float leaves of ``params`` are left in
-place: the caller owns them and frees them by dropping ``params``.
+The reference vmaps over the layer (and expert) axes; here each leaf is
+quantized one layer at a time, so at full width peak memory holds one
+layer's float32 copy of one leaf (``(4096, 14336)`` for llama3-8b's MLP;
+a layer's expert stack, ``(64, 2048, 1408)`` for qwen2-moe, whose α
+searches run batched over the experts), not the whole stack.  The float
+leaves of ``params`` are left in place: the caller owns them and frees
+them by dropping ``params``.
 """
 from __future__ import annotations
 
 import torch
 
 from .methods import (DEFAULT_ALPHA_GRID, PRESEARCHED_GAMMA,
-                      PRESEARCHED_WINDOW, search_alpha, site_stat_for_method)
+                      PRESEARCHED_WINDOW, search_alpha, search_alpha_experts,
+                      site_stat_for_method)
 from .quantizer import (QuantSpec, QuantizedTensor, quant_dequant,
                         quantize_groupwise)
 
@@ -60,15 +65,18 @@ def _stack_qt(per_layer: list) -> QuantizedTensor:
 
 @torch.no_grad()
 def _quantize_leaf(w, stat, spec, alpha_grid, loss, stats_site, mode):
-    """Quantize one (L, n_in, n_out) leaf, layer by layer.
+    """Quantize one (L, n_in, n_out) or (L, E, n_in, n_out) leaf, layer by
+    layer (a layer's experts together).
 
     ``stat`` is the (L, n_in) method statistic or None (RTN).
-    Returns (new_leaf, report_dict).
+    Returns (new_leaf, report_dict); the report's fields are (L,) or
+    (L, E).
     """
-    if w.dim() != 3:
-        raise ValueError(f"expected a layer-stacked (L, n_in, n_out) leaf, "
-                         f"got shape {tuple(w.shape)}")
+    if w.dim() not in (3, 4):
+        raise ValueError(f"expected a layer-stacked (L, [E,] n_in, n_out) "
+                         f"leaf, got shape {tuple(w.shape)}")
     n_layers = w.shape[0]
+    search = search_alpha if w.dim() == 3 else search_alpha_experts
     act_scales, alphas, losses, rtn_losses = [], [], [], []
     for l in range(n_layers):
         if stat is None:  # RTN
@@ -76,8 +84,8 @@ def _quantize_leaf(w, stat, spec, alpha_grid, loss, stats_site, mode):
             continue
         mean_sq = stats_site["mean_sq"][l] if loss == "diag" else None
         sample = stats_site["sample"][l] if loss == "sample" else None
-        res = search_alpha(w[l], stat[l], spec, alpha_grid,
-                           mean_sq=mean_sq, sample=sample)
+        res = search(w[l], stat[l], spec, alpha_grid, mean_sq=mean_sq,
+                     sample=sample)
         act_scales.append(res.act_scale)
         alphas.append(res.alpha)
         losses.append(res.loss)

@@ -62,16 +62,24 @@ def quant_error(w: torch.Tensor, spec: QuantSpec,
                 act_scale: Optional[torch.Tensor],
                 mean_sq: Optional[torch.Tensor] = None,
                 sample: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Output-MSE proxy for quantizing ``w`` with smoothing ``act_scale``."""
+    """Output-MSE proxy for quantizing ``w`` with smoothing ``act_scale``.
+
+    ``w`` (n_in, n_out) gives a scalar; a stack ``(E, n_in, n_out)`` (one
+    layer's experts, sharing ``act_scale``, ``mean_sq`` and ``sample``)
+    gives one loss per matrix, ``(E,)``."""
     w32 = w.float()
     w_hat = quant_dequant(w32, spec, act_scale=act_scale)
     dw = w_hat - w32
     if sample is not None:
         err = sample.float() @ dw
-        return torch.mean(err * err)
+        err = err * err
+        return (torch.mean(err) if dw.dim() == 2
+                else torch.mean(err, dim=(-2, -1)))
     if mean_sq is None:
         raise ValueError("need mean_sq for the diag loss")
-    return torch.sum(mean_sq[:, None] * dw * dw) / dw.shape[1]
+    sq = mean_sq[:, None] * dw * dw
+    return (torch.sum(sq) if dw.dim() == 2
+            else torch.sum(sq, dim=(-2, -1))) / dw.shape[-1]
 
 
 class SearchResult(NamedTuple):
@@ -128,6 +136,37 @@ def search_alpha_plain(w: torch.Tensor, a_stat: torch.Tensor,
     rtn_loss = quant_error(w, spec, None, mean_sq=mean_sq, sample=sample)
     return SearchResult(act_scale=best_scale, alpha=best_alpha,
                         loss=losses[idx], rtn_loss=rtn_loss)
+
+
+@torch.no_grad()
+def search_alpha_experts(w: torch.Tensor, a_stat: torch.Tensor,
+                         spec: QuantSpec,
+                         alpha_grid: tuple = DEFAULT_ALPHA_GRID,
+                         mean_sq: Optional[torch.Tensor] = None,
+                         sample: Optional[torch.Tensor] = None
+                         ) -> SearchResult:
+    """:func:`search_alpha` for each matrix of a stack ``w`` (E, n_in,
+    n_out) that shares one statistic ``a_stat`` (n_in,) (a layer's MoE
+    experts): the fields come back per expert, ``act_scale`` (E, n_in) and
+    ``alpha`` / ``loss`` / ``rtn_loss`` (E,).  Each candidate scale is
+    scored on all E matrices at once; ties resolve to the first grid point
+    per expert.  The diagonal loss on a CUDA tensor runs the fused kernel
+    search expert by expert."""
+    if w.is_cuda and sample is None and mean_sq is not None:
+        res = [search_alpha(w[e], a_stat, spec, alpha_grid, mean_sq=mean_sq)
+               for e in range(w.shape[0])]
+        return SearchResult(*(torch.stack(f) for f in zip(*res)))
+    grid = torch.tensor(alpha_grid, dtype=torch.float32, device=w.device)
+    scales = torch.stack([candidate_scale(a_stat, grid[i])
+                          for i in range(grid.shape[0])])
+    losses = torch.stack([quant_error(w, spec, scales[i], mean_sq=mean_sq,
+                                      sample=sample)
+                          for i in range(grid.shape[0])])       # (A, E)
+    idx = torch.argmin(losses, dim=0)
+    rtn_loss = quant_error(w, spec, None, mean_sq=mean_sq, sample=sample)
+    return SearchResult(act_scale=scales[idx], alpha=grid[idx],
+                        loss=losses.gather(0, idx[None])[0],
+                        rtn_loss=rtn_loss)
 
 
 # ---------------------------------------------------------------------------

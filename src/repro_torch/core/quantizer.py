@@ -55,8 +55,8 @@ class QuantSpec:
 
 @dataclasses.dataclass
 class QuantizedTensor:
-    """A group-wise quantized 2-D weight (or a layer-stacked ``(L, ...)``
-    stack of them).
+    """A group-wise quantized 2-D weight (or a stack of them on leading
+    axes: layers ``(L, ...)``, and experts ``(L, E, ...)`` for MoE).
 
     ``codes``   uint8, either unpacked ``(n_in, n_out)`` or packed
                 ``(n_in // 2, n_out)`` (two 4-bit codes per byte) when
@@ -82,7 +82,8 @@ class QuantizedTensor:
         return (self.n_in, self.codes.shape[-1])
 
     def __getitem__(self, i) -> "QuantizedTensor":
-        """Layer ``i`` of a layer-stacked tensor (views, no copies)."""
+        """Entry ``i`` of the leading axis (a layer, or an expert of a
+        layer's stack): views, no copies."""
         return QuantizedTensor(
             codes=self.codes[i], scale=self.scale[i], zero=self.zero[i],
             spec=self.spec, n_in=self.n_in, packed=self.packed,
@@ -107,10 +108,11 @@ def effective_group_size(n_in: int, group_size: int) -> int:
 
 def _affine_params(w: torch.Tensor, spec: QuantSpec, g: int,
                    eps: float = 1e-8):
-    """Per-(group, col) scale/zero for the given spec, shapes (n_groups, n_out)."""
-    n_in, n_out = w.shape
-    wg = w.reshape(n_in // g, g, n_out)
-    lo, hi = wg.amin(dim=1), wg.amax(dim=1)
+    """Per-(group, col) scale/zero for the given spec, shapes
+    ``(..., n_groups, n_out)``."""
+    *lead, n_in, n_out = w.shape
+    wg = w.reshape(*lead, n_in // g, g, n_out)
+    lo, hi = wg.amin(dim=-2), wg.amax(dim=-2)
     if spec.symmetric:
         amax = torch.maximum(lo.abs(), hi.abs())
         scale = torch.clamp(amax / spec.qmax, min=eps)
@@ -131,15 +133,19 @@ def quantize_groupwise(
     act_scale: Optional[torch.Tensor] = None,
     pack: bool = False,
 ) -> QuantizedTensor:
-    """Quantize ``w`` (optionally pre-scaled by ``act_scale``) group-wise."""
+    """Quantize ``w`` (optionally pre-scaled by ``act_scale``) group-wise.
+
+    ``w`` is ``(n_in, n_out)`` or a stack ``(..., n_in, n_out)`` (MoE
+    experts) quantized as independent matrices; ``act_scale`` is ``(n_in,)``
+    or one row per matrix ``(..., n_in)``."""
     w = w.float()
     if act_scale is not None:
-        w = w * act_scale[:, None].float()
-    n_in, n_out = w.shape
+        w = w * act_scale[..., None].float()
+    n_in = w.shape[-2]
     g = effective_group_size(n_in, spec.group_size)
     scale, zero = _affine_params(w, spec, g)
-    s_full = scale.repeat_interleave(g, dim=0)
-    z_full = zero.repeat_interleave(g, dim=0)
+    s_full = scale.repeat_interleave(g, dim=-2)
+    z_full = zero.repeat_interleave(g, dim=-2)
     codes = torch.clamp(torch.round(w / s_full) + z_full, spec.qmin, spec.qmax)
     if spec.symmetric:
         # store with bias so uint8 can hold it
@@ -163,9 +169,9 @@ def dequantize_groupwise(qt: QuantizedTensor,
     codes = qt.codes
     if qt.packed:
         codes = unpack_codes(codes, qt.spec.bits, qt.n_in)
-    g = qt.n_in // qt.scale.shape[0]
-    s_full = qt.scale.repeat_interleave(g, dim=0)
-    z_full = qt.zero.repeat_interleave(g, dim=0)
+    g = qt.n_in // qt.scale.shape[-2]
+    s_full = qt.scale.repeat_interleave(g, dim=-2)
+    z_full = qt.zero.repeat_interleave(g, dim=-2)
     return ((codes.float() - z_full) * s_full).to(dtype)
 
 
@@ -179,7 +185,7 @@ def quant_dequant(w: torch.Tensor, spec: QuantSpec,
     qt = quantize_groupwise(w, spec, act_scale=act_scale, pack=False)
     w_hat = dequantize_groupwise(qt)
     if act_scale is not None:
-        w_hat = w_hat / act_scale[:, None].float()
+        w_hat = w_hat / act_scale[..., None].float()
     return w_hat.to(orig_dtype)
 
 
@@ -190,13 +196,14 @@ def quant_dequant(w: torch.Tensor, spec: QuantSpec,
 # ---------------------------------------------------------------------------
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack ``(..., n_in, n_out)`` codes along n_in."""
     if bits > 4:
         return codes
-    n_in = codes.shape[0]
+    n_in = codes.shape[-2]
     if n_in % 2 != 0:
         raise ValueError(f"packing needs even n_in, got {n_in}")
-    lo = codes[0::2, :].to(torch.uint8)
-    hi = codes[1::2, :].to(torch.uint8)
+    lo = codes[..., 0::2, :].to(torch.uint8)
+    hi = codes[..., 1::2, :].to(torch.uint8)
     return lo | (hi << 4)
 
 
@@ -205,7 +212,8 @@ def unpack_codes(packed: torch.Tensor, bits: int, n_in: int) -> torch.Tensor:
         return packed
     lo = packed & 0x0F
     hi = (packed >> 4) & 0x0F
-    return torch.stack([lo, hi], dim=1).reshape(n_in, packed.shape[-1])
+    return torch.stack([lo, hi], dim=-2).reshape(
+        packed.shape[:-2] + (n_in, packed.shape[-1]))
 
 
 def storage_bits(qt: QuantizedTensor) -> float:

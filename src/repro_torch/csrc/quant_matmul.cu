@@ -64,6 +64,15 @@
 // sums out of registers, or the scale folded while the next group's wgmma
 // runs.
 //
+// Grouped launch (quant_matmul_experts_launch, replacing the reference's
+// loop of one quant_matmul_pallas call per MoE expert in
+// repro/kernels/ops.py::quant_matmul_experts): the E products of a layer's
+// expert stack, x (E, C, k) against codes (E, k/2, n), run as one launch of
+// the same kernel.  The expert is folded into blockIdx.z beside the m tile
+// and each block offsets its operands by the expert's strides; the split's
+// scratch and tile counters cover every expert's tiles.  Nothing else
+// changes, so each expert's rows are the bits of a single-expert launch.
+//
 // Batch invariance by construction: k is cut into at most 16 chunks fixed
 // by k and g alone (4 groups of 64 at k = 4096, 14 at k = 14336).  Within a
 // chunk each group's mma chain starts from zero and is folded into the
@@ -363,8 +372,11 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float
   *reinterpret_cast<uint2*>(p) = v;
 }
 
-// Block (n tile blockIdx.x, k chunk blockIdx.y when split, m tile
-// blockIdx.z).  Warp wn owns columns n0 + 32 wn .. + 31 as the rows of two
+// Block (n tile blockIdx.x, k chunk blockIdx.y when split, expert and m
+// tile blockIdx.z = expert * m tiles + m tile).  Expert e's operands lie at
+// e times one expert's size from the pointers (x (m, k), codes (k/2, n),
+// scale / zero (ng, n), out (m, n), split scratch (chunks, m, n)); a
+// single-expert launch is expert 0.  Warp wn owns columns n0 + 32 wn .. + 31 as the rows of two
 // m16 tiles of A; lane (gq, cq) owns columns n0 + 32 wn + 4 gq .. + 3: A
 // row gq + 8 h of tile t is column 4 gq + 2 t + h.  A warp group's four
 // warps stack their tile t into one m64 wgmma whose N is the block's BM x
@@ -386,7 +398,15 @@ qmm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
   __shared__ int is_last;
   const int tid = threadIdx.x, lane = tid & 31, wn = tid >> 5;
   const int gq = lane >> 2, cq = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.z * BM;
+  const int m_tiles = (m + BM - 1) / BM, ex = blockIdx.z / m_tiles;
+  const int n0 = blockIdx.x * BN, m0 = (blockIdx.z - ex * m_tiles) * BM;
+  const int n_chunks = (k + chunk - 1) / chunk;        // <= TC_MAX_CHUNKS
+  x += static_cast<size_t>(ex) * m * k;
+  codes += static_cast<size_t>(ex) * (k / 2) * n;
+  scale += static_cast<size_t>(ex) * ng * n;
+  zero += static_cast<size_t>(ex) * ng * n;
+  out += static_cast<size_t>(ex) * m * n;
+  if (cpb) partial += static_cast<size_t>(ex) * n_chunks * m * n;
   const int kb = cpb ? blockIdx.y * cpb * chunk : 0;   // cpb: chunks per block when split
   const int ke = cpb ? min(k, kb + cpb * chunk) : k;
   const int n_stages = (ke - kb + TC_BK - 1) / TC_BK;
@@ -668,7 +688,6 @@ qmm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const int n_chunks = (k + chunk - 1) / chunk;   // <= TC_MAX_CHUNKS
   for (int i = tid; i < BM * (BN / 4); i += THREADS) {
     const int row = m0 + i / (BN / 4), col = n0 + 4 * (i % (BN / 4));
     if (row >= m || col >= n) continue;
@@ -712,12 +731,15 @@ cudaError_t prepare_tc() {
 
 template <class C, bool GA>
 int launch_tc(const void* x, const void* codes, const void* scale, const void* zero, void* out,
-              void* partial, void* counters, int m, int k, int n, int g, int ng, int chunk,
-              int cpb, cudaStream_t stream) {
+              void* partial, void* counters, int experts, int m, int k, int n, int g, int ng,
+              int chunk, int cpb, cudaStream_t stream) {
+  const long z = static_cast<long>(experts) * ((m + C::BM - 1) / C::BM);
+  if (z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t e = prepare_tc<C, GA>();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_chunks = (k + chunk - 1) / chunk;
-  const dim3 grid((n + C::BN - 1) / C::BN, cpb ? (n_chunks + cpb - 1) / cpb : 1, (m + C::BM - 1) / C::BM);
+  const dim3 grid((n + C::BN - 1) / C::BN, cpb ? (n_chunks + cpb - 1) / cpb : 1,
+                  static_cast<unsigned>(z));
   qmm_tc<C, GA><<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
@@ -728,18 +750,49 @@ int launch_tc(const void* x, const void* codes, const void* scale, const void* z
 
 template <bool GA>
 int launch_cfg(int cfg, const void* x, const void* codes, const void* scale, const void* zero,
-               void* out, void* partial, void* counters, int m, int k, int n, int g, int ng,
-               int chunk, int cpb, cudaStream_t s) {
+               void* out, void* partial, void* counters, int experts, int m, int k, int n, int g,
+               int ng, int chunk, int cpb, cudaStream_t s) {
   switch (cfg) {
-    case 0: return launch_tc<Cfg0, GA>(x, codes, scale, zero, out, partial, counters, m, k, n, g, ng, chunk, cpb, s);
-    case 1: return launch_tc<Cfg1, GA>(x, codes, scale, zero, out, partial, counters, m, k, n, g, ng, chunk, cpb, s);
-    case 2: return launch_tc<Cfg2, GA>(x, codes, scale, zero, out, partial, counters, m, k, n, g, ng, chunk, cpb, s);
-    case 3: return launch_tc<Cfg3, GA>(x, codes, scale, zero, out, partial, counters, m, k, n, g, ng, chunk, cpb, s);
+    case 0: return launch_tc<Cfg0, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
+    case 1: return launch_tc<Cfg1, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
+    case 2: return launch_tc<Cfg2, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
+    case 3: return launch_tc<Cfg3, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
 #ifdef QMM_PROBE_MT
-    case 4: return launch_tc<CfgProbe, GA>(x, codes, scale, zero, out, partial, counters, m, k, n, g, ng, chunk, cpb, s);
+    case 4: return launch_tc<CfgProbe, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
 #endif
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The tensor-core kernel over `experts` independent products stacked on a
+// leading axis (one launch): x (experts, m, k) bf16, codes (experts, k/2,
+// n), scale / zero (experts, ng, n), out (experts, m, n); it needs n % 16
+// == 0, k % 8 == 0 and 16-byte aligned tensors (the wrapper pads other
+// shapes); ng = rows of scale / zero; chunk = the fold's k rows per chunk
+// (a multiple of 16, and of g when g % 64 == 0); cfg picks the tile (0..3:
+// 8, 16, 32 x rows by 128 columns with 4 warps, 64 by 256 with 8).  cpb > 0
+// splits k: each block sums cpb consecutive chunks and writes each chunk's
+// sum to partial (experts x chunks x m x n f32); the last block of each
+// tile, found by counters (one int per tile of every expert, zero, left
+// zero), folds them in order.  Each expert's rows are the bits of a
+// single-expert launch on its operands: the fold depends on k and g only.
+int launch_bf16(const void* x, const void* codes, const void* scale, const void* zero, void* out,
+                void* partial, void* counters, int experts, int m, int k, int n, int g, int ng,
+                int chunk, int cfg, int cpb, cudaStream_t s) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(codes) |
+                         reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(zero) |
+                         reinterpret_cast<uintptr_t>(out);
+  const bool ga = g % TC_BK == 0;
+  if (experts < 1 || n % 16 != 0 || k % 8 != 0 || addr % 16 != 0 || chunk <= 0 ||
+      chunk % 16 != 0 || (ga && chunk % g != 0) || cpb < 0 ||
+      (k + chunk - 1) / chunk > TC_MAX_CHUNKS ||
+      (cpb > 0 && (partial == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ga)
+    return launch_cfg<true>(cfg, x, codes, scale, zero, out, partial, counters, experts, m, k, n,
+                            g, ng, chunk, cpb, s);
+  return launch_cfg<false>(cfg, x, codes, scale, zero, out, partial, counters, experts, m, k, n,
+                           g, ng, chunk, cpb, s);
 }
 
 }  // namespace
@@ -754,33 +807,27 @@ extern "C" void quant_matmul_geometry(int* out) {
   for (int i = 0; i < 10; ++i) out[i] = g[i];
 }
 
-// x_is_bf16: the tensor-core kernel, which needs n % 16 == 0, k % 8 == 0
-// and 16-byte aligned tensors (the wrapper pads other shapes); ng = rows of
-// scale / zero; chunk = the fold's k rows per chunk (a multiple of 16, and
-// of g when g % 64 == 0); cfg picks the tile (0..3: 8, 16, 32 x rows by 128
-// columns with 4 warps, 64 by 256 with 8).  cpb > 0 splits k: each block
-// sums cpb consecutive chunks and writes each chunk's sum to partial
-// (chunks x m x n f32); the last block of each tile, found by counters (one
-// int per tile, zero, left zero), folds them in order.  Otherwise f32 x on
-// the CUDA cores: partial is f32 scratch of ceil(k / KC) * m * n floats
-// when m <= 8, and counters, ng, chunk, cfg and cpb are not read.
+// x_is_bf16: the tensor-core kernel on one product (launch_bf16 with one
+// expert).  Otherwise f32 x on the CUDA cores: partial is f32 scratch of
+// ceil(k / KC) * m * n floats when m <= 8, and counters, ng, chunk, cfg and
+// cpb are not read.
 extern "C" int quant_matmul_launch(const void* x, const void* codes, const void* scale,
                                    const void* zero, void* out, void* partial, void* counters,
                                    int m, int k, int n, int g, int ng, int chunk, int cfg,
                                    int cpb, int x_is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!x_is_bf16) return launch<float>(x, codes, scale, zero, out, partial, m, k, n, g, s);
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(codes) |
-                         reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(zero) |
-                         reinterpret_cast<uintptr_t>(out);
-  const bool ga = g % TC_BK == 0;
-  if (n % 16 != 0 || k % 8 != 0 || addr % 16 != 0 || chunk <= 0 || chunk % 16 != 0 ||
-      (ga && chunk % g != 0) || cpb < 0 || (k + chunk - 1) / chunk > TC_MAX_CHUNKS ||
-      (cpb > 0 && (partial == nullptr || counters == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (ga)
-    return launch_cfg<true>(cfg, x, codes, scale, zero, out, partial, counters, m, k, n, g, ng,
-                            chunk, cpb, s);
-  return launch_cfg<false>(cfg, x, codes, scale, zero, out, partial, counters, m, k, n, g, ng,
-                           chunk, cpb, s);
+  return launch_bf16(x, codes, scale, zero, out, partial, counters, 1, m, k, n, g, ng, chunk, cfg,
+                     cpb, s);
+}
+
+// quant_matmul_experts: every expert's product in one launch of the
+// tensor-core kernel (bf16 x; see launch_bf16).
+extern "C" int quant_matmul_experts_launch(const void* x, const void* codes, const void* scale,
+                                           const void* zero, void* out, void* partial,
+                                           void* counters, int experts, int m, int k, int n,
+                                           int g, int ng, int chunk, int cfg, int cpb,
+                                           void* stream) {
+  return launch_bf16(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk,
+                     cfg, cpb, static_cast<cudaStream_t>(stream));
 }

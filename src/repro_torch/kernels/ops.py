@@ -17,6 +17,7 @@ from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_verify_paged_q8, flash_verify_q8)
 from .quant_error import quant_error
 from .quant_matmul import quant_matmul as _quant_matmul_kernel
+from .quant_matmul import quant_matmul_experts as _quant_matmul_experts_kernel
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -29,6 +30,20 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     out = _quant_matmul_kernel(x.reshape(-1, x.shape[-1]), qt.codes,
                                qt.scale, qt.zero)
     return out.reshape(lead + (qt.codes.shape[-1],))
+
+
+def quant_matmul_experts(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Per-expert dequant matmul: x (E, C, d) against qt with codes (E,
+    d[/2], f), ``(x[e] / act_scale[e]) @ dequant(qt[e])``; returns (E, C,
+    f).  The division is in x's dtype.  Packed int4 on the card is one
+    launch of the quant_matmul kernel for all E (the reference unrolls E
+    kernel calls); a CPU tensor takes the plain version per expert."""
+    if qt.act_scale is not None:
+        x = x / qt.act_scale[:, None, :].to(x.dtype)
+    if not qt.packed or qt.spec.bits > 4:
+        return torch.stack([x[e] @ dequantize_groupwise(qt[e], dtype=x.dtype)
+                            for e in range(x.shape[0])])
+    return _quant_matmul_experts_kernel(x, qt.codes, qt.scale, qt.zero)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

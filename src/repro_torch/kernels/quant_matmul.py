@@ -12,23 +12,34 @@ blocks, :func:`chunk_rows` fixes the fold order from k and g alone, and
 :func:`padded` brings shapes the kernel's 16-byte copies cannot describe
 to ones they can.  ``zero`` is taken to hold integers (the quantizer
 rounds it): the kernel subtracts it from the codes in bf16, exactly.
+
+:func:`quant_matmul_experts` is the MoE form: E independent products
+``x[e] @ dequant(codes[e])`` stacked on a leading axis.  bf16 runs them as
+one launch of the same kernel (:data:`KERNEL_EXPERTS`, its own counter);
+f32 loops the f32 launch over the experts; a CPU tensor takes the plain
+version expert by expert.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ._build import INT, PTR, Kernel
 from .ref import dequant_ref, quant_matmul_ref
 
-__all__ = ["KERNEL", "quant_matmul", "quant_matmul_ref",
-           "dequant_ref", "plan", "chunk_rows", "padded"]
+__all__ = ["KERNEL", "KERNEL_EXPERTS", "quant_matmul",
+           "quant_matmul_experts", "quant_matmul_ref", "dequant_ref", "plan",
+           "chunk_rows", "padded"]
 
 KERNEL = Kernel("quant_matmul.cu", "quant_matmul_launch",
                 [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
                  INT, INT, INT, INT, PTR])
+# every expert of a stack in one launch (bf16)
+KERNEL_EXPERTS = Kernel("quant_matmul.cu", "quant_matmul_experts_launch",
+                        [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                         INT, INT, INT, INT, INT, INT, PTR])
 
 # The kernel's geometry; the first launch checks it against the library's.
 BLOCK_N = (128, 128, 128, 256)  # output columns per block, config 0..3
@@ -64,16 +75,17 @@ def chunk_rows(k: int, g: int) -> int:
     return 16 * -(-steps // MAX_CHUNKS)
 
 
-def plan(m: int, k: int, n: int, g: int, sms: int) -> Plan:
-    """Tile and split for an (m, k) x (k, n) call with groups of g on a
-    card of ``sms`` multiprocessors.  The bits do not depend on either
-    choice: every tile folds the same chunks in the same order."""
+def plan(m: int, k: int, n: int, g: int, sms: int, experts: int = 1) -> Plan:
+    """Tile and split for ``experts`` (m, k) x (k, n) products (one launch)
+    with groups of g on a card of ``sms`` multiprocessors; ``tiles`` counts
+    every expert's.  The bits do not depend on either choice: every tile
+    folds the same chunks in the same order."""
     cfg = 0 if m <= 8 else 1 if m <= 16 else 2 if m <= 64 else 3
     chunk = chunk_rows(k, g)
     n_chunks = -(-k // chunk)
-    tiles = -(-m // TILE_M[cfg]) * -(-n // BLOCK_N[cfg])
+    tiles = experts * -(-m // TILE_M[cfg]) * -(-n // BLOCK_N[cfg])
     split = (n_chunks > 1 and tiles < 2 * sms
-             and n_chunks * m * n * 4 <= SPLIT_MAX_BYTES)
+             and experts * n_chunks * m * n * 4 <= SPLIT_MAX_BYTES)
     cpb = 0
     if split:
         cpb = max(1, round(n_chunks * tiles / (SPLIT_BLOCKS_PER_SM * sms)))
@@ -87,21 +99,22 @@ def padded(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     kernel's 16-byte copies need), and fresh, aligned copies where a tensor
     does not start on 16 bytes.  Padded columns carry scale = zero = 0 and
     padded k rows zero codes against zero x, so the padded product, cut
-    back to (m, n), equals the original."""
-    m, k = x.shape
-    n = codes.shape[1]
+    back to (m, n), equals the original.  Leading (expert) axes are kept:
+    each expert is padded alike."""
+    k = x.shape[-1]
+    n = codes.shape[-1]
     kp, n_pad = -(-k // 8) * 8, -(-n // 16) * 16
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, codes, scale, zero))
     if kp == k and n_pad == n and aligned:
         return x, codes, scale, zero
-    xp = x.new_zeros((m, kp))
-    xp[:, :k] = x
-    cp = codes.new_zeros((kp // 2, n_pad))
-    cp[:k // 2, :n] = codes
-    sp = scale.new_zeros((scale.shape[0], n_pad))
-    zp = zero.new_zeros((zero.shape[0], n_pad))
-    sp[:, :n] = scale
-    zp[:, :n] = zero
+    xp = x.new_zeros(x.shape[:-1] + (kp,))
+    xp[..., :k] = x
+    cp = codes.new_zeros(codes.shape[:-2] + (kp // 2, n_pad))
+    cp[..., :k // 2, :n] = codes
+    sp = scale.new_zeros(scale.shape[:-1] + (n_pad,))
+    zp = zero.new_zeros(zero.shape[:-1] + (n_pad,))
+    sp[..., :n] = scale
+    zp[..., :n] = zero
     return xp, cp, sp, zp
 
 
@@ -186,25 +199,83 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def scratch_sizes(p: Plan, m: int, n: int, experts: int = 1):
+    """(f32 chunk-scratch elements, tile counters) a split launch of plan
+    ``p`` needs for ``experts`` (m, n) outputs; (0, 0) when k is not
+    split."""
+    if not p.cpb:
+        return 0, 0
+    return experts * p.n_chunks * m * n, p.tiles
+
+
+def _launch_tc(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+               zero: torch.Tensor, experts: Optional[int]) -> torch.Tensor:
+    """One launch of the tensor-core kernel on contiguous CUDA operands
+    (x bf16): a single product (``experts`` None, x (m, k)) or a stack of
+    ``experts`` (x (E, m, k))."""
+    n = codes.shape[-1]
+    m = x.shape[-2]
+    e = 1 if experts is None else experts
+    if m == 0 or e == 0:
+        return x.new_empty(x.shape[:-1] + (n,))
+    g = x.shape[-1] // scale.shape[-2]
+    xp, cp, sp, zp = padded(x, codes, scale, zero)
+    kp, n_pad = xp.shape[-1], cp.shape[-1]
+    p = plan(m, kp, n_pad, g, _multiprocessors(x.device), experts=e)
+    out = torch.empty(x.shape[:-1] + (n_pad,), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partial = counters = None
+    n_scratch, n_counters = scratch_sizes(p, m, n_pad, e)
+    if p.cpb:
+        key = (x.device, stream)
+        partial = _cached(_scratch, key, n_scratch, torch.float32,
+                          x.device).data_ptr()
+        counters = _cached(_counters, key, n_counters, torch.int32,
+                           x.device).data_ptr()
+    ptrs = (xp.data_ptr(), cp.data_ptr(), sp.data_ptr(), zp.data_ptr(),
+            out.data_ptr(), partial, counters)
+    shape = (m, kp, n_pad, g, sp.shape[-2], p.chunk, p.cfg, p.cpb)
+    if experts is None:
+        KERNEL.launch(*ptrs, *shape, 1, stream)
+    else:
+        KERNEL_EXPERTS.launch(*ptrs, e, *shape, stream)
+    return out if n_pad == n else out[..., :n].contiguous()
+
+
 def launch_bf16(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                 zero: torch.Tensor) -> torch.Tensor:
     """The tensor-core kernel on contiguous CUDA operands (x bf16)."""
-    m, k, n, g = _check(x, codes, scale, zero)
-    if m == 0:
-        return x.new_empty((0, n))
-    xp, cp, sp, zp = padded(x, codes, scale, zero)
-    kp, n_pad = xp.shape[1], cp.shape[1]
-    p = plan(m, kp, n_pad, g, _multiprocessors(x.device))
-    out = torch.empty((m, n_pad), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    partial = counters = None
-    if p.cpb:
-        key = (x.device, stream)
-        partial = _cached(_scratch, key, p.n_chunks * m * n_pad,
-                          torch.float32, x.device).data_ptr()
-        counters = _cached(_counters, key, p.tiles, torch.int32,
-                           x.device).data_ptr()
-    KERNEL.launch(xp.data_ptr(), cp.data_ptr(), sp.data_ptr(), zp.data_ptr(),
-                  out.data_ptr(), partial, counters, m, kp, n_pad, g,
-                  sp.shape[0], p.chunk, p.cfg, p.cpb, 1, stream)
-    return out if n_pad == n else out[:, :n].contiguous()
+    _check(x, codes, scale, zero)
+    return _launch_tc(x, codes, scale, zero, None)
+
+
+def quant_matmul_experts(x: torch.Tensor, codes: torch.Tensor,
+                         scale: torch.Tensor,
+                         zero: torch.Tensor) -> torch.Tensor:
+    """x: (E, m, k) bf16/f32 (already divided by any act_scale); codes:
+    (E, k//2, n) packed uint8; scale/zero: (E, k//g, n) f32.  Returns (E,
+    m, n) in x's dtype, expert e's rows the bits of
+    ``quant_matmul(x[e], codes[e], scale[e], zero[e])``.  bf16 on the card:
+    one launch of the tensor-core kernel for all E; f32: the f32 launch per
+    expert; CPU: the plain version per expert."""
+    if x.dim() != 3 or codes.dim() != 3 or scale.dim() != 3 \
+            or zero.dim() != 3 or not (x.shape[0] == codes.shape[0]
+                                       == scale.shape[0] == zero.shape[0]):
+        raise ValueError(f"x must be (E, m, k) and codes (E, k//2, n) with "
+                         f"scale / zero (E, k//g, n); got {tuple(x.shape)}, "
+                         f"{tuple(codes.shape)}, {tuple(scale.shape)}, "
+                         f"{tuple(zero.shape)}")
+    n_exp = x.shape[0]
+    if n_exp == 0:
+        return x.new_empty(x.shape[:-1] + (codes.shape[-1],))
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        return torch.stack([quant_matmul(x[e], codes[e], scale[e], zero[e])
+                            for e in range(n_exp)])
+    _check(x[0], codes[0], scale[0], zero[0])
+    for t in (codes, scale, zero):
+        if t.device != x.device:
+            raise ValueError("x, codes, scale and zero must share a device")
+    if scale.dtype != torch.float32 or zero.dtype != torch.float32:
+        raise ValueError("scale and zero must be float32")
+    return _launch_tc(x.contiguous(), codes.contiguous(), scale.contiguous(),
+                      zero.contiguous(), n_exp)

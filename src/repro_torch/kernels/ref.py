@@ -39,6 +39,21 @@ def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
     return (x.float() @ w).to(x.dtype)
 
 
+def quant_matmul_experts_ref(x: torch.Tensor, qt) -> torch.Tensor:
+    """Per-expert :func:`quant_matmul_ref`: x (E, C, k) against the packed
+    QuantizedTensor ``qt`` with codes (E, k//2, n); ``x[e]`` is first
+    divided by ``act_scale[e]`` in x's dtype.  Returns (E, C, n) in x's
+    dtype."""
+    outs = []
+    for e in range(qt.codes.shape[0]):
+        xe = x[e]
+        if qt.act_scale is not None:
+            xe = xe / qt.act_scale[e].to(xe.dtype)
+        outs.append(quant_matmul_ref(xe, qt.codes[e], qt.scale[e],
+                                     qt.zero[e]))
+    return torch.stack(outs)
+
+
 def rms_norm_ref(x: torch.Tensor, w: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32, cast

@@ -202,18 +202,20 @@ class DenseLM:
         if positions is None:
             positions = torch.arange(t, device=tokens.device).expand(b, t)
         x = embed_tokens(params["embed"], tokens).to(self.dtype)
-        per_layer = []
+        per_layer, layer_aux = [], []
         blocks = params["blocks"]
         remat = self.cfg.remat and torch.is_grad_enabled()
         for l in range(self.cfg.n_layers):
             if remat:
-                x, _, stats = checkpoint(self._block, _layer(blocks, l), x,
-                                         positions, collect_stats,
-                                         use_reentrant=False)
+                x, stats, aux = checkpoint(self._forward_block,
+                                           _layer(blocks, l), x, positions,
+                                           collect_stats,
+                                           use_reentrant=False)
             else:
-                x, _, stats = self._block(_layer(blocks, l), x, positions,
-                                          collect_stats)
+                x, stats, aux = self._forward_block(_layer(blocks, l), x,
+                                                    positions, collect_stats)
             per_layer.append(stats)
+            layer_aux.append(aux)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
         stacked = {}
@@ -222,9 +224,15 @@ class DenseLM:
                                                 for s in per_layer])
                               for key in per_layer[0][site]}
                        for site in per_layer[0]}
-        aux = {"stats": stacked,
-               "moe_aux": torch.zeros((), device=logits.device)}
-        return logits, aux
+        moe_aux = (torch.zeros((), device=logits.device)
+                   if layer_aux[0] is None else torch.stack(layer_aux).mean())
+        return logits, {"stats": stacked, "moe_aux": moe_aux}
+
+    def _forward_block(self, p, x, positions, collect):
+        """One layer of :meth:`forward`: (x, stats, aux), aux the layer's
+        load-balance loss (None for a dense block)."""
+        x, _, stats = self._block(p, x, positions, collect)
+        return x, stats, None
 
     @torch.no_grad()
     def prefill(self, params, tokens, cache, prompt_len=None):

@@ -1,12 +1,14 @@
-"""Model registry: build an architecture from its config (dense family so
-far; the other families arrive with their slices)."""
+"""Model registry: build an architecture from its config (the dense and
+MoE families so far; the others arrive with their slices)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from .dense import DenseLM
+from .moe import MoELM
 
 FAMILIES = {
     "dense": DenseLM,
+    "moe": MoELM,
 }
 
 

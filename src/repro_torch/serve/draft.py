@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.core import QuantSpec, quantize_model
+from repro_torch.core.apply import _get_path, _set_path
 from repro_torch.core.quantizer import QuantizedTensor, dequantize_groupwise
 from repro_torch.models.registry import build_model
 
@@ -53,19 +54,21 @@ class ModelDraft:
 
 
 def _materialize(qt: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
-    """Dense original-domain reconstruction of one layer-stacked
-    QuantizedTensor leaf, ``deq(codes) / act_scale[:, None]`` per layer:
-    the exact weight the serving dequant-matmul realizes (``(x / s) @
-    deq(codes) == x @ (deq(codes) / s[:, None])``), in ``dtype``."""
-    out = torch.empty((qt.codes.shape[0], qt.n_in, qt.scale.shape[-1]),
-                      dtype=dtype, device=qt.codes.device)
+    """Dense original-domain reconstruction of one stacked QuantizedTensor
+    leaf (leading axes: layers, and experts for MoE), ``deq(codes) /
+    act_scale[..., None]``: the exact weight the serving dequant-matmul
+    realizes (``(x / s) @ deq(codes) == x @ (deq(codes) / s[:, None])``),
+    in ``dtype``, built one layer at a time."""
+    lead = qt.codes.shape[:-2]
+    out = torch.empty(lead + (qt.n_in, qt.scale.shape[-1]), dtype=dtype,
+                      device=qt.codes.device)
     for l in range(out.shape[0]):
         sub = QuantizedTensor(codes=qt.codes[l], scale=qt.scale[l],
                               zero=qt.zero[l], spec=qt.spec, n_in=qt.n_in,
                               packed=qt.packed, act_scale=None)
         w = dequantize_groupwise(sub)
         if qt.act_scale is not None:
-            w = w / qt.act_scale[l][:, None].float()
+            w = w / qt.act_scale[l][..., None].float()
         out[l] = w
     return out
 
@@ -89,13 +92,24 @@ def self_int8_draft(model, params, stats=None, *, bits: int = 8,
     quantized (embedding, norms, head) are shared with ``params``.
     """
     dtype = model.dtype
-    dense = _map_tree(params, lambda x: _materialize(x, dtype)
-                      if isinstance(x, QuantizedTensor) else x)
+    spec = QuantSpec(bits=bits, group_size=group_size)
     method = "faq" if stats is not None else "rtn"
-    qp, _ = quantize_model(dense, model.quant_site_map(), stats,
-                           method=method,
-                           spec=QuantSpec(bits=bits, group_size=group_size),
-                           mode="fake")
+    # site by site: one leaf is materialized at a time, so the float copy
+    # of the packed tree never exists whole (30 GB at qwen2-moe's width)
+    qp = params
+    for path, site in model.quant_site_map().items():
+        leaf = _get_path(params, path)
+        if isinstance(leaf, QuantizedTensor):
+            leaf = _materialize(leaf, dtype)
+        one = leaf
+        for key in reversed(path):
+            one = {key: one}
+        one, _ = quantize_model(one, {path: site}, stats, method=method,
+                                spec=spec, mode="fake")
+        qp = _set_path(qp, path, _get_path(one, path))
+        del leaf, one
+    qp = _map_tree(qp, lambda x: _materialize(x, dtype)
+                   if isinstance(x, QuantizedTensor) else x)
     return SelfDraft(params=qp, bits=bits)
 
 

@@ -1033,3 +1033,136 @@ def test_tiny_train_step_on_the_card(dev, dtype, monkeypatch):
         rel = float((g.float() - plain[key].float()).norm()
                     / plain[key].float().norm())
         assert rel <= tol, (key, rel)
+
+
+# -- MoE: quant_matmul_experts (one grouped launch) ---------------------------
+
+@pytest.mark.parametrize("act", [False, True], ids=["plain", "act_scale"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048), (128, 96)])
+@pytest.mark.parametrize("c", [1, 8, 43, 683])
+@pytest.mark.parametrize("e", [1, 16, 64])
+def test_quant_matmul_experts_matches_plain_and_single_launches(
+        dev, e, c, k, n, dtype, act):
+    """quant_matmul_experts against its plain version (the per-expert
+    plain product); bf16: one launch of the grouped kernel whose expert
+    rows equal single-expert launches on the same operands bit for bit,
+    and the same bits on a second call; f32: the f32 launch per expert."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import quant_matmul_experts_ref
+
+    gen = torch.Generator(device=dev).manual_seed(e * 1000 + c + k + n)
+    act_scale = (torch.rand((e, k), generator=gen, device=dev) + 0.5
+                 if act else None)
+    qt = quantize_groupwise(torch.randn((e, k, n), generator=gen, device=dev),
+                            QuantSpec(4, 64), act_scale=act_scale, pack=True)
+    x = (torch.randn((e, c, k), generator=gen, device=dev) / 8).to(dtype)
+    before = (qm.KERNEL_EXPERTS.launches, qm.KERNEL.launches)
+    got = ops.quant_matmul_experts(x, qt)
+    want = quant_matmul_experts_ref(x, qt)
+    assert got.shape == (e, c, n) and got.dtype == dtype
+    if dtype == torch.float32:
+        assert qm.KERNEL.launches == before[1] + e
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    assert qm.KERNEL_EXPERTS.launches == before[0] + 1
+    assert qm.KERNEL.launches == before[1]
+    _bf16_close(got, want, rel_tol=EXACT_REL_TOL)
+    assert torch.equal(ops.quant_matmul_experts(x, qt), got)
+    xs = x if act_scale is None else x / act_scale[:, None, :].to(dtype)
+    for i in range(e):
+        one = qm.quant_matmul(xs[i].contiguous(), qt.codes[i], qt.scale[i],
+                              qt.zero[i])
+        assert torch.equal(one, got[i]), i
+
+
+def test_moe_tiny_forward_on_the_card(dev):
+    """The tiny qwen2-moe in f32 on the card (kernels) against the same
+    packed weights on the CPU (plain versions): logits and moe_aux within
+    1e-4 (f32 sums in another order)."""
+    from repro_torch.bridge import tree_to
+    from repro_torch.core import run_calibration
+
+    cfg = ARCHS["qwen2-moe-a2.7b"].tiny()
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    params = model.init(0, device=cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48),
+                           generator=torch.Generator().manual_seed(1))
+    stats = run_calibration(model.forward, params, [{"tokens": tokens}])
+    qp, _ = quantize_model(params, model.quant_site_map(), stats,
+                           method="faq", spec=QuantSpec(4, 64), mode="packed")
+    want, want_aux = model.forward(qp, {"tokens": tokens})
+    got, got_aux = model.forward(tree_to(qp, dev), {"tokens": tokens.to(dev)})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert abs(float(got_aux["moe_aux"]) - float(want_aux["moe_aux"])) <= 1e-5
+
+
+@pytest.mark.parametrize("t", [1, 3, 512])
+def test_moe_ffn_bf16_kernels_against_plain(dev, t):
+    """One bf16 MoE FFN at qwen2-moe's full width (d 2048, 64 padded
+    experts, top-4, d_ff 1408), int4 experts, on the card: the grouped
+    launch (one per projection) against the plain per-expert product on
+    the same input, so the routing is the same; output within a relative
+    norm of 1e-2 (the expert outputs round to bf16 after another f32
+    summation order), and the same bits on a second call."""
+    from repro_torch.kernels.ref import quant_matmul_experts_ref
+    from repro_torch.models import moe
+
+    cfg = ARCHS["qwen2-moe-a2.7b"]
+    gen = torch.Generator(device=dev).manual_seed(t)
+    e_pad, d, f = 64, cfg.d_model, cfg.d_ff
+    router = (torch.randn((d, e_pad), generator=gen, device=dev)
+              / d ** 0.5).bfloat16()
+    ws = [quantize_groupwise(torch.randn(shape, generator=gen, device=dev)
+                             / shape[1] ** 0.5, QuantSpec(4, 64), pack=True)
+          for shape in ((e_pad, d, f), (e_pad, d, f), (e_pad, f, d))]
+    x = torch.randn((2, t, d), generator=gen, device=dev).bfloat16()
+    before = qm.KERNEL_EXPERTS.launches
+    got, aux, _ = moe.moe_ffn_local(x, router, *ws, cfg)
+    assert qm.KERNEL_EXPERTS.launches == before + 3
+    again, _, _ = moe.moe_ffn_local(x, router, *ws, cfg)
+    assert torch.equal(got, again)
+    saved = moe.quant_matmul_experts
+    moe.quant_matmul_experts = quant_matmul_experts_ref
+    try:
+        want, want_aux, _ = moe.moe_ffn_local(x, router, *ws, cfg)
+    finally:
+        moe.quant_matmul_experts = saved
+    assert torch.equal(aux, want_aux)
+    _bf16_close(got, want)
+
+
+def test_moe_spec_equals_plain_at_one_slot_on_the_card(dev):
+    """The tiny qwen2-moe in bf16, int4 packed, on the card: the self-int8
+    speculative serve gives the plain serve's tokens bit for bit at one
+    slot (the verify span routes each position alone, and every kernel on
+    the path gives a row the bits of the T = 1 step)."""
+    from repro_torch.core import run_calibration
+    from repro_torch.serve.draft import self_int8_draft
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import SpecConfig
+
+    cfg = ARCHS["qwen2-moe-a2.7b"].tiny().scaled(dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    stats = run_calibration(model.forward, params, [{"tokens": tokens}])
+    qp, _ = quantize_model(params, model.quant_site_map(), stats,
+                           method="faq", spec=QuantSpec(4, 64), mode="packed")
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+               for n in (5, 17, 30)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+
+    plain = ServeEngine(model, qp, n_slots=1, max_len=64).serve(reqs())
+    eng = ServeEngine(model, qp, n_slots=1, max_len=64, spec=SpecConfig(
+        k=3, draft=self_int8_draft(model, qp, stats)))
+    spec = eng.serve(reqs())
+    assert eng.metrics()["spec_cycles"] > 0
+    for i in plain:
+        assert torch.equal(torch.as_tensor(spec[i]),
+                           torch.as_tensor(plain[i])), i

@@ -330,3 +330,69 @@ def test_lm_head_rows_in_fixed_blocks():
         assert got.shape == (2, rows, 300)
         torch.testing.assert_close(got[..., :290], want[..., :290], **TOL)
         assert bool((got[..., 290:] < -1e29).all())
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("e,c,k,n,cfg,cpb,tiles", [
+    # decode: one row per expert; 64 experts give enough tiles to not split
+    (64, 1, 2048, 1408, 0, 0, 64 * 11),
+    (64, 1, 1408, 2048, 0, 0, 64 * 16),
+    # calibration capacity (8192 tokens, top-4 of 60): 64 x 256 tiles
+    (64, 683, 2048, 1408, 3, 0, 64 * 11 * 6),
+    (64, 171, 1408, 2048, 3, 0, 64 * 3 * 8),
+    # one expert behaves as the single-product launch: split at decode
+    (1, 1, 2048, 1408, 0, 1, 11),
+    (16, 8, 128, 96, 0, 1, 16)])
+def test_quant_matmul_experts_plan_and_scratch(e, c, k, n, cfg, cpb, tiles):
+    """The grouped launch's choices: the tile by the per-expert rows C,
+    tiles over every expert, a split only when all experts' tiles leave
+    the card short, and scratch / counters sized for every expert."""
+    p = qm.plan(c, k, n, 64, H100_SMS, experts=e)
+    assert (p.cfg, p.tiles) == (cfg, tiles)
+    assert (p.cpb > 0) == (cpb > 0)
+    assert p.chunk == qm.chunk_rows(k, 64)          # the fold: k and g only
+    assert p.chunk == qm.plan(c, k, n, 64, H100_SMS).chunk
+    scratch, counters = qm.scratch_sizes(p, c, n, e)
+    if p.cpb:
+        assert scratch == e * p.n_chunks * c * n and counters == p.tiles
+    else:
+        assert (scratch, counters) == (0, 0)
+
+
+def test_quant_matmul_experts_split_scratch_counts_every_expert():
+    """Few experts at decode split k like the single-product launch; the
+    scratch holds each expert's chunk sums and the counters each tile."""
+    p = qm.plan(1, 4096, 1024, 64, H100_SMS, experts=4)
+    assert p.cpb > 0 and p.tiles == 4 * 8
+    assert qm.scratch_sizes(p, 1, 1024, 4) == (4 * p.n_chunks * 1024, 32)
+    # a stack too large for the scratch does not split
+    assert qm.plan(64, 4096, 14336, 64, H100_SMS, experts=2).cpb == 0
+
+
+def test_quant_matmul_experts_cpu_is_the_plain_version(monkeypatch):
+    """On CPU tensors the grouped wrapper takes the plain product per
+    expert (nothing built, nothing counted), with padded shapes handled
+    per expert by the wrapper's own padding rule."""
+    def refuse(*a, **k):
+        raise AssertionError("CPU path reached the CUDA build")
+
+    monkeypatch.setattr(_build, "_load", refuse)
+    monkeypatch.setattr(_build, "_build_locked", refuse)
+    gen = torch.Generator().manual_seed(0)
+    qt = quantize_groupwise(torch.randn(3, 128, 40, generator=gen),
+                            QuantSpec(4, 64), pack=True)
+    x = torch.randn(3, 5, 128, generator=gen)
+    got = qm.quant_matmul_experts(x, qt.codes, qt.scale, qt.zero)
+    for e in range(3):
+        torch.testing.assert_close(
+            got[e], qm.quant_matmul_ref(x[e], qt.codes[e], qt.scale[e],
+                                        qt.zero[e]), atol=0, rtol=0)
+    xp, cp, sp, zp = qm.padded(x, qt.codes, qt.scale, qt.zero)
+    assert xp.shape == (3, 5, 128) and cp.shape == (3, 64, 48)
+    assert sp.shape == zp.shape == (3, 2, 48)
+    assert torch.equal(cp[:, :, :40], qt.codes) and not cp[:, :, 40:].any()
+    assert qm.KERNEL_EXPERTS.launches == qm.KERNEL.launches == 0
+    with pytest.raises(ValueError, match="E, m, k"):
+        qm.quant_matmul_experts(x[0], qt.codes, qt.scale, qt.zero)
