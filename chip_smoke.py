@@ -57,14 +57,14 @@ Phases (any failure exits non-zero; nothing is caught):
               device operations of a train step), and the trained
               params' checkpoint served through launch/serve.py's restore
               with the in-memory params' tokens;
-5. main path — llama3-8b at full width and depth (d_model 4096, 32 heads,
-              8 KV heads, d_ff 14336, vocab 128256, 32 layers), random
+5. main path — llama3-8b at full width (d_model 4096, 32 heads, 8 KV
+              heads, d_ff 14336, vocab 128256), 24 of its 32 layers, random
               bf16 weights from a seed: calibrate on 16 x 512 tokens (the
               flash-attention path), FAQ alpha search, int4 pack (g = 64),
               then a 4-slot engine serves 8 greedy requests of 12..700
               prompt tokens (bucketed and chunked prefill) for 32 tokens
               each; between FAQ and serving, full_search_faq (paper Eq.
-              8) over the 32 layers' 7 sites through quant_error, its
+              8) over the 24 layers' 7 sites through quant_error, its
               choices held against the plain search's.  After serving,
               the packed tree is saved by launch/quantize, restored, and
               must serve the same tokens bit for bit.  Request 0 is
@@ -175,7 +175,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
-LAYERS = 32                        # llama3-8b's full depth (no cut)
+# llama3-8b's main path: 24 of its 32 layers (cut so that the script,
+# with the VLM and hybrid families, stays well inside its time limit;
+# every layer has the same shapes)
+LAYERS = 24
 PROMPT_LENS = (12, 40, 100, 200, 300, 450, 600, 700)
 NEW_TOKENS = 32
 # bf16 logits of magnitude < 8 are spaced 2**-5 apart; a token within four
@@ -203,8 +206,19 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def phase(name: str):
-    print(f"== {name}", flush=True)
+_PHASE = []     # [name, start] of the phase that is running
+
+
+def phase(name=None):
+    """Close the running phase (print its wall seconds on a line of its
+    own) and, given a name, start the next one."""
+    if _PHASE:
+        print(f"  -- phase seconds: {time.perf_counter() - _PHASE[1]:.2f} "
+              f"({_PHASE[0]})", flush=True)
+        _PHASE.clear()
+    if name is not None:
+        print(f"== {name}", flush=True)
+        _PHASE.extend([name, time.perf_counter()])
 
 
 def nvidia_smi() -> str:
@@ -554,6 +568,7 @@ def kernel_phase(dev):
     rows.append(rms_norm_row(dev, gen, randn))
     rows.append(flash_attention_bwd_row(dev, gen, randn))
     rows.append(rms_norm_bwd_row(dev, gen, randn))
+    rows += family_route_rows(dev, gen, randn)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
@@ -731,6 +746,145 @@ def decode_variant_rows(dev, gen, randn):
             bound_by=b_by, library_ms=None,
             library_note="none: no single PyTorch call reads int8 codes with "
                          "folded scales or a paged store"))
+    return rows
+
+
+# the families' new routes through the dense kernels (qwen2-vl-2b: 12/2
+# heads of 128; hymba-1.5b: 25/5 heads of 64 over a ring of 1024 slots)
+VLM_CAL_BATCH, VLM_PATCHES, VLM_TOKENS = 16, 256, 256
+RING = 1024
+RING_LENS = (1024, 1024, 332, 44)   # two slots wrapped: valid = min(len, W)
+
+
+def _sdpa_decode(q, kc, vc, cl):
+    """One masked scaled_dot_product_attention over a (B, KH, S, hd) cache
+    at lengths ``cl``, GQA: the library call for a decode step."""
+    keep = torch.arange(kc.shape[2], device=kc.device)[None, :] < cl[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), kc, vc, attn_mask=keep[:, None, None, :],
+        enable_gqa=True).transpose(1, 2)
+
+
+def family_route_rows(dev, gen, randn):
+    """The routes the VLM and hybrid families add to the dense kernels,
+    each against its plain version, then timed beside SDPA with its bound:
+    flash_attention at G 6 / hd 128 (qwen2-vl's calibration, 16 x (256
+    patches + 256 tokens), and odd T), flash_decode at G 6 / hd 128 and at
+    G 5 / hd 64 over a wrapped ring cache; quant_matmul at hymba's x_proj
+    width (n 132, padded to 144), k 3200, for m 1 / 16 / 8192, rows bit
+    for bit across m.  Returns the three attention rows."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.core import QuantSpec, quantize_groupwise
+
+    phase("kernel routes of the VLM and hybrid families (G 6, G 5 ring, "
+          "n 132)")
+    qt = quantize_groupwise(randn(3200, 132, dtype=torch.float32),
+                            QuantSpec(bits=4, group_size=64), pack=True)
+    xq = randn(8192, 3200)
+    full = qm.quant_matmul(xq, qt.codes, qt.scale, qt.zero)
+    held("quant_matmul m=8192 k=3200 n=132 g=64 bf16", full,
+         qm.quant_matmul_ref(xq, qt.codes, qt.scale, qt.zero),
+         rel_tol=EXACT_REL_TOL)
+    for m in (1, 16):
+        x = xq[:m].contiguous()
+        held(f"quant_matmul m={m} k=3200 n=132 g=64 bf16",
+             qm.quant_matmul(x, qt.codes, qt.scale, qt.zero),
+             qm.quant_matmul_ref(x, qt.codes, qt.scale, qt.zero),
+             rel_tol=EXACT_REL_TOL)
+        same_bits(f"quant_matmul n=132 rows of m={m} == the same rows of "
+                  f"m=8192", qm.quant_matmul(x, qt.codes, qt.scale, qt.zero),
+                  full[:m])
+    del xq, full
+
+    for bkh, g, t, hd, dt in [(4, 6, 37, 128, torch.bfloat16),
+                              (4, 6, 371, 128, torch.bfloat16),
+                              (4, 6, 513, 128, torch.bfloat16),
+                              (4, 6, 150, 128, torch.float32)]:
+        q = randn(bkh, g, t, hd, dtype=dt)
+        k_, v_ = randn(bkh, t, hd, dtype=dt), randn(bkh, t, hd, dtype=dt)
+        held(f"flash_attention BKH={bkh} G={g} T={t} hd={hd} {str(dt)[6:]}",
+             fa.flash_attention(q, k_, v_), fa.flash_attention_ref(q, k_, v_),
+             rel_tol=BF16_REL_TOL if dt == torch.bfloat16 else None)
+    bkh, g, t, hd = VLM_CAL_BATCH * 2, 6, VLM_PATCHES + VLM_TOKENS, 128
+    sets = [(randn(bkh, g, t, hd), randn(bkh, t, hd), randn(bkh, t, hd))
+            for _ in range(2)]
+    err = held("flash_attention G 6 timed shape", fa.flash_attention(*sets[0]),
+               fa.flash_attention_ref(*sets[0]), rel_tol=BF16_REL_TOL)
+    ms = time_ms(lambda i: fa.flash_attention(*sets[i % 2]))
+    plain = time_ms(lambda i: fa.flash_attention_ref(*sets[i % 2]), reps=5)
+    nb = bkh // 2
+
+    def sdpa_causal(i):
+        q_, k_, v_ = sets[i % 2]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_.reshape(nb, 2 * g, t, hd), k_.reshape(nb, 2, t, hd),
+            v_.reshape(nb, 2, t, hd), is_causal=True, enable_gqa=True)
+
+    held("flash_attention G 6 library call (sdpa)",
+         sdpa_causal(0).reshape(bkh, g, t, hd),
+         fa.flash_attention_ref(*sets[0]))
+    lib = time_ms(sdpa_causal)
+    b_ms, b_by = bound((2 * bkh * g * t * hd + 2 * bkh * t * hd) * 2,
+                       4 * bkh * g * hd * t * (t + 1) / 2)
+    rows = [dict(name="flash_attention_g6", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:92",
+                 shape=f"q ({bkh},{g},{t},{hd}) bf16, k/v ({bkh},{t},{hd}), "
+                       f"causal (qwen2-vl calibration)",
+                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib)]
+    del sets
+
+    for b, h, kh, s, hd, lens, dt in [
+            (4, 12, 2, 1024, 128, [0, 1, 1024, 517], torch.bfloat16),
+            (4, 25, 5, RING, 64, list(RING_LENS), torch.bfloat16),
+            (4, 25, 5, RING, 64, [1024, 1, 0, 700], torch.bfloat16),
+            (3, 25, 5, 200, 64, [200, 13, 1], torch.float32),
+            (3, 12, 2, 200, 128, [200, 13, 1], torch.float32)]:
+        q = randn(b, 1, h, hd, dtype=dt)
+        kc, vc = randn(b, kh, s, hd, dtype=dt), randn(b, kh, s, hd, dtype=dt)
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        tag = f"B={b} H={h} KH={kh} S={s} hd={hd} lens={lens} {str(dt)[6:]}"
+        got = fd.flash_decode(q, kc, vc, cl)
+        held(f"flash_decode {tag}", got, fd.decode_attention_ref(q, kc, vc,
+                                                                 cl))
+        if dt == torch.bfloat16:
+            alone = torch.cat([fd.flash_decode(q[i:i + 1], kc[i:i + 1],
+                                               vc[i:i + 1], cl[i:i + 1])
+                               for i in range(b)])
+            same_bits(f"flash_decode slot alone == in the batch {tag}",
+                      alone, got)
+    for name, h, kh, hd, lens, what in [
+            ("flash_decode_g6", 12, 2, 128, [44, 140, 332, 732],
+             "qwen2-vl decode, prompts 12/100/300/700 + 32"),
+            ("flash_decode_ring_g5", 25, 5, 64, list(RING_LENS),
+             "hymba decode over its 1024-slot ring, two slots wrapped")]:
+        b, s = 4, 1024
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = randn(b, 1, h, hd)
+        caches = [(randn(b, kh, s, hd), randn(b, kh, s, hd))
+                  for _ in range(8)]
+        err = held(f"{name} timed shape", fd.flash_decode(q, *caches[0], cl),
+                   fd.decode_attention_ref(q, *caches[0], cl))
+        ms = time_ms(lambda i: fd.flash_decode(q, *caches[i % 8], cl))
+        plain = time_ms(lambda i: fd.decode_attention_ref(q, *caches[i % 8],
+                                                          cl))
+        held(f"{name} library call (sdpa)", _sdpa_decode(q, *caches[0], cl),
+             fd.decode_attention_ref(q, *caches[0], cl))
+        lib = time_ms(lambda i: _sdpa_decode(q, *caches[i % 8], cl))
+        live = sum(lens)
+        b_ms, b_by = bound(2 * b * h * hd * 2 + b * 4 + live * kh * hd * 2 * 2,
+                           4 * live * h * hd)
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/flash_decode.cu",
+                         replaces="src/repro/kernels/flash_decode.py:216",
+                         shape=f"q ({b},1,{h},{hd}) bf16, cache ({b},{kh},"
+                               f"{s},{hd}), lens {lens} ({what})",
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del caches
     return rows
 
 
@@ -2021,21 +2175,260 @@ def moe_paths(dev, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: the VLM and hybrid families at full width and depth
+# ---------------------------------------------------------------------------
+
+HYMBA_LONG, HYMBA_LONG_MAX = 2200, 2304   # the ring wraps; T > 2 x window
+
+
+def quantize_family(model, dev, batches, times, spec):
+    """init -> calibrate on ``batches`` -> FAQ (γ 0.85, window 3) -> int4
+    pack, with each step's seconds in ``times``; checks the statistics,
+    that every α is on the grid and no searched loss is above RTN's.
+    Returns (qparams, report)."""
+    from repro_torch.core import (DEFAULT_ALPHA_GRID, quantize_model,
+                                  report_summary, run_calibration)
+
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    times["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = run_calibration(model.forward, params, batches)
+    torch.cuda.synchronize()
+    times["calibrate"] = time.perf_counter() - t0
+    for site, st in stats.items():
+        for key, val in st.items():
+            check(bool(torch.isfinite(val).all()),
+                  f"{model.cfg.name} stat {site}/{key} not finite")
+    t0 = time.perf_counter()
+    qparams, report = quantize_model(params, model.quant_site_map(), stats,
+                                     method="faq", spec=spec, mode="packed")
+    torch.cuda.synchronize()
+    times["faq_pack"] = time.perf_counter() - t0
+    grid = torch.tensor(DEFAULT_ALPHA_GRID)
+    check(sorted(report) == sorted("/".join(p) for p in
+                                   model.quant_site_map()),
+          f"{model.cfg.name}: report sites {sorted(report)}")
+    for path, rep in report.items():
+        check(bool(torch.isin(rep["alpha"].cpu(), grid).all()),
+              f"{path}: alpha off grid")
+        check(bool((rep["loss"] <= rep["rtn_loss"] * (1 + 1e-5)).all()),
+              f"{path}: searched loss above the RTN loss")
+    for path, sm in report_summary(report).items():
+        print(f"  {path}: mean alpha {sm['mean_alpha']:.3f}, loss "
+              f"{sm['mean_loss']:.4e} vs RTN {sm['mean_rtn_loss']:.4e} "
+              f"({100 * sm['improvement_vs_rtn']:.1f}% better)", flush=True)
+    print(f"  float weights {tree_gb(params):.2f} GB, packed tree "
+          f"{tree_gb(qparams):.2f} GB; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return qparams, report
+
+
+def engine_equals_generate(name, eng, reqs, results, times):
+    """Every request's engine tokens equal batch-1 ``generate`` bit for
+    bit (exact-length admission, batch-invariant decode)."""
+    from repro_torch.serve.engine import Request
+    t0 = time.perf_counter()
+    for r in reqs:
+        alone = eng.generate(Request(rid=100 + r.rid, prompt=r.prompt,
+                                     max_new_tokens=r.max_new_tokens))
+        first = next((j for j in range(len(alone))
+                      if alone[j] != results[r.rid][j]), None)
+        check(first is None, f"{name} request {r.rid} ({len(r.prompt)} "
+                             f"tokens): engine != generate from token {first}")
+    torch.cuda.synchronize()
+    times["generate"] = time.perf_counter() - t0
+    print(f"  {name}: engine == generate bit for bit for all {len(reqs)} "
+          f"requests ({times['generate'] / len(reqs):.2f} s per generate)",
+          flush=True)
+
+
+def families_paths(dev, kernels):
+    """qwen2-vl-2b (28 layers, d 1536, 12/2 heads of 128, d_ff 8960,
+    vocab 151936, M-RoPE) and hymba-1.5b (32 layers, d 1600, 25/5 heads of
+    64, d_ff 5504, Mamba state 16, window 1024, vocab 32001) at full width
+    and depth, bf16, random weights from seed 0, ids capped at 4096:
+    calibrate -> FAQ -> int4 pack -> serve through the exact-length
+    admission at 4 slots, every request == batch-1 ``generate``; the VLM
+    also with patches (prefill + 16 decode steps against a teacher-forced
+    forward) and with ``spec=`` declined; hymba also a 2,200-token request
+    whose ring wraps (against a teacher-forced forward through the
+    block-local attention) and ``paged=True`` declined.  Returns {path:
+    launch counts} (paths prefixed "VLM" / "hymba")."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import QuantSpec
+    from repro_torch.data.synthetic import calibration_batches
+    from repro_torch.launch.serve import data_for
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.draft import self_int8_draft
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import SpecConfig
+
+    spec = QuantSpec(bits=4, group_size=64)
+    counts = {}
+
+    def serve8(name, model, qparams, data, fam_times, **kw):
+        reqs = [Request(rid=i, prompt=data.sequence(40_000_000 + i, n),
+                        max_new_tokens=NEW_TOKENS)
+                for i, n in enumerate(PROMPT_LENS)]
+        eng = ServeEngine(model, qparams, n_slots=4, max_len=1024,
+                          device=dev, **kw)
+        check(type(eng._admission.strategies[0]).__name__
+              == "SingleAdmission", f"{name}: not the exact-length admission")
+        (out, _, sec), counts[f"{name} serve, 4 slots"] = counted(
+            kernels, lambda: timed_serve(f"{name} serve, 4 slots", eng, reqs))
+        fam_times["serve"] = sec
+        _, counts[f"{name} generate"] = counted(
+            kernels, lambda: engine_equals_generate(name, eng, reqs, out,
+                                                    fam_times))
+        return eng, reqs, out
+
+    # -- qwen2-vl-2b ------------------------------------------------------
+    phase("families: qwen2-vl-2b calibrate (16 x (256 patches + 256 "
+          "tokens)) -> FAQ -> int4 pack")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS["qwen2-vl-2b"]
+    model = build_model(cfg)
+    data = data_for(cfg)
+    print(f"  config: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.n_layers} mrope="
+          f"{cfg.mrope_sections} dtype={cfg.dtype}; token ids capped at "
+          f"{data.cfg.vocab_size}", flush=True)
+    prng = np.random.default_rng(0)
+    batches = [dict(b, patches=(prng.standard_normal(
+        (VLM_CAL_BATCH, VLM_PATCHES, cfg.d_model)) * 0.1).astype(np.float32))
+        for b in calibration_batches(data, VLM_CAL_BATCH, VLM_TOKENS,
+                                     batch_size=VLM_CAL_BATCH)]
+    vt = {}
+    (qparams, _), counts["VLM calibrate + FAQ + pack"] = counted(
+        kernels, lambda: quantize_family(model, dev, batches, vt, spec))
+    del batches
+    gc.collect()
+
+    phase("families: qwen2-vl-2b prefill(patches) + 16 decode steps against "
+          "a teacher-forced forward")
+    prompt = data.sequence(70_000_000, 100)
+    patches = torch.as_tensor((prng.standard_normal(
+        (1, VLM_PATCHES, cfg.d_model)) * 0.1).astype(np.float32), device=dev)
+
+    def patch_decode():
+        cache = model.init_cache(1, VLM_PATCHES + 100 + 16, device=dev)
+        logits, cache = model.prefill(qparams, torch.as_tensor(
+            prompt, device=dev)[None], cache, patches=patches)
+        toks = [int(logits[0, 0, :cfg.vocab_size].argmax())]
+        for _ in range(15):
+            logits, cache = model.decode_step(qparams, cache, torch.tensor(
+                [[toks[-1]]], dtype=torch.int32, device=dev))
+            toks.append(int(logits[0, 0, :cfg.vocab_size].argmax()))
+        return np.asarray(toks, np.int32)
+
+    toks, counts["VLM prefill(patches) + decode"] = counted(kernels,
+                                                            patch_decode)
+    margin, _ = teacher_forced(model, qparams, prompt, toks, dev,
+                               patches=patches)
+    print(f"  16 tokens after 256 patches + 100 prompt tokens: worst margin "
+          f"{float(margin.max()):.4f} (tol {TIE_TOL})", flush=True)
+    check(float(margin.max()) <= TIE_TOL,
+          "VLM decode with patches off the teacher-forced argmax")
+
+    phase("families: qwen2-vl-2b serve, 4 slots, the dense run's 8 requests")
+    _, reqs, out = serve8("VLM", model, qparams, data, vt)
+    draft = self_int8_draft(model, qparams)
+    eng = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
+                      spec=SpecConfig(k=3, draft=draft))
+    check(eng._spec is None, "VLM: spec= was not declined")
+    (spec_out, _, _), counts["VLM serve, spec= declined"] = counted(
+        kernels, lambda: timed_serve("VLM serve, spec= declined", eng, reqs))
+    same = [np.array_equal(spec_out[r.rid], out[r.rid]) for r in reqs]
+    print(f"  spec=: declined ({eng.metrics()['spec']}), tokens equal the "
+          f"plain serve's: {sum(same)}/{len(reqs)}", flush=True)
+    check(all(same), "VLM: the spec= engine served other tokens")
+    print(f"  VLM seconds: " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in vt.items()), flush=True)
+    print(f"  VLM max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model, qparams, eng, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- hymba-1.5b -------------------------------------------------------
+    phase("families: hymba-1.5b calibrate (16 x 512 tokens) -> FAQ -> int4 "
+          "pack")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS["hymba-1.5b"]
+    model = build_model(cfg)
+    data = data_for(cfg)
+    print(f"  config: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} d_ff="
+          f"{cfg.d_ff} d_inner={cfg.ssm_expand * cfg.d_model} ssm_state="
+          f"{cfg.ssm_state} dt_rank={cfg.dt_rank} window="
+          f"{cfg.sliding_window} vocab={cfg.vocab_size} layers="
+          f"{cfg.n_layers} dtype={cfg.dtype}; token ids capped at "
+          f"{data.cfg.vocab_size}", flush=True)
+    ht = {}
+    (qparams, report), counts["hymba calibrate + FAQ + pack"] = counted(
+        kernels, lambda: quantize_family(
+            model, dev, calibration_batches(data, 16, 512, batch_size=16),
+            ht, spec))
+    check(all(p in report for p in ("blocks/mamba/x_proj",
+                                    "blocks/mamba/out_proj")),
+          "hymba: the Mamba sites were not quantized")
+    gc.collect()
+
+    phase("families: hymba-1.5b serve, 4 slots, the dense run's 8 requests")
+    eng, _, _ = serve8("hymba", model, qparams, data, ht)
+    paged = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
+                        paged=True)
+    print(f"  paged=True: engine.paged {paged.paged} (serves from the dense "
+          f"ring cache, as the reference's hymba)", flush=True)
+    check(not paged.paged and not model.supports_paged(),
+          "hymba paged=True did not fall back to the dense stepper")
+    del eng, paged
+
+    phase(f"families: hymba-1.5b, one {HYMBA_LONG}-token request (the ring "
+          f"wraps), {NEW_TOKENS} new tokens")
+    long_req = Request(rid=0, prompt=data.sequence(80_000_000, HYMBA_LONG),
+                       max_new_tokens=NEW_TOKENS)
+    eng = ServeEngine(model, qparams, n_slots=1, max_len=HYMBA_LONG_MAX,
+                      device=dev)
+    (long_out, _, ht["long"]), counts["hymba long request"] = counted(
+        kernels, lambda: timed_serve("hymba long request", eng, [long_req]))
+    check_teacher_forced("hymba long request (block-local forward)", model,
+                         qparams, [long_req], long_out, dev)
+    print(f"  hymba seconds: " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in ht.items()),
+          flush=True)
+    print(f"  hymba max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model, qparams, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # candidates whose kernel loss lies within this of the kernel's minimum are
 # scored by the plain version too (see full_search_path)
 SCREEN = 3e-5
 
 
 def full_search_path(kernels, model, params, stats):
-    """full_search_faq (paper Eq. 8) over the main path's 32 layers and 7
+    """full_search_faq (paper Eq. 8) over the main path's layers and 7
     sites on the calibration statistics, the diagonal loss: one
     quant_error_batch launch per ((γ, j), layer, site), counted.  Then the
     plain search's choice per (layer, site): the kernel's losses of every
     candidate are recomputed (outside the count); the plain version scores
-    every candidate of layers 0 and 31, and elsewhere those within SCREEN
-    of the kernel's minimum.  Every plain loss must be within 1e-5 of the
-    kernel's (the kernel's terms are the plain version's bits, only their
-    sum's order differs), so a candidate outside the screen lies above
+    every candidate of the first and last layer, and elsewhere those
+    within SCREEN of the kernel's minimum.  Every plain loss must be
+    within 1e-5 of the kernel's (the kernel's terms are the plain
+    version's bits, only their sum's order differs), so a candidate
+    outside the screen lies above
     the plain minimum and the plain argmin over the screened candidates,
     first (γ, j) then first α on ties, is the full plain search's.  The
     kernel's choice must be that one or lose at most 1e-5 relative to
@@ -2046,7 +2439,8 @@ def full_search_path(kernels, model, params, stats):
                                           FULL_SEARCH_WINDOWS,
                                           full_search_faq)
 
-    phase("main path: full_search_faq (paper Eq. 8), 32 layers x 7 sites")
+    phase(f"main path: full_search_faq (paper Eq. 8), {LAYERS} layers x 7 "
+          f"sites")
     spec = QuantSpec(bits=4, group_size=64)
     sites = model.quant_site_map()
 
@@ -2184,13 +2578,16 @@ def packed_checkpoint_path(dev, kernels, model, qparams, reqs, results):
     return counts
 
 
-def teacher_forced(model, qparams, prompt, toks, dev):
+def teacher_forced(model, qparams, prompt, toks, dev, patches=None):
     """Per generated token: how far its logit lies below the top logit of
     a teacher-forced exact-length forward over prompt + tokens (0 where it
-    is the argmax), and that position's top-2 gap."""
+    is the argmax), and that position's top-2 gap.  ``patches`` (1, P, d)
+    are prepended for a VLM."""
     seq = np.concatenate([prompt, toks[:-1]]).astype(np.int32)
-    logits = model.forward(qparams, {"tokens": torch.as_tensor(
-        seq, device=dev)[None]})[0][0, len(prompt) - 1:].float()
+    batch = {"tokens": torch.as_tensor(seq, device=dev)[None]}
+    if patches is not None:
+        batch["patches"] = patches
+    logits = model.forward(qparams, batch)[0][0, len(prompt) - 1:].float()
     top2 = logits.topk(2, dim=-1).values
     chosen = logits.gather(1, torch.as_tensor(
         toks, device=dev, dtype=torch.long)[:, None])[:, 0]
@@ -2928,10 +3325,15 @@ def main():
                "flash_verify_paged_q8": fd.VERIFY_PAGED_Q8,
                "rms_norm": rn.KERNEL, "flash_attention_bwd": fa.KERNEL_BWD,
                "rms_norm_bwd": rn.KERNEL_BWD}
+    # the families' routes: (row, kernel, the family whose paths launch it)
+    routes = [("flash_attention_g6", fa.KERNEL, "VLM"),
+              ("flash_decode_g6", fd.KERNEL, "VLM"),
+              ("flash_decode_ring_g5", fd.KERNEL, "hymba")]
     kernels = tuple(by_name.values())
     rows = {r["name"]: r for r in kernel_phase(dev)}
-    check(sorted(rows) == sorted(by_name), f"kernel rows {sorted(rows)}")
-    rows = [rows[name] for name in by_name]
+    names = list(by_name) + [name for name, _, _ in routes]
+    check(sorted(rows) == sorted(names), f"kernel rows {sorted(rows)}")
+    rows = [rows[name] for name in names]
     phase("reference: tiny model, card against CPU")
     reference_phase(dev)
     phase("main path: train llama3-8b width on the card")
@@ -2940,6 +3342,9 @@ def main():
     launches, row_keys = main_path_phase(dev, kernels)
     phase("main path: the MoE family (qwen2-moe-a2.7b)")
     train_counts.update(moe_paths(dev, kernels))
+    phase("main path: the VLM and hybrid families (qwen2-vl-2b, hymba-1.5b)")
+    family_counts = families_paths(dev, kernels)
+    train_counts.update(family_counts)
     for path, counts in train_counts.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
         for sym, n in counts.items():
@@ -2947,8 +3352,14 @@ def main():
     for row, kern in zip(rows, kernels):
         row.update(row_keys.get(row["name"], {}))
         row["launches"] = launches[kern.symbol]
+    for row, (_, kern, family) in zip(rows[len(kernels):], routes):
+        row["launches"] = sum(counts[kern.symbol] for path, counts
+                              in family_counts.items()
+                              if path.startswith(family))
+    for row in rows:
         check(row["launches"] > 0,
               f"{row['name']} was not launched on the main path")
+    phase()
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

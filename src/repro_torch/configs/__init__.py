@@ -1,7 +1,7 @@
 """Architecture configs (one module per arch) + registry.
 
-The port's own copies of ``repro.configs`` for the dense and MoE
-families; the other families arrive with their model slices.
+The port's own copies of ``repro.configs`` for the dense, MoE, VLM and
+hybrid families; the other families arrive with their model slices.
 """
 from .base import ModelConfig
 
@@ -11,10 +11,13 @@ from .llama3_8b import CONFIG as LLAMA3_8B
 from .deepseek_coder_33b import CONFIG as DEEPSEEK_CODER_33B
 from .llama4_maverick_400b_a17b import CONFIG as LLAMA4_MAVERICK
 from .qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
+from .qwen2_vl_2b import CONFIG as QWEN2_VL
+from .hymba_1_5b import CONFIG as HYMBA
 
 ARCHS = {
     c.name: c for c in (STABLELM_12B, LLAMA3_405B, LLAMA3_8B,
-                        DEEPSEEK_CODER_33B, LLAMA4_MAVERICK, QWEN2_MOE)
+                        DEEPSEEK_CODER_33B, LLAMA4_MAVERICK, QWEN2_MOE,
+                        QWEN2_VL, HYMBA)
 }
 
 __all__ = ["ARCHS", "ModelConfig"]

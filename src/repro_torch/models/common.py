@@ -35,7 +35,7 @@ def qlinear(x: torch.Tensor, w) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE (standard; M-RoPE arrives with the VLM family)
+# RoPE (standard + M-RoPE for qwen2-vl)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -43,12 +43,30 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """Rotary embedding.  ``x``: (B, T, H, hd); ``positions``: (B, T)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
+               mrope_sections: Optional[tuple] = None) -> torch.Tensor:
+    """Rotary embedding.
+
+    ``x``: (B, T, H, hd).  ``positions``: (B, T) for standard RoPE or
+    (3, B, T) for M-RoPE: temporal / height / width position ids per
+    token, section i of the hd/2 frequencies rotated by row i (text-only
+    inputs pass the same ids three times, which reduces exactly to
+    standard RoPE).
+    """
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)          # (hd/2,)
-    ang = positions.float()[..., None] * freqs              # (B, T, hd/2)
+    if mrope_sections is None:
+        ang = positions.float()[..., None] * freqs          # (B, T, hd/2)
+    else:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs (3, B, T) position ids, got "
+                             f"{tuple(positions.shape)}")
+        secs, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            secs.append(positions[i].float()[..., None]
+                        * freqs[start:start + sec])
+            start += sec
+        ang = torch.cat(secs, dim=-1)                       # (B, T, hd/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., 0::2], x[..., 1::2]
@@ -84,7 +102,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     >= kv_lens[b] — the length-aware causal mask for bucket-padded batched
     prefill.
 
-    On a CUDA tensor, self-attention from position 0 (Tq == Tk) with hd <=
+    Causal windowed self-attention from position 0 longer than twice the
+    window runs :func:`local_window_attention`, as in the reference.  On a
+    CUDA tensor, self-attention from position 0 (Tq == Tk) with hd <=
     128 and no window runs the flash-attention kernel in the grouped GQA
     layout, at any T and with or without ``kv_lens``: every prefill.  The
     kernel's rows do not depend on T, the bucket or the batch, so a
@@ -98,9 +118,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tk, kh = k.shape[1], k.shape[2]
     if (kv_lens is None and window is not None and causal and tq == tk
             and q_offset == 0 and tk > 2 * window):
-        raise NotImplementedError(
-            "block-local sliding-window attention arrives with the hybrid "
-            "family")
+        # sliding-window self-attention: the block-local path is O(T * 2w)
+        # instead of O(T^2)
+        return local_window_attention(q, k, v, window)
     if (q.is_cuda and window is None and q_offset == 0 and tq == tk
             and hd <= MAX_HEAD_DIM):
         g = h // kh
@@ -278,3 +298,50 @@ def update_pages_at(store: torch.Tensor, new: torch.Tensor,
     store[page_ids.long().reshape(b, t), :, offsets.long().reshape(b, t)] = \
         new.transpose(1, 2).to(store.dtype)
     return store
+
+
+def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           window: int) -> torch.Tensor:
+    """Causal sliding-window self-attention in block-local form.
+
+    q/k/v: (B, T, H|KH, hd).  The sequence is cut into blocks of size
+    ``window``; block j's queries attend only to blocks (j-1, j), which
+    covers every in-window key exactly once, so compute and score memory
+    drop from O(T^2) to O(T * 2*window).  One block at a time, as the
+    reference's scan: the scores of one block are (B, H, w, 2w).  Used by
+    hymba (the attention half of its hybrid blocks); plain PyTorch on any
+    device, as the reference runs it as plain jnp.
+    """
+    b, t, h, hd = q.shape
+    kh = k.shape[2]
+    k = _repeat_kv(k, h // kh)
+    v = _repeat_kv(v, h // kh)
+    w = window
+    pad = (-t) % w
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+    tp = t + pad
+    nb = tp // w
+    qb = q.reshape(b, nb, w, h, hd).float() * hd ** -0.5
+    kb = k.reshape(b, nb, w, h, hd)
+    vb = v.reshape(b, nb, w, h, hd)
+    zeros = torch.zeros_like(kb[:, :1])
+    k_cat = torch.cat([torch.cat([zeros, kb[:, :-1]], dim=1), kb], dim=2)
+    v_cat = torch.cat([torch.cat([zeros, vb[:, :-1]], dim=1), vb], dim=2)
+
+    dev = q.device
+    i = torch.arange(w, device=dev)[:, None]
+    l = torch.arange(2 * w, device=dev)[None, :]
+    dist = i + w - l
+    base_mask = (dist >= 0) & (dist < w)                    # (w, 2w)
+    outs = []
+    for j in range(nb):
+        # absolute key positions for validity (padding + first block)
+        kpos = j * w - w + torch.arange(2 * w, device=dev)
+        mask = base_mask & ((kpos >= 0) & (kpos < t))[None, :]
+        s = torch.einsum("bqhd,bkhd->bhqk", qb[:, j], k_cat[:, j].float())
+        s = torch.where(mask[None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v_cat[:, j].float()))
+    out = torch.stack(outs, dim=1).reshape(b, tp, h, hd)[:, :t]
+    return out.to(q.dtype)

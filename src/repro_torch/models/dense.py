@@ -37,15 +37,14 @@ from .common import (apply_rope, chunked_attention, embed_tokens,
 
 
 def _layer(blocks: dict, l: int) -> dict:
-    """Layer ``l`` of the stacked block params (views)."""
-    return {k: v[l] for k, v in blocks.items()}
+    """Layer ``l`` of the stacked block params (views; nested dicts, such
+    as hymba's ``mamba`` branch, alike)."""
+    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
+            for k, v in blocks.items()}
 
 
 class DenseLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.mrope_sections or cfg.sliding_window:
-            raise NotImplementedError("M-RoPE and sliding-window attention "
-                                      "arrive with their model families")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
 
@@ -121,11 +120,14 @@ class DenseLM:
         q = qlinear(x, p["wq"]).reshape(b, t, cfg.n_heads, hd)
         k = qlinear(x, p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
         v = qlinear(x, p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        mrope = cfg.mrope_sections or None
+        q = apply_rope(q, positions, cfg.rope_theta, mrope_sections=mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, mrope_sections=mrope)
         q8 = cfg.kv_cache_bits == 8
+        window = cfg.sliding_window or None
         if cache is None:
-            o = chunked_attention(q, k, v, causal=True, kv_lens=kv_lens)
+            o = chunked_attention(q, k, v, causal=True, window=window,
+                                  kv_lens=kv_lens)
             kv = (k, v)
         else:
             if q8:
@@ -144,21 +146,22 @@ class DenseLM:
                 if t == 1:
                     attend = (paged_decode_attention_q8 if q8
                               else paged_decode_attention)
-                    o = attend(q, *cache, table, cache_len)
+                    o = attend(q, *cache, table, cache_len, window=window)
                 else:
                     attend = (paged_verify_attention_q8 if q8
                               else paged_verify_attention)
-                    o = attend(q, *cache, table, cache_len - t)
+                    o = attend(q, *cache, table, cache_len - t,
+                               window=window)
             else:
                 pos = cache_len - t
                 for c, new in zip(cache, fresh):
                     update_cache_at(c, new, pos)
                 if t == 1:
                     attend = decode_attention_q8 if q8 else decode_attention
-                    o = attend(q, *cache, cache_len)
+                    o = attend(q, *cache, cache_len, window=window)
                 else:
                     attend = verify_attention_q8 if q8 else verify_attention
-                    o = attend(q, *cache, pos)
+                    o = attend(q, *cache, pos, window=window)
             kv = cache
         o = o.reshape(b, t, cfg.n_heads * hd)
         return qlinear(o, p["wo"]), kv, o
@@ -200,8 +203,17 @@ class DenseLM:
         b, t = tokens.shape
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(t, device=tokens.device).expand(b, t)
+            positions = self._maybe_mrope(
+                torch.arange(t, device=tokens.device).expand(b, t))
         x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x, stacked, moe_aux = self._forward_layers(params, x, positions,
+                                                   collect_stats)
+        logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
+        return logits, {"stats": stacked, "moe_aux": moe_aux}
+
+    def _forward_layers(self, params, x, positions, collect_stats):
+        """The layer stack of :meth:`forward` over the embedded input ``x``
+        and the final norm.  Returns (hidden, stacked stats, moe_aux)."""
         per_layer, layer_aux = [], []
         blocks = params["blocks"]
         remat = self.cfg.remat and torch.is_grad_enabled()
@@ -217,16 +229,15 @@ class DenseLM:
             per_layer.append(stats)
             layer_aux.append(aux)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
         stacked = {}
         if collect_stats:
             stacked = {site: {key: torch.stack([s[site][key]
                                                 for s in per_layer])
                               for key in per_layer[0][site]}
                        for site in per_layer[0]}
-        moe_aux = (torch.zeros((), device=logits.device)
+        moe_aux = (torch.zeros((), device=x.device)
                    if layer_aux[0] is None else torch.stack(layer_aux).mean())
-        return logits, {"stats": stacked, "moe_aux": moe_aux}
+        return x, stacked, moe_aux
 
     def _forward_block(self, p, x, positions, collect):
         """One layer of :meth:`forward`: (x, stats, aux), aux the layer's
@@ -248,7 +259,7 @@ class DenseLM:
         full-length behavior.  Returns (logits_last (B, 1, V), cache)."""
         b, t = tokens.shape
         dev = tokens.device
-        positions = torch.arange(t, device=dev).expand(b, t)
+        positions = self._maybe_mrope(torch.arange(t, device=dev).expand(b, t))
         if prompt_len is None:
             plen = torch.full((b,), t, dtype=torch.int32, device=dev)
             kv_lens = None
@@ -291,8 +302,9 @@ class DenseLM:
         t = token.shape[1]
         base = cache["len"].to(torch.int32)
         new_len = base + t
-        positions = base[:, None] + torch.arange(t, dtype=torch.int32,
-                                                 device=token.device)
+        positions = self._maybe_mrope(
+            base[:, None] + torch.arange(t, dtype=torch.int32,
+                                         device=token.device))
         logits = self._decode_layers(params, token, positions, new_len,
                                      lambda l: tuple(cache[key][l] for key
                                                      in self._cache_keys()))
@@ -321,7 +333,8 @@ class DenseLM:
                                                  device=token.device)
         pos = positions.long()
         paged = (table, table.gather(1, pos // ps), pos % ps)
-        logits = self._decode_layers(params, token, positions, lens + t,
+        logits = self._decode_layers(params, token,
+                                     self._maybe_mrope(positions), lens + t,
                                      lambda l: tuple(store[key][l] for key
                                                      in self._cache_keys()),
                                      paged=paged)
@@ -357,6 +370,13 @@ class DenseLM:
                                   paged=paged)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
+
+    def _maybe_mrope(self, positions: torch.Tensor) -> torch.Tensor:
+        """(B, T) position ids, or the same ids three times as M-RoPE's (3,
+        B, T) (temporal / height / width) when the config has sections."""
+        if self.cfg.mrope_sections:
+            return positions[None].expand((3,) + tuple(positions.shape))
+        return positions
 
     # -- cache -------------------------------------------------------------
     def _kv_leaves(self, shape, dev) -> dict:

@@ -1,14 +1,18 @@
-"""Model registry: build an architecture from its config (the dense and
-MoE families so far; the others arrive with their slices)."""
+"""Model registry: build an architecture from its config (the dense, MoE,
+VLM and hybrid families so far; the others arrive with their slices)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from .dense import DenseLM
+from .hymba import HymbaLM
 from .moe import MoELM
+from .vlm import VLM
 
 FAMILIES = {
     "dense": DenseLM,
     "moe": MoELM,
+    "vlm": VLM,
+    "hybrid": HymbaLM,
 }
 
 

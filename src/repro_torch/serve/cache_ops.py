@@ -1,8 +1,10 @@
 """Cache-admission ops for the serve engine.
 
 Dense cache trees share one batch convention: the ``len`` leaf is
-``(B,)`` and every other leaf is ``(L, B, ...)`` — batch on axis 1;
-:func:`write_slot` and :func:`merge_slots` rely only on that.  Page stores
+``(B,)`` and every other leaf is ``(L, B, ...)`` — batch on axis 1,
+nested dicts included (hymba's ``mamba`` state: ``h`` (L, B, d_inner, S),
+``conv`` (L, B, k-1, d_inner)); :func:`write_slot` and
+:func:`merge_slots` rely only on that and walk the tree.  Page stores
 have leaves ``(L, P, KH, ps, d)``; :func:`scatter_prefill_pages` and
 :func:`copy_page` move whole pages.  Every op updates its target in place
 (the reference's functional updates return a copy of the whole cache).
@@ -21,7 +23,9 @@ def write_slot(batched_cache: dict, single_cache: dict, slot: int) -> dict:
     (in place); returns ``batched_cache``."""
     for key, b in batched_cache.items():
         s = single_cache[key]
-        if _batch_axis(b) == 0:
+        if isinstance(b, dict):
+            write_slot(b, s, slot)
+        elif _batch_axis(b) == 0:
             b[slot] = s[0].to(b.dtype)
         else:
             b[:, slot] = s[:, 0].to(b.dtype)
@@ -37,7 +41,9 @@ def merge_slots(cache: dict, new_cache: dict, admit_mask: torch.Tensor) -> dict:
     rows = torch.nonzero(admit_mask).reshape(-1)
     for key, old in cache.items():
         new = new_cache[key]
-        if _batch_axis(old) == 0:
+        if isinstance(old, dict):
+            merge_slots(old, new, admit_mask)
+        elif _batch_axis(old) == 0:
             old[rows] = new[rows].to(old.dtype)
         else:
             old[:, rows] = new[:, rows].to(old.dtype)

@@ -1166,3 +1166,158 @@ def test_moe_spec_equals_plain_at_one_slot_on_the_card(dev):
     for i in plain:
         assert torch.equal(torch.as_tensor(spec[i]),
                            torch.as_tensor(plain[i])), i
+
+
+# -- the VLM and hybrid families (qwen2-vl-2b, hymba-1.5b) -------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,kh,hd,s,lens", [
+    (25, 5, 64, 1024, [1024, 1024, 332, 44]),    # hymba: two slots wrapped
+    (25, 5, 64, 1024, [1024, 1, 0, 700]),
+    (12, 2, 128, 1024, [44, 140, 332, 732]),     # qwen2-vl
+    (12, 2, 128, 300, [0, 1, 300, 129])])
+def test_flash_decode_ring_g5_and_g6_match_plain(dev, h, kh, hd, s, lens,
+                                                 dtype):
+    """G 5 at hd 64 over a 1024-slot ring (valid = min(len, W)) and G 6 at
+    hd 128, against the plain version; a slot's bits do not depend on the
+    batch."""
+    gen = torch.Generator(device=dev).manual_seed(h * 1000 + s + lens[-1])
+    q = torch.randn(4, 1, h, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(4, kh, s, hd, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = fd.KERNEL.launches
+    got = fd.flash_decode(q, k, v, cl)
+    assert fd.KERNEL.launches == before + 1
+    want = fd.decode_attention_ref(q, k, v, cl)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    alone = torch.cat([fd.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                       cl[i:i + 1]) for i in range(4)])
+    assert torch.equal(alone, got)
+
+
+@pytest.mark.parametrize("n_pos", [700, 1024, 1300, 2231])
+def test_flash_decode_over_a_wrapped_ring_equals_the_window(dev, n_pos):
+    """hymba's ring: positions 0..n-1 stored at slot pos % 1024, attended
+    at valid = min(n, 1024), give the last-1024-positions window of the
+    linear cache (f32: the same terms summed in another order)."""
+    w, h, kh, hd = 1024, 25, 5, 64
+    gen = torch.Generator(device=dev).manual_seed(n_pos)
+    q = torch.randn(2, 1, h, hd, generator=gen, device=dev)
+    lin = [torch.randn(2, kh, n_pos, hd, generator=gen, device=dev)
+           for _ in range(2)]
+    ring = [torch.zeros(2, kh, w, hd, device=dev) for _ in range(2)]
+    slots = torch.arange(n_pos, device=dev) % w
+    for r, x in zip(ring, lin):
+        r[:, :, slots[-w:]] = x[:, :, -w:]
+    valid = torch.full((2,), min(n_pos, w), dtype=torch.int32, device=dev)
+    got = fd.flash_decode(q, *ring, valid)
+    want = fd.decode_attention_ref(q, *lin, torch.full_like(valid, n_pos),
+                                   window=w)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [37, 371, 512, 513])
+def test_flash_attention_vlm_g6_hd128_matches_plain(dev, t, dtype):
+    """qwen2-vl's 6 query heads per KV head at hd 128: 6 of the block's 8
+    head rows used; T 512 (calibration: 256 patches + 256 tokens) and odd
+    T (a prefill of 256 patches + 115 tokens)."""
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q = torch.randn(4, 6, t, 128, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(4, t, 128, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v)
+    assert fa.KERNEL.launches == before + 1
+    want = fa.flash_attention_ref(q, k, v)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 16, 8192])
+def test_quant_matmul_hymba_x_proj_width(dev, m):
+    """hymba's x_proj: k 3200 -> n 132 (padded to 144), g 64; a row's bits
+    are those of the 8192-row call."""
+    gen = torch.Generator(device=dev).manual_seed(3200 + m)
+    codes, scale, zero = _packed(3200, 132, 64, gen)
+    x = torch.randn(8192, 3200, generator=gen, device=dev).bfloat16()
+    full = qm.quant_matmul(x, codes, scale, zero)
+    got = qm.quant_matmul(x[:m].contiguous(), codes, scale, zero)
+    assert got.shape == (m, 132)
+    _bf16_close(got, qm.quant_matmul_ref(x[:m], codes, scale, zero),
+                rel_tol=EXACT_REL_TOL)
+    assert torch.equal(got, full[:m])
+
+
+def _family_setup(arch, dtype, dev_params):
+    """A tiny model of ``arch`` in ``dtype``, FAQ-packed on the CPU, and a
+    calibration batch (patches for the VLM)."""
+    from repro_torch.bridge import tree_to
+    from repro_torch.core import run_calibration
+
+    cfg = ARCHS[arch].tiny().scaled(dtype=dtype)
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    params = model.init(0, device=cpu)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(2, cfg.patch_len, cfg.d_model,
+                                       generator=gen) * 0.1
+    stats = run_calibration(model.forward, params, [batch])
+    qp, _ = quantize_model(params, model.quant_site_map(), stats,
+                           method="faq", spec=QuantSpec(4, 64), mode="packed")
+    return cfg, model, qp, tree_to(qp, dev_params), batch
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "hymba-1.5b"])
+def test_vlm_and_hymba_tiny_forward_and_decode_on_the_card(dev, arch):
+    """The tiny model in f32 on the card (kernels) against the same packed
+    weights on the CPU (plain versions), within 1e-4: the forward (hymba
+    at T 40 > 2 x its window of 16: block-local; the VLM with patches),
+    then prefill and 20 decode steps (hymba's ring wraps)."""
+    cfg, model, qp, qd, batch = _family_setup(arch, "float32", dev)
+    want = model.forward(qp, batch)[0]
+    got = model.forward(qd, {k: v.to(dev) for k, v in batch.items()})[0]
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    kw = {} if cfg.family != "vlm" else {"patches": batch["patches"][:, :3]}
+    toks = batch["tokens"][:, :20]
+    out = []
+    for device, params in ((torch.device("cpu"), qp), (dev, qd)):
+        cache = model.init_cache(2, 64, device=device)
+        logits, cache = model.prefill(params, toks.to(device), cache,
+                                      **{k: v.to(device)
+                                         for k, v in kw.items()})
+        seq = [logits.float().cpu()]
+        for i in range(20):
+            nxt = batch["tokens"][:, 20 + i:21 + i].int().to(device)
+            logits, cache = model.decode_step(params, cache, nxt)
+            seq.append(logits.float().cpu())
+        out.append(torch.cat(seq, 1))
+    torch.testing.assert_close(out[1], out[0], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "hymba-1.5b"])
+def test_vlm_and_hymba_engine_equals_generate_on_the_card(dev, arch):
+    """bf16 on the card at 4 slots: every request's tokens equal batch-1
+    ``generate`` bit for bit (exact-length admission, decode rows that do
+    not depend on the batch: hymba's float dt_proj in fixed row blocks)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, model, _, qd, _ = _family_setup(arch, "bfloat16", dev)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+               for n in (5, 30, 17, 50, 9, 3)]
+    eng = ServeEngine(model, qd, n_slots=4, max_len=96, device=dev)
+    res = eng.serve([Request(rid=i, prompt=p, max_new_tokens=12)
+                     for i, p in enumerate(prompts)])
+    for i, p in enumerate(prompts):
+        alone = eng.generate(Request(rid=10 + i, prompt=p, max_new_tokens=12))
+        assert torch.equal(torch.as_tensor(res[i]), torch.as_tensor(alone)), i
