@@ -122,7 +122,28 @@ Phases (any failure exits non-zero; nothing is caught):
               slot serving 4 requests plain and speculative (k 3), bit
               for bit, four slots serving the 8 requests of the dense run,
               and ``paged=True`` serving from the dense cache.  Its
-              launches are counted path by path like the others.
+              launches are counted path by path like the others;
+8. families — qwen2-vl-2b and hymba-1.5b at full width and depth
+              (``families_paths``): calibrate, FAQ, pack, 4-slot serving
+              == batch-1 ``generate``, patches, a wrapped ring;
+9. ssm/audio — xlstm-350m and whisper-small at full width and depth
+              (``ssm_audio_paths``): calibrate (16 x 512 tokens; 16 x
+              (1536 seed-made frames + 256 tokens)), FAQ, pack, layer 0's
+              alpha search through quant_error against the plain search;
+              xlstm's 8 requests at 4 slots == ``generate`` bit for bit
+              (``spec=`` and ``paged=True`` declined, same tokens) and one
+              request's prefill + 32 decode steps against a teacher-forced
+              forward (greedy up to ties with f32 activations; in bf16
+              the prefill's token greedy, and the decode's rounding noise
+              against the f32 run within XLSTM_BF16_NOISE_RATIO of the
+              bf16 forward's);
+              whisper's 4 requests prefilled with their frames
+              and decoded 32 steps, each against a teacher-forced forward.
+              Their kernel routes (flash_attention not causal at G 1 / hd
+              64, flash_decode at G 1 over the self and the 1536-key cross
+              cache, quant_matmul at the seven new widths) are held and
+              timed in phase 3; each route row's launches are those of
+              its own route (the wrappers count launches by route).
 
 The one reduction of the main path: prompt and calibration token ids
 come from a synthetic vocabulary capped at 4096 ids (the generator's
@@ -569,6 +590,7 @@ def kernel_phase(dev):
     rows.append(flash_attention_bwd_row(dev, gen, randn))
     rows.append(rms_norm_bwd_row(dev, gen, randn))
     rows += family_route_rows(dev, gen, randn)
+    rows += ssm_audio_route_rows(dev, gen, randn)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
@@ -882,6 +904,160 @@ def family_route_rows(dev, gen, randn):
                          replaces="src/repro/kernels/flash_decode.py:216",
                          shape=f"q ({b},1,{h},{hd}) bf16, cache ({b},{kh},"
                                f"{s},{hd}), lens {lens} ({what})",
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del caches
+    return rows
+
+
+# whisper-small's shapes: 12 heads (MHA) of 64, 1536 encoder frames; the
+# smoke's decoder prompts and cache (WHISPER_PROMPT + NEW_TOKENS positions)
+WHISPER_HEADS, WHISPER_FRAMES, WHISPER_PROMPT = 12, 1536, 100
+WHISPER_CAL_BATCH, WHISPER_CAL_TOKENS = 16, 256
+# the seven (k, n) site widths of the ssm and audio families: xlstm's
+# up_proj / w_in, wq / wk / wv, down_proj, out_proj; whisper's attention,
+# w1, w2
+SSM_AUDIO_WIDTHS = ((1024, 4096), (2048, 2048), (2048, 1024), (1024, 1024),
+                    (768, 768), (768, 3072), (3072, 768))
+
+
+def ssm_audio_route_rows(dev, gen, randn):
+    """The routes the ssm and audio families add to the kernels, each
+    against its plain version, then timed beside SDPA with its bound:
+    flash_attention not causal at G 1 / hd 64 (whisper's encoder: T 37 /
+    512 / 1536 held, q (192, 1, 1536, 64) timed, its calibration's 16 x
+    12 heads), flash_decode at G 1 / hd 64 over the decoder's self cache
+    and over the full 1536-key cross cache (a slot's bits whatever the
+    batch); quant_matmul at the seven new site widths for m 1 / 4 and the
+    calibration's 8192 rows, rows bit for bit across m; rms_norm in f32 at
+    xLSTM's widths (the mLSTM's out_norm at 2048, the sLSTM's at 1024).
+    Returns the three attention rows."""
+    from repro_torch.core import QuantSpec, quantize_groupwise
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import rms_norm as rn
+
+    phase("kernel routes of the ssm and audio families (non-causal G 1, "
+          "decode G 1 self and cross, seven quant_matmul widths)")
+    for k, n in SSM_AUDIO_WIDTHS:
+        qt = quantize_groupwise(randn(k, n, dtype=torch.float32),
+                                QuantSpec(bits=4, group_size=64), pack=True)
+        xq = randn(8192, k)
+        full = qm.quant_matmul(xq, qt.codes, qt.scale, qt.zero)
+        held(f"quant_matmul m=8192 k={k} n={n} g=64 bf16", full,
+             qm.quant_matmul_ref(xq, qt.codes, qt.scale, qt.zero),
+             rel_tol=EXACT_REL_TOL)
+        for m in (1, 4):
+            x = xq[:m].contiguous()
+            got = qm.quant_matmul(x, qt.codes, qt.scale, qt.zero)
+            held(f"quant_matmul m={m} k={k} n={n} g=64 bf16", got,
+                 qm.quant_matmul_ref(x, qt.codes, qt.scale, qt.zero),
+                 rel_tol=EXACT_REL_TOL)
+            same_bits(f"quant_matmul k={k} n={n} rows of m={m} == the same "
+                      f"rows of m=8192", got, full[:m])
+        del xq, full
+    for rows_, d in ((4, 2048), (8192, 2048), (4, 1024), (8192, 1024)):
+        x, w = randn(rows_, d, dtype=torch.float32), randn(d)
+        got = rn.rms_norm(x, w.float())
+        held(f"rms_norm f32 ({rows_}, {d})", got,
+             rn.rms_norm_ref(x, w.float()))
+        same_bits(f"rms_norm f32 ({rows_}, {d}) row 0 alone",
+                  rn.rms_norm(x[:1].clone(), w.float()), got[:1])
+
+    for bkh, t, dt in [(6, 37, torch.bfloat16), (6, 512, torch.bfloat16),
+                       (6, 1536, torch.bfloat16), (6, 150, torch.float32)]:
+        q = randn(bkh, 1, t, 64, dtype=dt)
+        k_, v_ = randn(bkh, t, 64, dtype=dt), randn(bkh, t, 64, dtype=dt)
+        got = fa.flash_attention(q, k_, v_, causal=False)
+        held(f"flash_attention BKH={bkh} G=1 T={t} hd=64 not causal "
+             f"{str(dt)[6:]}", got,
+             fa.flash_attention_ref(q, k_, v_, causal=False),
+             rel_tol=BF16_REL_TOL if dt == torch.bfloat16 else None)
+        same_bits(f"flash_attention G=1 T={t} not causal, twice",
+                  fa.flash_attention(q, k_, v_, causal=False), got)
+    bkh, t, hd = WHISPER_CAL_BATCH * WHISPER_HEADS, WHISPER_FRAMES, 64
+    sets = [(randn(bkh, 1, t, hd), randn(bkh, t, hd), randn(bkh, t, hd))
+            for _ in range(2)]
+    attend = lambda i: fa.flash_attention(*sets[i % 2], causal=False)
+    err = held("flash_attention_noncausal_g1 timed shape", attend(0),
+               fa.flash_attention_ref(*sets[0], causal=False),
+               rel_tol=BF16_REL_TOL)
+    ms = time_ms(attend)
+    plain = time_ms(lambda i: fa.flash_attention_ref(*sets[i % 2],
+                                                     causal=False), reps=5)
+    nb = bkh // WHISPER_HEADS
+
+    def sdpa(i):
+        q_, k_, v_ = sets[i % 2]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_.reshape(nb, WHISPER_HEADS, t, hd),
+            k_.reshape(nb, WHISPER_HEADS, t, hd),
+            v_.reshape(nb, WHISPER_HEADS, t, hd))
+
+    held("flash_attention_noncausal_g1 library call (sdpa)",
+         sdpa(0).reshape(bkh, 1, t, hd),
+         fa.flash_attention_ref(*sets[0], causal=False))
+    lib = time_ms(sdpa)
+    b_ms, b_by = bound(4 * bkh * t * hd * 2, 4 * bkh * t * t * hd)
+    rows = [dict(name="flash_attention_noncausal_g1", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:92",
+                 shape=f"q ({bkh},1,{t},{hd}) bf16, k/v ({bkh},{t},{hd}), "
+                       f"not causal (whisper's encoder in calibration)",
+                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib)]
+    del sets
+
+    self_len = WHISPER_PROMPT + NEW_TOKENS
+    for s_len, lens, dt in [(self_len, [13, 100, self_len - 1, 1],
+                             torch.bfloat16),
+                            (WHISPER_FRAMES, [WHISPER_FRAMES] * 4,
+                             torch.bfloat16),
+                            (200, [200, 13, 1, 77], torch.float32)]:
+        h = WHISPER_HEADS
+        q = randn(4, 1, h, 64, dtype=dt)
+        kc, vc = randn(4, h, s_len, 64, dtype=dt), randn(4, h, s_len, 64,
+                                                          dtype=dt)
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        tag = f"B=4 H={h} KH={h} S={s_len} hd=64 lens={lens} {str(dt)[6:]}"
+        got = fd.flash_decode(q, kc, vc, cl)
+        held(f"flash_decode {tag}", got, fd.decode_attention_ref(q, kc, vc,
+                                                                 cl))
+        same_bits(f"flash_decode {tag}, twice", fd.flash_decode(q, kc, vc, cl),
+                  got)
+        alone = torch.cat([fd.flash_decode(q[i:i + 1], kc[i:i + 1],
+                                           vc[i:i + 1], cl[i:i + 1])
+                           for i in range(4)])
+        same_bits(f"flash_decode slot alone == in the batch {tag}", alone,
+                  got)
+    for name, s_len, lens, what in [
+            ("flash_decode_g1", self_len, [self_len - 1] * 4,
+             f"whisper self-attention, the last of {NEW_TOKENS - 1} decode "
+             f"steps after {WHISPER_PROMPT}-token prompts"),
+            ("flash_decode_cross_g1", WHISPER_FRAMES, [WHISPER_FRAMES] * 4,
+             "whisper cross-attention over the 1536 encoder keys")]:
+        b, h = 4, WHISPER_HEADS
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = randn(b, 1, h, 64)
+        caches = [(randn(b, h, s_len, 64), randn(b, h, s_len, 64))
+                  for _ in range(8)]
+        err = held(f"{name} timed shape", fd.flash_decode(q, *caches[0], cl),
+                   fd.decode_attention_ref(q, *caches[0], cl))
+        ms = time_ms(lambda i: fd.flash_decode(q, *caches[i % 8], cl))
+        plain = time_ms(lambda i: fd.decode_attention_ref(q, *caches[i % 8],
+                                                          cl))
+        held(f"{name} library call (sdpa)", _sdpa_decode(q, *caches[0], cl),
+             fd.decode_attention_ref(q, *caches[0], cl))
+        lib = time_ms(lambda i: _sdpa_decode(q, *caches[i % 8], cl))
+        live = sum(lens)
+        b_ms, b_by = bound(2 * b * h * 64 * 2 + b * 4 + live * h * 64 * 2 * 2,
+                           4 * live * h * 64)
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/flash_decode.cu",
+                         replaces="src/repro/kernels/flash_decode.py:216",
+                         shape=f"q ({b},1,{h},64) bf16, cache ({b},{h},"
+                               f"{s_len},64), lens {lens} ({what})",
                          max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib))
         del caches
@@ -1881,7 +2057,8 @@ def main_path_phase(dev, kernels):
     for path, counts in counts_by_path.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
         for sym, n in counts.items():
-            launches[sym] += n
+            if sym in launches:
+                launches[sym] += n
     print(f"  max_memory_allocated over all paths: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_phase(eng, data, Request)
@@ -2186,7 +2363,7 @@ def quantize_family(model, dev, batches, times, spec):
     """init -> calibrate on ``batches`` -> FAQ (γ 0.85, window 3) -> int4
     pack, with each step's seconds in ``times``; checks the statistics,
     that every α is on the grid and no searched loss is above RTN's.
-    Returns (qparams, report)."""
+    Returns (qparams, report, the float params, the stats)."""
     from repro_torch.core import (DEFAULT_ALPHA_GRID, quantize_model,
                                   report_summary, run_calibration)
 
@@ -2223,7 +2400,7 @@ def quantize_family(model, dev, batches, times, spec):
     print(f"  float weights {tree_gb(params):.2f} GB, packed tree "
           f"{tree_gb(qparams):.2f} GB; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return qparams, report
+    return qparams, report, params, stats
 
 
 def engine_equals_generate(name, eng, reqs, results, times):
@@ -2243,6 +2420,29 @@ def engine_equals_generate(name, eng, reqs, results, times):
     print(f"  {name}: engine == generate bit for bit for all {len(reqs)} "
           f"requests ({times['generate'] / len(reqs):.2f} s per generate)",
           flush=True)
+
+
+def serve_exact(dev, kernels, counts, name, model, qparams, data,
+                fam_times, **kw):
+    """The dense run's 8 requests at 4 slots through the exact-length
+    admission, then each against batch-1 ``generate`` bit for bit; the
+    launch counts of both go to ``counts``.  Returns (engine, requests,
+    results)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    reqs = [Request(rid=i, prompt=data.sequence(40_000_000 + i, n),
+                    max_new_tokens=NEW_TOKENS)
+            for i, n in enumerate(PROMPT_LENS)]
+    eng = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
+                      **kw)
+    check(type(eng._admission.strategies[0]).__name__
+          == "SingleAdmission", f"{name}: not the exact-length admission")
+    (out, _, sec), counts[f"{name} serve, 4 slots"] = counted(
+        kernels, lambda: timed_serve(f"{name} serve, 4 slots", eng, reqs))
+    fam_times["serve"] = sec
+    _, counts[f"{name} generate"] = counted(
+        kernels, lambda: engine_equals_generate(name, eng, reqs, out,
+                                                fam_times))
+    return eng, reqs, out
 
 
 def families_paths(dev, kernels):
@@ -2271,22 +2471,6 @@ def families_paths(dev, kernels):
     spec = QuantSpec(bits=4, group_size=64)
     counts = {}
 
-    def serve8(name, model, qparams, data, fam_times, **kw):
-        reqs = [Request(rid=i, prompt=data.sequence(40_000_000 + i, n),
-                        max_new_tokens=NEW_TOKENS)
-                for i, n in enumerate(PROMPT_LENS)]
-        eng = ServeEngine(model, qparams, n_slots=4, max_len=1024,
-                          device=dev, **kw)
-        check(type(eng._admission.strategies[0]).__name__
-              == "SingleAdmission", f"{name}: not the exact-length admission")
-        (out, _, sec), counts[f"{name} serve, 4 slots"] = counted(
-            kernels, lambda: timed_serve(f"{name} serve, 4 slots", eng, reqs))
-        fam_times["serve"] = sec
-        _, counts[f"{name} generate"] = counted(
-            kernels, lambda: engine_equals_generate(name, eng, reqs, out,
-                                                    fam_times))
-        return eng, reqs, out
-
     # -- qwen2-vl-2b ------------------------------------------------------
     phase("families: qwen2-vl-2b calibrate (16 x (256 patches + 256 "
           "tokens)) -> FAQ -> int4 pack")
@@ -2307,7 +2491,7 @@ def families_paths(dev, kernels):
         for b in calibration_batches(data, VLM_CAL_BATCH, VLM_TOKENS,
                                      batch_size=VLM_CAL_BATCH)]
     vt = {}
-    (qparams, _), counts["VLM calibrate + FAQ + pack"] = counted(
+    (qparams, *_), counts["VLM calibrate + FAQ + pack"] = counted(
         kernels, lambda: quantize_family(model, dev, batches, vt, spec))
     del batches
     gc.collect()
@@ -2332,14 +2516,15 @@ def families_paths(dev, kernels):
     toks, counts["VLM prefill(patches) + decode"] = counted(kernels,
                                                             patch_decode)
     margin, _ = teacher_forced(model, qparams, prompt, toks, dev,
-                               patches=patches)
+                               extra={"patches": patches})
     print(f"  16 tokens after 256 patches + 100 prompt tokens: worst margin "
           f"{float(margin.max()):.4f} (tol {TIE_TOL})", flush=True)
     check(float(margin.max()) <= TIE_TOL,
           "VLM decode with patches off the teacher-forced argmax")
 
     phase("families: qwen2-vl-2b serve, 4 slots, the dense run's 8 requests")
-    _, reqs, out = serve8("VLM", model, qparams, data, vt)
+    _, reqs, out = serve_exact(dev, kernels, counts, "VLM", model, qparams,
+                               data, vt)
     draft = self_int8_draft(model, qparams)
     eng = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
                       spec=SpecConfig(k=3, draft=draft))
@@ -2373,7 +2558,7 @@ def families_paths(dev, kernels):
           f"{cfg.n_layers} dtype={cfg.dtype}; token ids capped at "
           f"{data.cfg.vocab_size}", flush=True)
     ht = {}
-    (qparams, report), counts["hymba calibrate + FAQ + pack"] = counted(
+    (qparams, report, *_), counts["hymba calibrate + FAQ + pack"] = counted(
         kernels, lambda: quantize_family(
             model, dev, calibration_batches(data, 16, 512, batch_size=16),
             ht, spec))
@@ -2383,7 +2568,8 @@ def families_paths(dev, kernels):
     gc.collect()
 
     phase("families: hymba-1.5b serve, 4 slots, the dense run's 8 requests")
-    eng, _, _ = serve8("hymba", model, qparams, data, ht)
+    eng, _, _ = serve_exact(dev, kernels, counts, "hymba", model, qparams,
+                            data, ht)
     paged = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
                         paged=True)
     print(f"  paged=True: engine.paged {paged.paged} (serves from the dense "
@@ -2408,6 +2594,291 @@ def families_paths(dev, kernels):
     print(f"  hymba max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del model, qparams, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+XLSTM_PROMPT = 200                 # the teacher-forced xlstm request
+# the bf16 decode's rounding noise (RMS of its logits less the f32 run's)
+# over the bf16 forward's: 0.99-1.05 in repro and 1.00 in the port on the
+# CPU (tests/test_torch_xlstm.py::test_bf16_decode_drift_is_the_references)
+XLSTM_BF16_NOISE_RATIO = 1.25
+
+
+def layer0_alpha_search(name, model, params, stats, spec, kernels):
+    """Layer 0's α search of every site of ``model`` with the diagonal loss
+    (``search_alpha`` on the card: one quant_error_batch launch per site,
+    counted) against ``search_alpha_plain`` (plain PyTorch): the chosen
+    and RTN losses within rel 1e-5, the α equal up to such a tie.
+    Returns the launch counts."""
+    from repro_torch.core.apply import _get_path
+    from repro_torch.core.methods import (search_alpha, search_alpha_plain,
+                                          site_stat_for_method)
+
+    sites = {}
+    for path, site in model.quant_site_map().items():
+        stat = stats[site]
+        sites["/".join(path)] = (
+            _get_path(params, path)[0],
+            site_stat_for_method("faq", stat["mean_abs"])[0],
+            stat["mean_sq"][0])
+    res, counts = counted(kernels, lambda: {
+        p: search_alpha(w, a, spec, mean_sq=msq)
+        for p, (w, a, msq) in sites.items()})
+    same = 0
+    for path, (w, a, msq) in sites.items():
+        want = search_alpha_plain(w, a, spec, mean_sq=msq)
+        got = res[path]
+        for what, x, y in (("loss", got.loss, want.loss),
+                           ("RTN loss", got.rtn_loss, want.rtn_loss)):
+            rel = abs(float(x) - float(y)) / float(y)
+            check(rel <= 1e-5, f"{name} {path}: {what} of the kernel's "
+                               f"search off the plain search's by {rel:.2e}")
+        same += int(float(got.alpha) == float(want.alpha))
+    print(f"  {name} layer-0 alpha search through quant_error_batch: "
+          f"{len(sites)} sites, losses within rel 1e-5 of the plain "
+          f"search's, alpha equal at {same}/{len(sites)} (the rest ties)",
+          flush=True)
+    return counts
+
+
+def ssm_audio_paths(dev, kernels):
+    """xlstm-350m (24 layers, d 1024, 4 heads, d_inner 2048: mLSTM heads of
+    512, sLSTM heads of 256, an sLSTM block every 4th layer, vocab 50304)
+    and whisper-small (12 encoder + 12 decoder layers, d 768, 12 heads of
+    64, d_ff 3072, 1536 frames, vocab 51865) at full width and depth,
+    bf16, random weights from seed 0, ids capped at 4096, frames seed-made:
+    calibrate -> FAQ -> int4 pack, layer 0's α search through quant_error;
+    xlstm then serves the dense run's 8 requests at 4 slots (each ==
+    batch-1 ``generate``; ``spec=`` and ``paged=True`` declined with the
+    same tokens) and one request through prefill + 32 decode steps against
+    a teacher-forced forward (the prefill's token greedy in bf16; every
+    token greedy up to ties with f32 activations on the same packed
+    weights, where the recurrent step and the chunked forward agree to f32
+    rounding; the bf16 decode's noise against f32 within
+    XLSTM_BF16_NOISE_RATIO of the bf16 forward's; bf16's drift printed);
+    whisper prefills 4 requests with their
+    frames together and decodes 32 greedy steps, each request against a
+    teacher-forced forward over the same frames (no engine run: the
+    engine passes no frames, neither does the reference's).  Returns
+    {path: launch counts} (paths prefixed "xlstm" / "whisper")."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import QuantSpec
+    from repro_torch.data.synthetic import calibration_batches
+    from repro_torch.dist._tree import map_with_keys
+    from repro_torch.launch.serve import data_for
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.draft import self_int8_draft
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.spec import SpecConfig
+
+    spec = QuantSpec(bits=4, group_size=64)
+    counts = {}
+
+    # -- xlstm-350m -------------------------------------------------------
+    phase("ssm/audio: xlstm-350m calibrate (16 x 512 tokens) -> FAQ -> "
+          "int4 pack, layer-0 alpha search")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS["xlstm-350m"]
+    model = build_model(cfg)
+    data = data_for(cfg)
+    print(f"  config: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"d_inner={model._d_inner} (mLSTM head "
+          f"{model._d_inner // cfg.n_heads}, sLSTM head "
+          f"{cfg.d_model // cfg.n_heads}) slstm_every={cfg.slstm_every} "
+          f"vocab={cfg.vocab_size} layers={cfg.n_layers} dtype={cfg.dtype}; "
+          f"token ids capped at {data.cfg.vocab_size}", flush=True)
+    xt = {}
+    (qparams, _, params, stats), counts["xlstm calibrate + FAQ + pack"] = \
+        counted(kernels, lambda: quantize_family(
+            model, dev, calibration_batches(data, 16, 512, batch_size=16),
+            xt, spec))
+    counts["xlstm layer-0 alpha search"] = layer0_alpha_search(
+        "xlstm", model, params, stats, spec, kernels)
+    del params, stats
+    gc.collect()
+
+    phase("ssm/audio: xlstm-350m serve, 4 slots, the dense run's 8 requests; "
+          "spec= and paged=True declined")
+    _, reqs, out = serve_exact(dev, kernels, counts, "xlstm", model, qparams,
+                               data, xt)
+    eng = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
+                      paged=True, spec=SpecConfig(
+                          k=3, draft=self_int8_draft(model, qparams)))
+    check(eng._spec is None and not eng.paged,
+          "xlstm: spec= or paged=True was not declined")
+    (other, _, _), counts["xlstm serve, spec= and paged=True declined"] = \
+        counted(kernels, lambda: timed_serve(
+            "xlstm serve, spec= and paged=True declined", eng, reqs))
+    same = [np.array_equal(other[r.rid], out[r.rid]) for r in reqs]
+    print(f"  spec= / paged=True: declined, tokens equal the plain serve's: "
+          f"{sum(same)}/{len(reqs)}", flush=True)
+    check(all(same), "xlstm: the declining engine served other tokens")
+    del eng
+
+    phase(f"ssm/audio: xlstm-350m one {XLSTM_PROMPT}-token request, prefill "
+          f"+ {NEW_TOKENS} decode steps against a teacher-forced forward, "
+          f"bf16 and f32 activations")
+    prompt = data.sequence(90_000_000, XLSTM_PROMPT)
+
+    def recurrent_decode(mdl, params, fed=None):
+        """Prefill + decode steps, greedy or fed the tokens ``fed``: (the
+        greedy tokens, the logits (N, V))."""
+        cache = mdl.init_cache(1, XLSTM_PROMPT + NEW_TOKENS, device=dev)
+        logits, cache = mdl.prefill(params, torch.as_tensor(
+            prompt, device=dev)[None], cache)
+        rows = [logits[0, 0, :cfg.vocab_size].float()]
+        toks = [int(rows[-1].argmax())]
+        for j in range(NEW_TOKENS - 1):
+            nxt = toks[-1] if fed is None else int(fed[j])
+            logits, cache = mdl.decode_step(params, cache, torch.tensor(
+                [[nxt]], dtype=torch.int32, device=dev))
+            rows.append(logits[0, 0, :cfg.vocab_size].float())
+            toks.append(int(rows[-1].argmax()))
+        torch.cuda.synchronize()
+        return np.asarray(toks, np.int32), torch.stack(rows)
+
+    def against_forward(mdl, params, toks, rows):
+        """Per token: |decode logits - forward logits| at most, and the
+        margin of the token under the teacher-forced forward; and the
+        forward's logits (N, V)."""
+        seq = np.concatenate([prompt, toks[:-1]]).astype(np.int32)
+        full = mdl.forward(params, {"tokens": torch.as_tensor(
+            seq, device=dev)[None]})[0][0, XLSTM_PROMPT - 1:,
+                                        :cfg.vocab_size].float()
+        chosen = full.gather(1, torch.as_tensor(
+            toks, device=dev, dtype=torch.long)[:, None])[:, 0]
+        return ((rows - full).abs().amax(-1).cpu().numpy(),
+                (full.amax(-1) - chosen).cpu().numpy(), full)
+
+    t0 = time.perf_counter()
+    (toks, rows), counts["xlstm prefill + decode"] = counted(
+        kernels, lambda: recurrent_decode(model, qparams))
+    xt["one request"] = time.perf_counter() - t0
+    drift, margin, _ = against_forward(model, qparams, toks, rows)
+    print(f"  bf16: {NEW_TOKENS} tokens after a {XLSTM_PROMPT}-token prompt "
+          f"in {xt['one request']:.2f} s; the prefill's token margin "
+          f"{float(margin[0]):.4f} (tol {TIE_TOL}); decode vs forward "
+          f"logits max |diff| every 8 steps "
+          f"{[round(float(d), 4) for d in drift[::8]]}, worst margin "
+          f"{float(margin.max()):.4f} (not held to TIE_TOL: the reference's "
+          f"own bf16 decode and forward part by more)", flush=True)
+    check(float(margin[0]) <= TIE_TOL,
+          "xlstm prefill's token off the teacher-forced argmax")
+    # the same packed weights with f32 activations: the two formulations
+    # agree to f32 rounding, so every token must be greedy up to ties
+    model32 = build_model(cfg.scaled(dtype="float32"))
+    params32 = map_with_keys(
+        lambda _, t: t.float() if t.is_floating_point() else t, qparams)
+    toks32, rows32 = recurrent_decode(model32, params32)
+    drift32, margin32, full32 = against_forward(model32, params32, toks32,
+                                                rows32)
+    print(f"  f32 activations: decode vs forward logits max |diff| "
+          f"{float(drift32.max()):.3e}, worst margin "
+          f"{float(margin32.max()):.4f} (tol {TIE_TOL}); tokens equal to "
+          f"bf16's: {int((toks32 == toks).sum())}/{NEW_TOKENS}", flush=True)
+    check(float(margin32.max()) <= TIE_TOL,
+          "xlstm f32 decode off the teacher-forced argmax")
+    # bf16 against f32, both fed the f32 run's tokens: the served decode's
+    # rounding noise may not exceed the forward's by more than the
+    # reference's own spread
+    _, rows16 = recurrent_decode(model, qparams, fed=toks32)
+    _, _, full16 = against_forward(model, qparams, toks32, rows16)
+    rms = lambda a, b: float((a - b).pow(2).mean().sqrt())
+    noise_dec, noise_fwd = rms(rows16, rows32), rms(full16, full32)
+    print(f"  bf16 rounding noise (RMS of bf16 - f32 logits): decode "
+          f"{noise_dec:.4f}, forward {noise_fwd:.4f}, ratio "
+          f"{noise_dec / noise_fwd:.4f} (limit {XLSTM_BF16_NOISE_RATIO})",
+          flush=True)
+    check(noise_dec <= XLSTM_BF16_NOISE_RATIO * noise_fwd,
+          "xlstm bf16 decode noisier than the bf16 forward")
+    del model32, params32, rows16, full16, full32
+    print(f"  xlstm seconds: " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in xt.items()),
+          flush=True)
+    print(f"  xlstm max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- whisper-small ----------------------------------------------------
+    phase(f"ssm/audio: whisper-small calibrate ({WHISPER_CAL_BATCH} x "
+          f"({WHISPER_FRAMES} frames + {WHISPER_CAL_TOKENS} tokens)) -> FAQ "
+          f"-> int4 pack, layer-0 alpha search")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS["whisper-small"]
+    model = build_model(cfg)
+    data = data_for(cfg)
+    print(f"  config: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} d_ff="
+          f"{cfg.d_ff} encoder layers={cfg.n_encoder_layers} frames="
+          f"{cfg.encoder_len} decoder layers={cfg.n_layers} vocab="
+          f"{cfg.vocab_size} dtype={cfg.dtype}; token ids capped at "
+          f"{data.cfg.vocab_size}", flush=True)
+    frng = np.random.default_rng(0)
+    frames_of = lambda b: (frng.standard_normal(
+        (b, cfg.encoder_len, cfg.d_model)) * 0.1).astype(np.float32)
+    batches = [dict(b, frames=frames_of(WHISPER_CAL_BATCH))
+               for b in calibration_batches(data, WHISPER_CAL_BATCH,
+                                            WHISPER_CAL_TOKENS,
+                                            batch_size=WHISPER_CAL_BATCH)]
+    wt = {}
+    (qparams, _, params, stats), counts["whisper calibrate + FAQ + pack"] = \
+        counted(kernels, lambda: quantize_family(model, dev, batches, wt,
+                                                 spec))
+    counts["whisper layer-0 alpha search"] = layer0_alpha_search(
+        "whisper", model, params, stats, spec, kernels)
+    del params, stats, batches
+    gc.collect()
+
+    phase(f"ssm/audio: whisper-small prefill(frames) of 4 x "
+          f"{WHISPER_PROMPT}-token requests + {NEW_TOKENS} greedy steps "
+          f"against teacher-forced forwards")
+    prompts = np.stack([data.sequence(95_000_000 + i, WHISPER_PROMPT)
+                        for i in range(4)]).astype(np.int32)
+    frames = torch.as_tensor(frames_of(4), device=dev)
+
+    def encode_decode():
+        cache = model.init_cache(4, WHISPER_PROMPT + NEW_TOKENS, device=dev)
+        logits, cache = model.prefill(qparams, torch.as_tensor(
+            prompts, device=dev), cache, frames=frames)
+        toks = [logits[:, 0, :cfg.vocab_size].argmax(-1).int()]
+        t0 = time.perf_counter()
+        for _ in range(NEW_TOKENS - 1):
+            logits, cache = model.decode_step(qparams, cache, toks[-1][:, None])
+            toks.append(logits[:, 0, :cfg.vocab_size].argmax(-1).int())
+        torch.cuda.synchronize()
+        wt["decode"] = time.perf_counter() - t0
+        return torch.stack(toks, 1).cpu().numpy()
+
+    t0 = time.perf_counter()
+    toks, counts["whisper prefill(frames) + decode"] = counted(kernels,
+                                                               encode_decode)
+    wt["prefill + decode"] = time.perf_counter() - t0
+    print(f"  4 requests: prefill + {NEW_TOKENS} tokens each in "
+          f"{wt['prefill + decode']:.2f} s; {NEW_TOKENS - 1} decode steps at "
+          f"B 4: {4 * (NEW_TOKENS - 1) / wt['decode']:.1f} tok/s", flush=True)
+    worst = 0.0
+    for i in range(4):
+        margin, _ = teacher_forced(model, qparams, prompts[i], toks[i], dev,
+                                   extra={"frames": frames[i:i + 1]})
+        worst = max(worst, float(margin.max()))
+    print(f"  every request greedy up to ties against a teacher-forced "
+          f"forward over its frames: worst margin {worst:.4f} (tol "
+          f"{TIE_TOL})", flush=True)
+    check(worst <= TIE_TOL, "whisper decode off the teacher-forced argmax")
+    print(f"  whisper seconds: " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in wt.items()),
+          flush=True)
+    print(f"  whisper max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model, qparams
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -2578,15 +3049,14 @@ def packed_checkpoint_path(dev, kernels, model, qparams, reqs, results):
     return counts
 
 
-def teacher_forced(model, qparams, prompt, toks, dev, patches=None):
+def teacher_forced(model, qparams, prompt, toks, dev, extra=None):
     """Per generated token: how far its logit lies below the top logit of
     a teacher-forced exact-length forward over prompt + tokens (0 where it
-    is the argmax), and that position's top-2 gap.  ``patches`` (1, P, d)
-    are prepended for a VLM."""
+    is the argmax), and that position's top-2 gap.  ``extra`` joins the
+    forward's batch: a VLM's ``patches`` (1, P, d), whisper's ``frames``
+    (1, T_enc, d)."""
     seq = np.concatenate([prompt, toks[:-1]]).astype(np.int32)
-    batch = {"tokens": torch.as_tensor(seq, device=dev)[None]}
-    if patches is not None:
-        batch["patches"] = patches
+    batch = dict(extra or {}, tokens=torch.as_tensor(seq, device=dev)[None])
     logits = model.forward(qparams, batch)[0][0, len(prompt) - 1:].float()
     top2 = logits.topk(2, dim=-1).values
     chosen = logits.gather(1, torch.as_tensor(
@@ -2611,17 +3081,21 @@ def check_teacher_forced(name, model, qparams, reqs, results, dev):
 
 def counted(kernels, fn):
     """Run ``fn`` with every launch counter set to 0 just before it; returns
-    (its result, the counts read just after).  The counters are then put
-    back as they were, so a path counted inside another leaves the outer
-    path's counts alone."""
-    outer = [k.launches for k in kernels]
+    (its result, the counts read just after: {symbol: n} and, for the
+    routes the wrappers name, {(symbol, route): n}).  The counters are then
+    put back as they were, so a path counted inside another leaves the
+    outer path's counts alone."""
+    outer = [(k.launches, k.routes.copy()) for k in kernels]
     for kern in kernels:
         kern.launches = 0
+        kern.routes.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = {k.symbol: k.launches for k in kernels}
-    for kern, n in zip(kernels, outer):
-        kern.launches = n
+    counts.update({(k.symbol, route): n for k in kernels
+                   for route, n in k.routes.items()})
+    for kern, (n, routes) in zip(kernels, outer):
+        kern.launches, kern.routes = n, routes
     return out, counts
 
 
@@ -3325,13 +3799,23 @@ def main():
                "flash_verify_paged_q8": fd.VERIFY_PAGED_Q8,
                "rms_norm": rn.KERNEL, "flash_attention_bwd": fa.KERNEL_BWD,
                "rms_norm_bwd": rn.KERNEL_BWD}
-    # the families' routes: (row, kernel, the family whose paths launch it)
-    routes = [("flash_attention_g6", fa.KERNEL, "VLM"),
-              ("flash_decode_g6", fd.KERNEL, "VLM"),
-              ("flash_decode_ring_g5", fd.KERNEL, "hymba")]
+    # the families' routes: (row, kernel, the family whose paths launch it,
+    # the routes the wrapper names that the row counts)
+    routes = [("flash_attention_g6", fa.KERNEL, "VLM",
+               lambda r: r.startswith("G6 ")),
+              ("flash_decode_g6", fd.KERNEL, "VLM",
+               lambda r: r.startswith("G6 ")),
+              ("flash_decode_ring_g5", fd.KERNEL, "hymba",    # its cache
+               lambda r: r.startswith("G5 ")),                 # is the ring
+              ("flash_attention_noncausal_g1", fa.KERNEL, "whisper",
+               lambda r: r == "G1 hd64 not causal"),
+              ("flash_decode_g1", fd.KERNEL, "whisper",
+               lambda r: r == f"G1 hd64 S{WHISPER_PROMPT + NEW_TOKENS}"),
+              ("flash_decode_cross_g1", fd.KERNEL, "whisper",
+               lambda r: r == f"G1 hd64 S{WHISPER_FRAMES}")]
     kernels = tuple(by_name.values())
     rows = {r["name"]: r for r in kernel_phase(dev)}
-    names = list(by_name) + [name for name, _, _ in routes]
+    names = list(by_name) + [name for name, *_ in routes]
     check(sorted(rows) == sorted(names), f"kernel rows {sorted(rows)}")
     rows = [rows[name] for name in names]
     phase("reference: tiny model, card against CPU")
@@ -3344,18 +3828,24 @@ def main():
     train_counts.update(moe_paths(dev, kernels))
     phase("main path: the VLM and hybrid families (qwen2-vl-2b, hymba-1.5b)")
     family_counts = families_paths(dev, kernels)
+    phase("main path: the ssm and audio families (xlstm-350m, "
+          "whisper-small)")
+    family_counts.update(ssm_audio_paths(dev, kernels))
     train_counts.update(family_counts)
     for path, counts in train_counts.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
         for sym, n in counts.items():
-            launches[sym] += n
+            if sym in launches:
+                launches[sym] += n
     for row, kern in zip(rows, kernels):
         row.update(row_keys.get(row["name"], {}))
         row["launches"] = launches[kern.symbol]
-    for row, (_, kern, family) in zip(rows[len(kernels):], routes):
-        row["launches"] = sum(counts[kern.symbol] for path, counts
-                              in family_counts.items()
-                              if path.startswith(family))
+    for row, (_, kern, family, takes) in zip(rows[len(kernels):], routes):
+        row["launches"] = sum(
+            n for path, counts in family_counts.items()
+            if path.startswith(family) for key, n in counts.items()
+            if isinstance(key, tuple) and key[0] == kern.symbol
+            and takes(key[1]))
     for row in rows:
         check(row["launches"] > 0,
               f"{row['name']} was not launched on the main path")

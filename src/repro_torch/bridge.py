@@ -2,7 +2,8 @@
 port's parameters.
 
 The input is what ``jax.tree_util.tree_map(np.asarray, params)`` gives
-for a ``repro`` tree: nested dicts whose leaves are numpy arrays
+for a ``repro`` tree: nested dicts whose leaves are numpy arrays (bf16
+ones included, as ml_dtypes gives them)
 (layer-stacked ``(L, ...)`` leaves stay stacked) or quantized-tensor
 objects carrying ``codes``, ``scale``, ``zero``, ``act_scale`` arrays and
 ``spec`` (with ``bits``, ``group_size``, ``symmetric``), ``n_in`` and
@@ -19,7 +20,11 @@ from repro_torch.device import resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True), device=device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":    # ml_dtypes' bf16, which torch cannot read
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.as_tensor(a, device=device)
 
 
 def _is_quantized(obj) -> bool:

@@ -11,6 +11,7 @@ checks.  There is no fallback: a source that does not build raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -109,7 +110,9 @@ class Kernel:
 
     ``launches`` counts successful launches through :meth:`launch` — the
     only place the kernel is started — so a run can show that its main
-    path went through the kernel.
+    path went through the kernel.  ``routes`` counts the same launches by
+    the route a wrapper names (its shape class, e.g. "G1 hd64 not
+    causal"), so a run can show which of them it took.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -117,6 +120,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.routes = collections.Counter()
         self._fn = None
 
     def lib(self) -> ctypes.CDLL:
@@ -130,13 +134,15 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, route: Optional[str] = None) -> None:
         err = self._function()(*args)
         if err != 0:
             msg = self.lib().repro_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error "
                                f"{err} ({msg})")
         self.launches += 1
+        if route is not None:
+            self.routes[route] += 1
 
 
 PTR = ctypes.c_void_p

@@ -111,7 +111,8 @@ def _forward(q4, k, v, causal, kv_lens, with_lse):
                       out.data_ptr(), bkh, g, t, width, int(causal),
                       hd ** -0.5, int(bf16), lens_ptr, per_len,
                       None if lse is None else lse.data_ptr(),
-                      torch.cuda.current_stream(q4.device).cuda_stream)
+                      torch.cuda.current_stream(q4.device).cuda_stream,
+                      route=f"G{g} hd{hd} {'' if causal else 'not '}causal")
     if width != hd:
         out = out[..., :hd].contiguous()
     return out, lse

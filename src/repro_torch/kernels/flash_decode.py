@@ -161,9 +161,12 @@ def _launch(kernel, q, caches, extra, lens, shape, window, burst=False):
     if burst:
         ints = [ints[0], t, *ints[1:]]
     out = torch.empty_like(q)
+    route = f"G{g} hd{hd} S{s_logical}" + (f" window {window}" if window
+                                           else "")
     kernel.launch(*_ptrs(q, *caches, *extra, lens, po, pm, pl, counters, out),
                   *ints, SPLIT, 0 if window is None else int(window),
-                  hd ** -0.5, int(q.dtype == torch.bfloat16), stream)
+                  hd ** -0.5, int(q.dtype == torch.bfloat16), stream,
+                  route=route)
     return out
 
 

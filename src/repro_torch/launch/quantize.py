@@ -25,7 +25,7 @@ from repro_torch.core.methods import DEFAULT_ALPHA_GRID, site_stat_for_method
 from repro_torch.data.synthetic import calibration_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist import checkpoint as ckpt
-from repro_torch.launch.serve import data_for, load_params
+from repro_torch.launch.serve import TOKEN_ARCHS, data_for, load_params
 from repro_torch.models.registry import build_model
 
 
@@ -66,7 +66,7 @@ def save_packed(out: str, qparams) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="llama3-8b", choices=TOKEN_ARCHS)
     ap.add_argument("--tiny", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--device", default="cuda",

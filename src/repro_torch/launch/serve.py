@@ -72,6 +72,13 @@ def parse_at(arg):
             f"expected comma-separated integers, got {arg!r}")
 
 
+# the architectures the CLIs drive: every batch they make is tokens only,
+# and whisper (the audio family) needs frame embeddings beside them (its
+# entry points take ``frames=``; the reference's CLIs pass none either)
+TOKEN_ARCHS = sorted(name for name, cfg in ARCHS.items()
+                     if cfg.family != "audio")
+
+
 def data_for(cfg) -> SyntheticLM:
     """The synthetic token source for ``cfg`` (vocabulary capped at
     :data:`DATA_VOCAB_CAP`)."""
@@ -93,7 +100,7 @@ def load_params(ckpt_dir: str, params):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="llama3-8b", choices=TOKEN_ARCHS)
     ap.add_argument("--tiny", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--device", default="cuda",

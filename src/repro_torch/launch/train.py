@@ -21,14 +21,14 @@ import time
 from repro_torch.configs import ARCHS
 from repro_torch.device import resolve_device
 from repro_torch.dist import checkpoint as ckpt
-from repro_torch.launch.serve import data_for
+from repro_torch.launch.serve import TOKEN_ARCHS, data_for
 from repro_torch.models.registry import build_model
 from repro_torch.train.trainer import TrainConfig, make_train_step
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="llama3-8b", choices=TOKEN_ARCHS)
     ap.add_argument("--shape", default=None,
                     help="a production shape cell (needs a device mesh)")
     ap.add_argument("--tiny", action=argparse.BooleanOptionalAction,

@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, RoPE, chunked attention, SwiGLU, linears.
+"""Shared model primitives: init, norms, RoPE, chunked attention, SwiGLU,
+linears.
 
 All weights are stored ``(n_in, n_out)`` (``y = x @ W``) so the quantizer's
 input-channel-group convention applies directly.  Every quantizable matmul
@@ -12,6 +13,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
@@ -24,6 +26,52 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, n_in: int, n_out: int, dtype, device,
+               scale: Optional[float] = None,
+               stack: Optional[int] = None) -> torch.Tensor:
+    """An (n_in, n_out) matrix, or ``stack`` of them (L, n_in, n_out), drawn
+    from ``gen`` normal with std ``scale`` (default ``1/sqrt(n_in)``).  Each
+    matrix is drawn in f32 and cast to ``dtype``, so the f32 temporary is
+    one matrix."""
+    scale = (1.0 / n_in) ** 0.5 if scale is None else scale
+    return normal_init(gen, (n_in, n_out), scale, dtype, device, stack)
+
+
+def normal_init(gen: torch.Generator, shape: tuple, scale: float, dtype,
+                device, stack: Optional[int] = None) -> torch.Tensor:
+    """``shape``, or (stack, *shape), of normal draws from ``gen`` times
+    ``scale``, one ``shape`` at a time in f32, cast to ``dtype``."""
+    shape = tuple(shape)
+    out = torch.empty(shape if stack is None else (stack,) + shape,
+                      dtype=dtype, device=device)
+    for view in (out,) if stack is None else out:
+        view.copy_(torch.randn(shape, generator=gen, device=device) * scale)
+    return out
+
+
+def run_block(remat: bool, block, *args):
+    """``block(*args)``; with ``remat`` and grad enabled its activations are
+    recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
+def stack_layer_stats(per_layer: list) -> dict:
+    """Per-layer ``{site: {key: tensor}}`` -> ``{site: {key: (L, ...)}}``
+    (empty when the layers collected nothing)."""
+    if not per_layer or not per_layer[0]:
+        return {}
+    return {site: {key: torch.stack([s[site][key] for s in per_layer])
+                   for key in per_layer[0][site]}
+            for site in per_layer[0]}
+
+
+# ---------------------------------------------------------------------------
 # Linear dispatch (FP or quantized)
 # ---------------------------------------------------------------------------
 
@@ -32,6 +80,22 @@ def qlinear(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         return quant_matmul(x, w)
     return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms (rms_norm is the kernel imported above)
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with bias over the last axis, in f32, cast to x's dtype
+    (whisper).  Plain PyTorch on any device, as the reference's is plain
+    jnp."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = torch.square(x32 - mu).mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -201,23 +265,30 @@ def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 LM_HEAD_ROWS = 64
 
 
-def _fixed_rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` computed in products of exactly :data:`LM_HEAD_ROWS` rows,
-    each read from a freshly allocated zero-padded buffer.  The library
-    GEMM picks its kernel, and so its summation order, from the shape and
-    the operands' alignment; fixing both makes a row's bits independent of
-    how many rows come with it (a decode step of any batch, a verify pass
-    of B * (K + 1) rows)."""
-    lead, d = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, d)
-    w = w.to(x.dtype)
+def _fixed_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a ``fn`` that maps rows (axis 0) independently,
+    computed on blocks of exactly :data:`LM_HEAD_ROWS` rows, each read from
+    a freshly allocated zero-padded buffer.  A library GEMM picks its
+    kernel, and so its summation order, from the shape and the operands'
+    alignment; fixing both makes a row's bits independent of how many rows
+    come with it (a decode step of any batch, a verify pass of B * (K + 1)
+    rows)."""
     outs = []
-    for i in range(0, x2.shape[0], LM_HEAD_ROWS):
-        rows = x2[i:i + LM_HEAD_ROWS]
-        buf = torch.zeros((LM_HEAD_ROWS, d), dtype=x.dtype, device=x.device)
+    for i in range(0, x.shape[0], LM_HEAD_ROWS):
+        rows = x[i:i + LM_HEAD_ROWS]
+        buf = torch.zeros((LM_HEAD_ROWS,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
         buf[:rows.shape[0]] = rows
-        outs.append(torch.matmul(buf, w)[:rows.shape[0]])
-    return torch.cat(outs).reshape(lead + (w.shape[-1],))
+        outs.append(fn(buf)[:rows.shape[0]])
+    return torch.cat(outs)
+
+
+def _fixed_rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over any leading dims, in :func:`_fixed_rows` blocks."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    w = w.to(x.dtype)
+    return _fixed_rows(lambda rows: torch.matmul(rows, w),
+                       x.reshape(-1, d)).reshape(lead + (w.shape[-1],))
 
 
 def logits_from_hidden(x: torch.Tensor, lm_head, vocab_size: int) -> torch.Tensor:

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.stats import site_stat
@@ -30,10 +29,10 @@ from repro_torch.kernels.ops import (decode_attention, decode_attention_q8,
                                     paged_verify_attention,
                                     paged_verify_attention_q8,
                                     verify_attention, verify_attention_q8)
-from .common import (apply_rope, chunked_attention, embed_tokens,
-                     last_valid_hidden, logits_from_hidden, padded_vocab,
-                     qlinear, quantize_kv, rms_norm, update_cache_at,
-                     update_pages_at)
+from .common import (apply_rope, chunked_attention, dense_init,
+                     embed_tokens, last_valid_hidden, logits_from_hidden,
+                     padded_vocab, qlinear, quantize_kv, rms_norm, run_block,
+                     stack_layer_stats, update_cache_at, update_pages_at)
 
 
 def _layer(blocks: dict, l: int) -> dict:
@@ -64,13 +63,8 @@ class DenseLM:
         n_layers = cfg.n_layers
 
         def dense(n_in, n_out, scale=None, stack=None):
-            scale = (1.0 / n_in) ** 0.5 if scale is None else scale
-            shape = (n_in, n_out) if stack is None else (stack, n_in, n_out)
-            out = torch.empty(shape, dtype=self.dtype, device=dev)
-            for view in (out,) if stack is None else out:
-                view.copy_(torch.randn((n_in, n_out), generator=gen,
-                                       device=dev) * scale)
-            return out
+            return dense_init(gen, n_in, n_out, self.dtype, dev, scale=scale,
+                              stack=stack)
 
         def ones(*shape):
             return torch.ones(shape, dtype=self.dtype, device=dev)
@@ -216,25 +210,14 @@ class DenseLM:
         and the final norm.  Returns (hidden, stacked stats, moe_aux)."""
         per_layer, layer_aux = [], []
         blocks = params["blocks"]
-        remat = self.cfg.remat and torch.is_grad_enabled()
         for l in range(self.cfg.n_layers):
-            if remat:
-                x, stats, aux = checkpoint(self._forward_block,
-                                           _layer(blocks, l), x, positions,
-                                           collect_stats,
-                                           use_reentrant=False)
-            else:
-                x, stats, aux = self._forward_block(_layer(blocks, l), x,
-                                                    positions, collect_stats)
+            x, stats, aux = run_block(self.cfg.remat, self._forward_block,
+                                      _layer(blocks, l), x, positions,
+                                      collect_stats)
             per_layer.append(stats)
             layer_aux.append(aux)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        stacked = {}
-        if collect_stats:
-            stacked = {site: {key: torch.stack([s[site][key]
-                                                for s in per_layer])
-                              for key in per_layer[0][site]}
-                       for site in per_layer[0]}
+        stacked = stack_layer_stats(per_layer) if collect_stats else {}
         moe_aux = (torch.zeros((), device=x.device)
                    if layer_aux[0] is None else torch.stack(layer_aux).mean())
         return x, stacked, moe_aux

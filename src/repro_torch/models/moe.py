@@ -36,7 +36,7 @@ from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import quant_matmul_experts
-from .common import NEG_INF, padded_vocab, qlinear, rms_norm
+from .common import NEG_INF, normal_init, padded_vocab, qlinear, rms_norm
 from .dense import DenseLM
 
 
@@ -172,12 +172,7 @@ class MoELM(DenseLM):
 
         def normal(shape, n_in, scale=None):
             scale = (1.0 / n_in) ** 0.5 if scale is None else scale
-            out = torch.empty((n_layers,) + shape, dtype=self.dtype,
-                              device=dev)
-            for view in out:
-                view.copy_(torch.randn(shape, generator=gen, device=dev)
-                           * scale)
-            return out
+            return normal_init(gen, shape, scale, self.dtype, dev, n_layers)
 
         def ones(*shape):
             return torch.ones(shape, dtype=self.dtype, device=dev)

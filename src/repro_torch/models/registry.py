@@ -1,5 +1,5 @@
-"""Model registry: build an architecture from its config (the dense, MoE,
-VLM and hybrid families so far; the others arrive with their slices)."""
+"""Model registry: build an architecture from its config (every family
+of the reference: dense, MoE, VLM, hybrid, ssm and audio)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -7,12 +7,16 @@ from .dense import DenseLM
 from .hymba import HymbaLM
 from .moe import MoELM
 from .vlm import VLM
+from .whisper import WhisperLM
+from .xlstm import XLSTMLM
 
 FAMILIES = {
     "dense": DenseLM,
     "moe": MoELM,
     "vlm": VLM,
     "hybrid": HymbaLM,
+    "ssm": XLSTMLM,
+    "audio": WhisperLM,
 }
 
 
@@ -20,6 +24,6 @@ def build_model(cfg: ModelConfig):
     try:
         cls = FAMILIES[cfg.family]
     except KeyError:
-        raise ValueError(f"unknown or not yet ported family {cfg.family!r} "
-                         f"for {cfg.name}") from None
+        raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}") \
+            from None
     return cls(cfg)

@@ -2,9 +2,10 @@
 
 Dense cache trees share one batch convention: the ``len`` leaf is
 ``(B,)`` and every other leaf is ``(L, B, ...)`` — batch on axis 1,
-nested dicts included (hymba's ``mamba`` state: ``h`` (L, B, d_inner, S),
-``conv`` (L, B, k-1, d_inner)); :func:`write_slot` and
-:func:`merge_slots` rely only on that and walk the tree.  Page stores
+nested dicts, lists and tuples included (hymba's ``mamba`` state: ``h``
+(L, B, d_inner, S), ``conv`` (L, B, k-1, d_inner); xLSTM's ``mlstm`` dict
+and its ``slstm`` list of four (L, B, H, hd) arrays); :func:`write_slot`
+and :func:`merge_slots` rely only on that and walk the tree.  Page stores
 have leaves ``(L, P, KH, ps, d)``; :func:`scatter_prefill_pages` and
 :func:`copy_page` move whole pages.  Every op updates its target in place
 (the reference's functional updates return a copy of the whole cache).
@@ -18,12 +19,19 @@ def _batch_axis(leaf: torch.Tensor) -> int:
     return 0 if leaf.dim() == 1 else 1
 
 
-def write_slot(batched_cache: dict, single_cache: dict, slot: int) -> dict:
+def _pairs(batched, other):
+    """(batched leaf or subtree, the other's) pairs of a dict, list or
+    tuple node."""
+    if isinstance(batched, dict):
+        return [(b, other[key]) for key, b in batched.items()]
+    return list(zip(batched, other, strict=True))
+
+
+def write_slot(batched_cache, single_cache, slot: int):
     """Write a batch-1 cache into slot ``slot`` of the batched cache
     (in place); returns ``batched_cache``."""
-    for key, b in batched_cache.items():
-        s = single_cache[key]
-        if isinstance(b, dict):
+    for b, s in _pairs(batched_cache, single_cache):
+        if isinstance(b, (dict, list, tuple)):
             write_slot(b, s, slot)
         elif _batch_axis(b) == 0:
             b[slot] = s[0].to(b.dtype)
@@ -32,16 +40,15 @@ def write_slot(batched_cache: dict, single_cache: dict, slot: int) -> dict:
     return batched_cache
 
 
-def merge_slots(cache: dict, new_cache: dict, admit_mask: torch.Tensor) -> dict:
+def merge_slots(cache, new_cache, admit_mask: torch.Tensor):
     """Per-slot select between two same-shape caches, in place.
 
     Rows where ``admit_mask`` (B,) bool is True are copied from
     ``new_cache`` (the freshly prefilled scratch) into ``cache``; the
     other rows (live slots) are untouched.  Returns ``cache``."""
     rows = torch.nonzero(admit_mask).reshape(-1)
-    for key, old in cache.items():
-        new = new_cache[key]
-        if isinstance(old, dict):
+    for old, new in _pairs(cache, new_cache):
+        if isinstance(old, (dict, list, tuple)):
             merge_slots(old, new, admit_mask)
         elif _batch_axis(old) == 0:
             old[rows] = new[rows].to(old.dtype)

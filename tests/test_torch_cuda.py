@@ -42,6 +42,13 @@ a second call; flash_attention's at T off the 64-row tile, hd 36 / 64 /
 128, G 1 / 3 / 4 / 8 / 16, causal or not, unaligned bases, T 4096 and
 from a thread that has made no CUDA call yet.
 
+The ssm and audio families: flash_attention not causal at G 1 / hd 64 up
+to T 1536 (whisper's encoder), flash_decode at G 1 / hd 64 over a self
+cache and a full 1536-key cross cache, quant_matmul at their seven site
+widths (rows independent of m), xLSTM's four float decode products and
+its decode logits at B 1 / 2 / 4 bit for bit, the tiny models on the
+card against the CPU and xLSTM's engine == ``generate``.
+
 Prefill: flash_attention with a key length per batch row (bucket padding)
 is held to the plain version with the same lengths, and each prompt's
 valid rows equal the prompt run alone at its exact length bit for bit
@@ -1315,6 +1322,238 @@ def test_vlm_and_hymba_engine_equals_generate_on_the_card(dev, arch):
     gen = torch.Generator().manual_seed(3)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
                for n in (5, 30, 17, 50, 9, 3)]
+    eng = ServeEngine(model, qd, n_slots=4, max_len=96, device=dev)
+    res = eng.serve([Request(rid=i, prompt=p, max_new_tokens=12)
+                     for i, p in enumerate(prompts)])
+    for i, p in enumerate(prompts):
+        alone = eng.generate(Request(rid=10 + i, prompt=p, max_new_tokens=12))
+        assert torch.equal(torch.as_tensor(res[i]), torch.as_tensor(alone)), i
+
+
+# -- the ssm and audio families (xlstm-350m, whisper-small) -----------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [37, 512, 1536])
+def test_flash_attention_whisper_noncausal_g1_hd64_matches_plain(dev, t,
+                                                                 dtype):
+    """whisper's encoder self-attention: MHA (G 1), hd 64, not causal, T up
+    to its 1536 frames; one launch, counted under its route, the same bits
+    twice."""
+    gen = torch.Generator(device=dev).manual_seed(t + 64)
+    q = torch.randn(6, 1, t, 64, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(6, t, 64, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    before = fa.KERNEL.launches
+    routed = fa.KERNEL.routes["G1 hd64 not causal"]
+    got = fa.flash_attention(q, k, v, causal=False)
+    assert fa.KERNEL.launches == before + 1
+    assert fa.KERNEL.routes["G1 hd64 not causal"] == routed + 1
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(fa.flash_attention(q, k, v, causal=False), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,lens", [
+    (132, [13, 100, 131, 1]),                    # self-attention decode
+    (1536, [1536, 1536, 1536, 1536])])           # cross-attention
+def test_flash_decode_whisper_g1_hd64_matches_plain(dev, s, lens, dtype):
+    """whisper's decode attention at G 1 (12 heads, 12 KV heads), hd 64: the
+    self cache at mixed lengths and the cross cache over all 1536 encoder
+    keys; one launch, counted under its route, the same bits twice, a
+    slot's bits whatever else is in the batch."""
+    gen = torch.Generator(device=dev).manual_seed(s + lens[0])
+    q = torch.randn(4, 1, 12, 64, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(4, 12, s, 64, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = fd.KERNEL.launches
+    routed = fd.KERNEL.routes[f"G1 hd64 S{s}"]
+    got = fd.flash_decode(q, k, v, cl)
+    assert fd.KERNEL.launches == before + 1
+    assert fd.KERNEL.routes[f"G1 hd64 S{s}"] == routed + 1
+    want = fd.decode_attention_ref(q, k, v, cl)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(fd.flash_decode(q, k, v, cl), got)
+    alone = torch.cat([fd.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                       cl[i:i + 1]) for i in range(4)])
+    assert torch.equal(alone, got)
+    pair = fd.flash_decode(q[2:], k[2:], v[2:], cl[2:])
+    assert torch.equal(pair, got[2:])
+
+
+# the new (k, n) site widths: xlstm's up_proj / w_in, wq / wk / wv,
+# down_proj, out_proj; whisper's attention, w1, w2
+@pytest.mark.parametrize("k,n", [(1024, 4096), (2048, 2048), (2048, 1024),
+                                 (1024, 1024), (768, 768), (768, 3072),
+                                 (3072, 768)])
+def test_quant_matmul_ssm_and_audio_widths(dev, k, n):
+    """g 64 at decode m 1..4 and at calibration m (8192 rows: 16 x 512),
+    against the plain version; a row's bits are those of the 8192-row
+    call."""
+    gen = torch.Generator(device=dev).manual_seed(k * 7 + n)
+    codes, scale, zero = _packed(k, n, 64, gen)
+    x = torch.randn(8192, k, generator=gen, device=dev).bfloat16()
+    before = qm.KERNEL.launches
+    full = qm.quant_matmul(x, codes, scale, zero)
+    assert qm.KERNEL.launches == before + 1
+    _bf16_close(full, qm.quant_matmul_ref(x, codes, scale, zero),
+                rel_tol=EXACT_REL_TOL)
+    for m in (1, 2, 3, 4):
+        got = qm.quant_matmul(x[:m].contiguous(), codes, scale, zero)
+        _bf16_close(got, qm.quant_matmul_ref(x[:m], codes, scale, zero),
+                    rel_tol=EXACT_REL_TOL)
+        assert torch.equal(got, full[:m]), m
+
+
+def _rows_of_batch_1(fn, *xs):
+    """fn at B 4, its first two rows at B 2 and each row alone: equal bits."""
+    full = fn(*xs)
+    assert torch.equal(fn(*(x[:2] for x in xs)), full[:2])
+    for i in range(4):
+        assert torch.equal(fn(*(x[i:i + 1].clone() for x in xs)),
+                           full[i:i + 1]), i
+    return full
+
+
+def test_xlstm_float_products_do_not_depend_on_the_batch(dev):
+    """The four float products of an xLSTM decode step at full width
+    (d_inner 2048, 4 heads: mLSTM head 512, sLSTM head 256), each at B 1 /
+    2 / 4 bit for bit: the gates ``xi @ w_gates`` (2048 -> 8, bf16, fixed
+    row blocks), the mLSTM read-out ``bhd,bhde->bhe`` and normaliser
+    ``bhd,bhd->bh`` (f32, one slot at a time) and the sLSTM recurrence
+    ``bhd,ghde->bghe`` (f32, fixed row blocks)."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    w_gates = (rnd(2048, 8) * 0.01).bfloat16()
+    _rows_of_batch_1(lambda x: ssm._float_linear(x, w_gates),
+                     rnd(4, 1, 2048).bfloat16())
+    q, n = rnd(4, 4, 512), rnd(4, 4, 512)
+    C = rnd(4, 4, 512, 512)
+    got = _rows_of_batch_1(lambda a, b: ssm._per_slot(ssm._readout, a, b),
+                           q, C)
+    torch.testing.assert_close(got, torch.einsum("bhd,bhde->bhe", q, C),
+                               atol=1e-3, rtol=1e-5)
+    _rows_of_batch_1(lambda a, b: ssm._per_slot(ssm._normaliser, a, b), q, n)
+    r = rnd(4, 4, 256, 256) * 256 ** -0.5
+    got = _rows_of_batch_1(lambda h: ssm._recurrence(h, r), rnd(4, 4, 256))
+    assert got.shape == (4, 4, 4, 256)
+
+
+@pytest.fixture(scope="module")
+def xlstm_full_width():
+    """xlstm-350m at full width (d_model 1024, 4 heads, d_inner 2048, vocab
+    50304) and 4 of its 24 layers (layer 3 an sLSTM block), random bf16
+    weights packed to int4 by RTN (g = 64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    cfg = ARCHS["xlstm-350m"].scaled(n_layers=4)
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    qp, _ = quantize_model(params, model.quant_site_map(), None,
+                           method="rtn", spec=QuantSpec(4, 64),
+                           mode="packed")
+    return model, qp
+
+
+def test_xlstm_decode_logits_do_not_depend_on_the_batch(xlstm_full_width):
+    """Four prompts (5..300 tokens) prefilled alone at their exact lengths
+    and written into a 4-slot state, then 3 decode steps: each step's
+    logits at B 4, 2 and 1 (the same slots' state) equal bit for bit."""
+    from repro_torch.serve.cache_ops import write_slot
+
+    model, qp = xlstm_full_width
+    gen = torch.Generator().manual_seed(1)
+    cache = model.init_cache(4, 512)
+    last = []
+    for s, n in enumerate((5, 64, 130, 300)):
+        toks = torch.randint(1, 4096, (1, n), generator=gen).int().cuda()
+        logits, one = model.prefill(qp, toks, model.init_cache(1, 512))
+        write_slot(cache, one, s)
+        last.append(int(logits[0, 0, :model.cfg.vocab_size].argmax()))
+    nxt = torch.tensor(last, dtype=torch.int32, device="cuda")[:, None]
+
+    def sub(c, b):
+        return {"mlstm": {k: v[:, :b].clone() for k, v in c["mlstm"].items()},
+                "slstm": [v[:, :b].clone() for v in c["slstm"]],
+                "len": c["len"][:b].clone()}
+
+    for _ in range(3):
+        logits = {}
+        for b in (2, 1):
+            logits[b], _ = model.decode_step(qp, sub(cache, b), nxt[:b])
+        logits[4], cache = model.decode_step(qp, cache, nxt)
+        for b in (2, 1):
+            assert torch.equal(logits[b], logits[4][:b]), b
+        nxt = logits[4][:, 0, :model.cfg.vocab_size].argmax(-1).int()[:, None]
+
+
+def _ssm_audio_setup(arch, dtype, dev_params):
+    """A tiny model of ``arch`` in ``dtype``, FAQ-packed on the CPU, and a
+    calibration batch (frames for whisper)."""
+    from repro_torch.bridge import tree_to
+    from repro_torch.core import run_calibration
+
+    cfg = ARCHS[arch].tiny().scaled(dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(0, device=torch.device("cpu"))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, cfg.encoder_len, cfg.d_model,
+                                      generator=gen) * 0.1
+    stats = run_calibration(model.forward, params, [batch])
+    qp, _ = quantize_model(params, model.quant_site_map(), stats,
+                           method="faq", spec=QuantSpec(4, 64), mode="packed")
+    return cfg, model, qp, tree_to(qp, dev_params), batch
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-small"])
+def test_xlstm_and_whisper_tiny_forward_and_decode_on_the_card(dev, arch):
+    """The tiny model in f32 on the card (kernels) against the same packed
+    weights on the CPU (plain versions), within 1e-4: the forward (whisper
+    with frames: its encoder through the non-causal attention kernel),
+    then prefill and 20 decode steps (xlstm's recurrent states; whisper's
+    self and cross decode launches)."""
+    cfg, model, qp, qd, batch = _ssm_audio_setup(arch, "float32", dev)
+    want = model.forward(qp, batch)[0]
+    got = model.forward(qd, {k: v.to(dev) for k, v in batch.items()})[0]
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    toks = batch["tokens"][:, :20]
+    out = []
+    for device, params in ((torch.device("cpu"), qp), (dev, qd)):
+        kw = ({"frames": batch["frames"].to(device)}
+              if cfg.family == "audio" else {})
+        cache = model.init_cache(2, 64, device=device)
+        logits, cache = model.prefill(params, toks.to(device), cache, **kw)
+        seq = [logits.float().cpu()]
+        for i in range(20):
+            nxt = batch["tokens"][:, 20 + i:21 + i].int().to(device)
+            logits, cache = model.decode_step(params, cache, nxt)
+            seq.append(logits.float().cpu())
+        out.append(torch.cat(seq, 1))
+    torch.testing.assert_close(out[1], out[0], atol=1e-4, rtol=1e-4)
+
+
+def test_xlstm_engine_equals_generate_on_the_card(dev):
+    """bf16 on the card at 4 slots: every request's tokens equal batch-1
+    ``generate`` bit for bit (exact-length admission, the list-valued
+    sLSTM state written and merged per slot, batch-invariant decode)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, model, _, qd, _ = _ssm_audio_setup("xlstm-350m", "bfloat16", dev)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+               for n in (5, 30, 17, 70, 9, 3)]
     eng = ServeEngine(model, qd, n_slots=4, max_len=96, device=dev)
     res = eng.serve([Request(rid=i, prompt=p, max_new_tokens=12)
                      for i, p in enumerate(prompts)])

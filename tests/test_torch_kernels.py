@@ -224,6 +224,19 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
     rn.rms_norm(torch.randn(3, 16), torch.ones(16))
     assert [qm.KERNEL.launches, fd.KERNEL.launches, fa.KERNEL.launches,
             fd.VERIFY.launches, rn.KERNEL.launches] == before == [0] * 5
+    assert not (fd.KERNEL.routes or fa.KERNEL.routes or fd.VERIFY.routes)
+
+
+def test_kernel_counts_launches_by_route():
+    """``launch`` adds one to ``launches`` and, where the wrapper names a
+    route, to that route's count (a stand-in for the loaded function)."""
+    kern = _build.Kernel("none.cu", "none_launch", [])
+    kern._fn = lambda *args: 0
+    kern.launch(1, 2, route="G1 hd64 not causal")
+    kern.launch(route="G1 hd64 not causal")
+    kern.launch(3)
+    assert kern.launches == 3
+    assert kern.routes == {"G1 hd64 not causal": 2}
 
 
 @pytest.mark.parametrize("hd,offsets,bf16,width", [

@@ -125,7 +125,9 @@ def test_unported_model_options_raise(models):
     """Sliding-window attention is ported with the hybrid family: a dense
     config with a window of 16 gives repro's logits at T 24 (the window
     mask) and T 40 (block-local), and its decode step attends the window.
-    The families still to port (ssm, audio) raise."""
+    Every family builds, the ssm and audio ones included: each config of
+    repro.configs gives the reference's model class and site map; an
+    unknown family raises."""
     cfg = models["cfg"].scaled(sliding_window=16)
     jm, tm = j_build(cfg), t_build(cfg)
     jp, tp = models["float"]
@@ -142,9 +144,12 @@ def test_unported_model_options_raise(models):
     jl, _ = jm.decode_step(jp, jc, jnp.asarray(nxt))
     tl, _ = tm.decode_step(tp, tc, torch.as_tensor(nxt))
     np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
-    for family in ("ssm", "audio"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            t_build(models["cfg"].scaled(family=family))
+    for name, arch in sorted(ARCHS.items()):
+        jm, tm = j_build(arch.tiny()), t_build(arch.tiny())
+        assert type(tm).__name__ == type(jm).__name__, name
+        assert tm.quant_site_map() == jm.quant_site_map(), name
+    with pytest.raises(ValueError, match="unknown family"):
+        t_build(models["cfg"].scaled(family="rnn"))
 
 
 @pytest.mark.parametrize("kind", ["float", "packed"])
