@@ -67,7 +67,23 @@ Phases (any failure exits non-zero; nothing is caught):
               8) over the 24 layers' 7 sites through quant_error, its
               choices held against the plain search's.  After serving,
               the packed tree is saved by launch/quantize, restored, and
-              must serve the same tokens bit for bit.  Request 0 is
+              must serve the same tokens bit for bit.  Then tensor
+              parallelism (``tp_paths``): 2 ranks sharing the card over
+              gloo (NCCL refuses two ranks on one device; gloo stages
+              CUDA tensors through the host) restore that save, cut their
+              shards (16 / 4 heads, column / row shards, vocab halves)
+              and serve the first 4 of the 8 requests on 2 slots (each
+              slot admitted twice) dense and paged, with the bf16 and
+              the int8 KV cache: every request's tokens equal to
+              single-device on 2 slots or parting first at a tie
+              (single-device teacher-forced top-2 gap <= ``TIE_TOL``);
+              one logits all_gather per engine step, activation-sized
+              all_reduces, no all_to_all; MoE expert parallelism on
+              qwen2-moe's 2-layer cut (capacity factor 16) against the
+              local path; a 1 x 1 NCCL mesh against ``mesh=None`` bit
+              for bit.  Its tok/s is 2 ranks on one card, not a TP
+              speed; its routes are the ``*_tp2`` / ``*_ep2`` rows of
+              phase 3, whose launches are rank 0's.  Request 0 is
               served again alone through the same
               engine and must match bit for bit; every request admitted
               whole (prompt within the 512-token chunk) is regenerated
@@ -144,6 +160,12 @@ Phases (any failure exits non-zero; nothing is caught):
               cache, quant_matmul at the seven new widths) are held and
               timed in phase 3; each route row's launches are those of
               its own route (the wrappers count launches by route).
+   The tensor-parallel routes (phase 3, after the families'): each
+              rank's column and row shards of quant_matmul, decode and
+              prefill attention on its 16 / 4 heads (all four decode
+              variants), quant_matmul_experts on its 32 experts over both
+              ranks' rows, held against the plain versions and bit for
+              bit against their part of the single-device launch.
 
 The one reduction of the main path: prompt and calibration token ids
 come from a synthetic vocabulary capped at 4096 ids (the generator's
@@ -591,6 +613,7 @@ def kernel_phase(dev):
     rows.append(rms_norm_bwd_row(dev, gen, randn))
     rows += family_route_rows(dev, gen, randn)
     rows += ssm_audio_route_rows(dev, gen, randn)
+    rows += tp_route_rows(dev, gen, randn)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
@@ -785,6 +808,295 @@ def _sdpa_decode(q, kc, vc, cl):
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), kc, vc, attn_mask=keep[:, None, None, :],
         enable_gqa=True).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the sharded routes of tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+# (k, n) of one rank's column shards at model 2 (wq, wk / wv, gate / up)
+# and row shards (wo, down)
+TP_COLUMN = ((4096, 2048), (4096, 512), (4096, 7168))
+TP_ROW = ((2048, 4096), (7168, 4096))
+TP_HEADS = (16, 4)                 # llama3-8b's 32 / 8 heads over 2 ranks
+MOE_EP_CAP = 5                     # capacity of 4 decode tokens at factor 16
+
+
+def _shard_rows(name, kernel_fn, plain_fn, whole, local_args, cut, **tols):
+    """Hold each rank's launch on its shard against the plain version and,
+    bit for bit, against its part of the single-device launch
+    (``cut(whole, r)``); returns the largest error."""
+    err = 0.0
+    for r in range(TP_RANKS):
+        args = local_args(r)
+        got = kernel_fn(*args)
+        err = max(err, held(f"{name} rank {r}", got, plain_fn(*args), **tols))
+        same_bits(f"{name} rank {r}: == its part of the single-device launch",
+                  got, cut(whole, r))
+    return err
+
+
+def tp_route_rows(dev, gen, randn):
+    """The routes a rank of tensor-parallel serving launches at model 2
+    (llama3-8b's local heads and column / row shards; qwen2-moe's 32 local
+    experts over 2 ranks' rows): each held against its plain version and,
+    bit for bit, against its part of the single-device launch (a row
+    shard's two partial products, summed, against the whole product), then
+    timed beside the plain version and, where one computes the same
+    function, a library call."""
+    from repro_torch.core import QuantSpec, quantize_groupwise
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.ops import quant_matmul_experts
+    from repro_torch.kernels.ref import quant_matmul_experts_ref
+
+    phase("kernel routes of tensor-parallel serving (model 2: column / row "
+          "shards, local heads, 32 local experts)")
+    g, m, rows = 64, 4, []
+
+    def packed(k, n):
+        qt = quantize_groupwise(randn(k, n, dtype=torch.float32),
+                                QuantSpec(4, g), pack=True)
+        return qt.codes, qt.scale, qt.zero
+
+    def qmm_bytes(mm, kk, nn):
+        return (mm * kk * 2 + kk * nn // 2 + 2 * (kk // g) * nn * 4
+                + mm * nn * 2)
+
+    def cols(t, r, n):
+        return t[:, r * n:(r + 1) * n].contiguous()
+
+    timed = {}
+    for k, n in TP_COLUMN:
+        whole_c, x = packed(k, TP_RANKS * n), randn(m, k)
+        err = _shard_rows(
+            f"quant_matmul column shard m={m} {k}->{n} of {TP_RANKS * n}",
+            qm.quant_matmul, qm.quant_matmul_ref,
+            qm.quant_matmul(x, *whole_c),
+            lambda r: (x, *(cols(t, r, n) for t in whole_c)),
+            lambda w, r: w[:, r * n:(r + 1) * n], rel_tol=EXACT_REL_TOL)
+        timed[("column", k, n)] = err
+    for k, n in TP_ROW:
+        (codes, scale, zero), x = packed(TP_RANKS * k, n), randn(
+            m, TP_RANKS * k)
+        parts, err = [], 0.0
+        for r in range(TP_RANKS):
+            args = (x[:, r * k:(r + 1) * k].contiguous(),
+                    codes[r * k // 2:(r + 1) * k // 2].contiguous(),
+                    scale[r * k // g:(r + 1) * k // g].contiguous(),
+                    zero[r * k // g:(r + 1) * k // g].contiguous())
+            got = qm.quant_matmul(*args)
+            err = max(err, held(f"quant_matmul row shard rank {r} m={m} "
+                                f"{k}->{n} of {TP_RANKS * k}", got,
+                                qm.quant_matmul_ref(*args),
+                                rel_tol=EXACT_REL_TOL))
+            parts.append(got.float())
+        # the two bf16 partial products summed (what the all_reduce adds)
+        # against the single-device product: two roundings instead of one
+        held(f"quant_matmul row shards summed {TP_RANKS * k}->{n}",
+             (parts[0] + parts[1]).to(torch.bfloat16),
+             qm.quant_matmul_ref(x, codes, scale, zero),
+             rel_tol=BF16_REL_TOL)
+        timed[("row", k, n)] = err
+    for kind, (k, n) in (("column", TP_COLUMN[-1]), ("row", TP_ROW[-1])):
+        sets = [packed(k, n) for _ in range(4)]
+        x = randn(m, k)
+        ms = time_ms(lambda i: qm.quant_matmul(x, *sets[i % 4]))
+        plain = time_ms(lambda i: qm.quant_matmul_ref(x, *sets[i % 4]),
+                        reps=5)
+        b_ms, b_by = bound(qmm_bytes(m, k, n), 2 * m * k * n)
+        shapes = TP_COLUMN if kind == "column" else TP_ROW
+        rows.append(dict(
+            name=f"quant_matmul_tp2_{kind}", route="cuda",
+            source="src/repro_torch/csrc/quant_matmul.cu",
+            replaces="src/repro/kernels/quant_matmul.py:56",
+            shape=f"x ({m},{k}) bf16, codes ({k // 2},{n}), g={g}; one "
+                  f"rank's {kind} shards at model 2: "
+                  + ", ".join(f"{kk}->{nn}" for kk, nn in shapes),
+            max_abs_err=max(v for (kd, *_), v in timed.items() if kd == kind),
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,
+            library_note="none: no single PyTorch call takes this int4 "
+                         "layout"))
+        del sets
+
+    # decode attention on a rank's 16 query / 4 KV heads
+    h, kh = TP_HEADS
+    b, s, hd, ps = 4, 1024, 128, 16
+    lens = [44, 140, 332, 732]
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qw = randn(b, 1, TP_RANKS * h, hd)
+    kw, vw = (randn(b, TP_RANKS * kh, s, hd) for _ in range(2))
+    perm, table = paged_table(lens, s, ps, gen, dev)
+
+    def heads(r):
+        q = qw[:, :, r * h:(r + 1) * h].contiguous()
+        k = kw[:, r * kh:(r + 1) * kh].contiguous()
+        v = vw[:, r * kh:(r + 1) * kh].contiguous()
+        return q, k, v
+
+    def q_heads(w, r):
+        return w[:, :, r * h:(r + 1) * h]
+
+    kc8, vc8 = q8_cache(kw), q8_cache(vw)
+
+    def dense_args(r):
+        q, k, v = heads(r)
+        return q, k, v, cl
+
+    def q8_args(r):
+        q = heads(r)[0]
+        return (q, *(t[:, r * kh:(r + 1) * kh].contiguous()
+                     for t in (*kc8, *vc8)), cl)
+
+    def paged_args(r):
+        q, k, v = heads(r)
+        return (q, paged_store(k, ps, perm), paged_store(v, ps, perm), table,
+                cl)
+
+    def paged_q8_args(r):
+        q = heads(r)[0]
+        return (q, *(paged_store(t[:, r * kh:(r + 1) * kh].contiguous(), ps,
+                                 perm) for t in (*kc8, *vc8)), table, cl)
+
+    pw = [paged_store(t, ps, perm) for t in (kw, vw)]
+    pw8 = [paged_store(t, ps, perm) for t in (*kc8, *vc8)]
+    variants = [
+        ("flash_decode_tp2", "src/repro/kernels/flash_decode.py:216",
+         fd.flash_decode, fd.decode_attention_ref, dense_args,
+         fd.flash_decode(qw, kw, vw, cl), 2),
+        ("flash_decode_q8_tp2", "src/repro/kernels/flash_decode.py:250",
+         fd.flash_decode_q8, fd.decode_attention_q8_ref, q8_args,
+         fd.flash_decode_q8(qw, *kc8, *vc8, cl), 1),
+        ("flash_decode_paged_tp2", "src/repro/kernels/flash_decode.py:286",
+         fd.flash_decode_paged, fd.paged_decode_attention_ref, paged_args,
+         fd.flash_decode_paged(qw, *pw, table, cl), 2),
+        ("flash_decode_paged_q8_tp2", "src/repro/kernels/flash_decode.py:323",
+         fd.flash_decode_paged_q8, fd.paged_decode_attention_q8_ref,
+         paged_q8_args, fd.flash_decode_paged_q8(qw, *pw8[:2], *pw8[2:],
+                                                 table, cl), 1)]
+    live = sum(lens)
+    keep = (torch.arange(s, device=dev)[None, :] < cl[:, None])[:, None,
+                                                                None, :]
+    for name, replaces, kern, plain_fn, args_of, whole, elem in variants:
+        err = _shard_rows(f"{name} B={b} H={h} KH={kh} lens={lens}", kern,
+                          plain_fn, whole, args_of, q_heads)
+        args = args_of(0)
+        ms = time_ms(lambda i: kern(*args))
+        plain = time_ms(lambda i: plain_fn(*args), reps=5)
+        # K and V rows read once (int8 codes + an f32 scale per row), q
+        # read and out written once, lengths (and the page table)
+        kv_row = hd * elem + (4 if elem == 1 else 0)
+        nbytes = (2 * b * h * hd * 2 + b * 4 + live * kh * kv_row * 2
+                  + (table.numel() * 4 if "paged" in name else 0))
+        b_ms, b_by = bound(nbytes, 4 * live * h * hd)
+        lib = None
+        if name == "flash_decode_tp2":
+            q, k, v, _ = args
+
+            def sdpa(i):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k, v, attn_mask=keep, enable_gqa=True)
+
+            held(f"{name}: library call (sdpa)", sdpa(0).transpose(1, 2),
+                 plain_fn(*args))
+            lib = time_ms(sdpa)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_decode.cu", replaces=replaces,
+            shape=f"q ({b},1,{h},{hd}) bf16, one rank's {kh} of "
+                  f"{TP_RANKS * kh} KV heads, S {s}, lens {lens}"
+                  + (f", pages of {ps}" if "paged" in name else ""),
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib,
+            **({} if lib is not None else {
+                "library_note": "none: no PyTorch attention call reads "
+                                "int8 codes or a page table"})))
+
+    # prefill attention on a rank's KV heads: 4 slots x 4 KV heads, G 4
+    bkh, gq, t = b * kh, h // kh, 512
+    qf = randn(b * TP_RANKS * kh, gq, t, hd)
+    kf, vf = (randn(b * TP_RANKS * kh, t, hd) for _ in range(2))
+    whole = fa.flash_attention(qf, kf, vf, causal=True)
+
+    def kv_heads(w, r):
+        return w.reshape(b, TP_RANKS * kh, *w.shape[1:])[
+            :, r * kh:(r + 1) * kh].reshape(bkh, *w.shape[1:])
+
+    err = _shard_rows(f"flash_attention BKH={bkh} G={gq} T={t} causal",
+                      lambda *a: fa.flash_attention(*a, causal=True),
+                      lambda *a: fa.flash_attention_ref(*a, causal=True),
+                      whole, lambda r: tuple(kv_heads(w, r).contiguous()
+                                             for w in (qf, kf, vf)),
+                      kv_heads, rel_tol=BF16_REL_TOL)
+    q, k, v = (kv_heads(w, 0).contiguous() for w in (qf, kf, vf))
+    ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=True))
+    plain = time_ms(lambda i: fa.flash_attention_ref(q, k, v, causal=True),
+                    reps=5)
+
+    def sdpa_causal(i):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(b, kh * gq, t, hd), k.reshape(b, kh, t, hd),
+            v.reshape(b, kh, t, hd), is_causal=True, enable_gqa=True)
+
+    held("flash_attention_tp2: library call (sdpa)",
+         sdpa_causal(0).reshape(bkh, gq, t, hd),
+         fa.flash_attention_ref(q, k, v, causal=True))
+    lib = time_ms(sdpa_causal)
+    b_ms, b_by = bound((2 * bkh * gq * t * hd + 2 * bkh * t * hd) * 2,
+                       4 * bkh * gq * hd * t * (t + 1) / 2)
+    rows.append(dict(name="flash_attention_tp2", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:92",
+                     shape=f"q ({bkh},{gq},{t},{hd}) bf16: 4 slots x one "
+                           f"rank's {kh} of {TP_RANKS * kh} KV heads, causal",
+                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib))
+    del qf, kf, vf, whole, q, k, v
+
+    # expert parallelism: a rank's 32 experts over both ranks' rows (at
+    # decode every rank routes the same 4 tokens: capacity 5 rows each)
+    e, c, k, n = MOE_EXPERTS, MOE_EP_CAP, 2048, 1408
+    el = e // TP_RANKS
+    qt = quantize_groupwise(randn(e, k, n, dtype=torch.float32) / k ** 0.5,
+                            QuantSpec(4, g), pack=True,
+                            act_scale=torch.rand((e, k), generator=gen,
+                                                 device=dev) + 0.5)
+    xw = randn(e, c, k) / 4
+    whole = quant_matmul_experts(xw, qt)
+
+    def ep_args(r):
+        sl = slice(r * el, (r + 1) * el)
+        x = torch.cat([xw[sl]] * TP_RANKS, dim=1)
+        return x, qt[sl]
+
+    def ep_cut(w, r):
+        return torch.cat([w[r * el:(r + 1) * el]] * TP_RANKS, dim=1)
+
+    err = _shard_rows(f"quant_matmul_experts E={el} rows "
+                      f"{TP_RANKS}x{c} {k}->{n}", quant_matmul_experts,
+                      quant_matmul_experts_ref, whole, ep_args, ep_cut,
+                      rel_tol=EXACT_REL_TOL)
+    x, q_loc = ep_args(0)
+    ms = time_ms(lambda i: quant_matmul_experts(x, q_loc))
+    plain = time_ms(lambda i: quant_matmul_experts_ref(x, q_loc), reps=5,
+                    inner=2)
+    cr = TP_RANKS * c
+    b_ms, b_by = bound(el * (cr * k * 2 + k * n // 2 + 2 * (k // g) * n * 4
+                             + cr * n * 2 + k * 4), 2 * el * cr * k * n)
+    rows.append(dict(name="quant_matmul_experts_ep2", route="cuda",
+                     source="src/repro_torch/csrc/quant_matmul.cu",
+                     replaces="src/repro/kernels/ops.py:78",
+                     shape=f"x ({el},{cr},{k}) bf16: one rank's {el} of {e} "
+                           f"experts, {TP_RANKS} ranks x capacity {c} rows, "
+                           f"codes ({el},{k // 2},{n}), g={g}",
+                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None,
+                     library_note="none: no single PyTorch call takes this "
+                                  "int4 layout"))
+    return rows
 
 
 def family_route_rows(dev, gen, randn):
@@ -2042,8 +2354,8 @@ def main_path_phase(dev, kernels):
     print(f"  max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  launches on the main path: {launches}", flush=True)
-    pk_counts = packed_checkpoint_path(dev, kernels, model, qparams, reqs,
-                                       results)
+    pk_counts, tp_launches = packed_checkpoint_path(dev, kernels, model,
+                                                    qparams, reqs, results)
     counts_by_path, qe_keys = slice2_paths(dev, kernels, cfg, model, qparams,
                                            data, reqs, results, layer0)
     counts_by_path["full_search_faq"] = fs_counts
@@ -2062,7 +2374,7 @@ def main_path_phase(dev, kernels):
     print(f"  max_memory_allocated over all paths: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_phase(eng, data, Request)
-    return launches, {"quant_error": qe_keys}
+    return launches, {"quant_error": qe_keys, "tp": tp_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3010,7 +3322,9 @@ def verify_full_search(best, params, stats, sites, spec, combos, as_f32):
 def packed_checkpoint_path(dev, kernels, model, qparams, reqs, results):
     """launch/quantize's save of the main path's packed tree, restored and
     served: the 8 requests' tokens must be the in-memory packed model's
-    (``results``) bit for bit.  Returns launch counts."""
+    (``results``) bit for bit; then the tensor-parallel phase's ranks
+    restore the same save (:func:`tp_paths`).  Returns (launch counts,
+    the TP route rows' launches)."""
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.launch.quantize import save_packed
     from repro_torch.serve.engine import ServeEngine
@@ -3044,9 +3358,370 @@ def packed_checkpoint_path(dev, kernels, model, qparams, reqs, results):
         check(all(same), "the restored packed model serves other tokens")
         del eng, restored
         torch.cuda.empty_cache()
+        tp_launches = tp_paths(dev, model, qparams, reqs, results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return counts
+    return counts, tp_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5a: tensor-parallel serving, 2 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# the TP phase's requests: the dense run's first 4, on 2 slots, so each
+# slot is retired and admitted again under the mesh.  All 8 at 4 slots
+# read 164 s of phase and 1,046.8 s of script on the H100, near the
+# limit's margin, so the phase serves 4, bf16 and int8 KV alike
+TP_REQUESTS = 4
+TP_SLOTS = 2
+TP_TIMEOUT = 600
+
+
+def _tp_kernels():
+    """The kernels a rank of the TP phase launches, by row name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qm
+    return {"quant_matmul": qm.KERNEL,
+            "quant_matmul_experts": qm.KERNEL_EXPERTS,
+            "flash_decode": fd.KERNEL, "flash_decode_q8": fd.KERNEL_Q8,
+            "flash_decode_paged": fd.KERNEL_PAGED,
+            "flash_decode_paged_q8": fd.KERNEL_PAGED_Q8,
+            "flash_attention": fa.KERNEL}
+
+
+def _rank_counted(fn):
+    """``fn()`` with this rank's launch and collective counters zeroed
+    just before it; returns (its result, {kernel: launches}, {kernel:
+    {route: launches}}, collective counts)."""
+    from repro_torch.dist import collectives
+    kernels = _tp_kernels()
+    for k in kernels.values():
+        k.launches = 0
+        k.routes.clear()
+    collectives.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {n: k.launches for n, k in kernels.items()},
+            {n: dict(k.routes) for n, k in kernels.items()},
+            collectives.counts())
+
+
+def tp_rank_serve(mesh, ckpt_dir, skeleton, cfg, reqs, moe_cfg):
+    """One rank of the TP phase: restore the packed tree saved by the phase
+    before (on the host), serve the requests dense and paged with the bf16
+    and the int8 KV cache, each engine cutting its own shards; then MoE
+    expert parallelism on the 2-layer cut.  Rank 0's numbers are the
+    phase's."""
+    import gc
+
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    whole = ckpt.restore(ckpt_dir, 0, {"qparams": skeleton},
+                         device="cpu")["qparams"]
+    out = {"restore_s": time.perf_counter() - t0}
+    model = build_model(cfg)
+    model8 = build_model(cfg.scaled(kv_cache_bits=8))
+    for name, mdl, rs, paged in (("dense", model, reqs, False),
+                                 ("paged", model, reqs, True),
+                                 ("int8 dense", model8, reqs, False),
+                                 ("int8 paged", model8, reqs, True)):
+        t0 = time.perf_counter()
+        eng = ServeEngine(mdl, whole, n_slots=TP_SLOTS, max_len=1024,
+                          paged=paged, mesh=mesh, device=mesh.device)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res, launches, routes, coll = _rank_counted(lambda: eng.serve([
+            Request(rid=r, prompt=np.asarray(p, np.int32), max_new_tokens=n)
+            for r, p, n in rs]))
+        m = eng.metrics()
+        out[name] = dict(
+            tokens={r: res[r].tolist() for r in res}, place_s=place_s,
+            serve_s=time.perf_counter() - t0, launches=launches,
+            routes=routes, collectives=coll, mesh=m["mesh"],
+            decode_steps=m["decode_steps"],
+            prefill_batches=m["prefill_batches"],
+            tokens_generated=m["tokens_generated"],
+            cache_shape=tuple((eng._store if paged else eng._stepper.cache)
+                              ["k"].shape))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del whole
+    gc.collect()
+    out["moe"] = _tp_rank_moe(mesh, moe_cfg)
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _tp_rank_moe(mesh, cfg):
+    """MoE expert parallelism on this rank: layer 0 of the 2-layer cut
+    (random weights from seed 0, RTN int4 packed alike on every rank), at
+    decode (4 tokens, every rank routing all of them) against the local
+    path on the same input, and at prefill (4 x 512 tokens, each rank
+    routing its 256 sequence positions) against the local path on each
+    rank's positions."""
+    from repro_torch.core import QuantSpec, quantize_model
+    from repro_torch.dist.sharding import (axis_rules, serving_rules,
+                                           shard_leaf)
+    from repro_torch.models.moe import moe_ffn, moe_ffn_local
+    from repro_torch.models.registry import build_model
+
+    dev = mesh.device
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    qp, _ = quantize_model(params, model.quant_site_map(), None, method="rtn",
+                           spec=QuantSpec(bits=4, group_size=64),
+                           mode="packed")
+    del params
+    blocks = qp["blocks"]
+    router = blocks["router"][0]
+    experts = [blocks[key][0] for key in ("wg_exp", "wu_exp", "wd_exp")]
+    rules = serving_rules(cfg, mesh)
+    local = [shard_leaf(w, ("experts", None, None), mesh, rules)
+             for w in experts]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"experts": int(local[0].codes.shape[0])}
+    for name, shape in (("decode", (4, 1, cfg.d_model)),
+                        ("prefill", (4, 512, cfg.d_model))):
+        h = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        t = shape[1]
+        if t % mesh.size("model"):
+            want = moe_ffn_local(h, router, *experts, cfg)[0]
+        else:
+            # the local path on each rank's positions (capacity follows the
+            # routed token count, so this is the same routing problem)
+            part = t // mesh.size("model")
+            want = torch.cat([moe_ffn_local(h[:, i * part:(i + 1) * part],
+                                            router, *experts, cfg)[0]
+                              for i in range(mesh.size("model"))], dim=1)
+        with axis_rules(mesh, rules):
+            got, launches, _, coll = _rank_counted(
+                lambda: moe_ffn(h, router, *local, cfg)[0])
+        out[name] = dict(
+            bits=bool(torch.equal(got, want)),
+            rel_err=float((got.float() - want.float()).norm()
+                          / want.float().norm()),
+            finite=bool(torch.isfinite(got).all()),
+            launches=launches["quant_matmul_experts"],
+            all_to_all=coll["all_to_all"]["calls"])
+    del qp, local, experts
+    return out
+
+
+def tp_rank_nccl(mesh):
+    """The 1 x 1 NCCL mesh: a tiny model served with ``mesh=`` and without
+    (same tokens bit for bit), and each collective once on the 1-rank
+    group."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import QuantSpec, quantize_model
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import axis_rules
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = mesh.device
+    cfg = ARCHS["llama3-8b"].tiny()
+    model = build_model(cfg)
+    qp, _ = quantize_model(model.init(0, device=dev), model.quant_site_map(),
+                           None, method="rtn",
+                           spec=QuantSpec(bits=4, group_size=64),
+                           mode="packed")
+    prompts = [np.arange(3 + 5 * i, 20 + 9 * i, dtype=np.int32) % 500
+               for i in range(3)]
+
+    def serve(**kw):
+        eng = ServeEngine(model, qp, n_slots=2, max_len=64, device=dev, **kw)
+        res = eng.serve([Request(rid=i, prompt=p, max_new_tokens=8)
+                         for i, p in enumerate(prompts)])
+        return {r: res[r].tolist() for r in res}
+
+    alone, meshed = serve(), serve(mesh=mesh)
+    x = torch.arange(6, dtype=torch.float32, device=dev)
+    with axis_rules(mesh):
+        back = [collectives.all_reduce(x), collectives.all_gather(x, dim=0),
+                collectives.all_to_all(x.reshape(1, 6)).reshape(6),
+                collectives.broadcast(x)]
+    return dict(backend=mesh.backend, equal=alone == meshed, tokens=meshed,
+                collectives=all(bool(torch.equal(y, x)) for y in back))
+
+
+def _tie_or_equal(name, model, qparams, reqs, want, got, dev):
+    """Per request: bit for bit, or parting first at a numerical tie of the
+    single-device model (its teacher-forced top-2 gap at that token <=
+    TIE_TOL).  Returns (equal, at a tie)."""
+    equal = ties = 0
+    for r in reqs:
+        a, b = np.asarray(want[r.rid]), np.asarray(got[r.rid])
+        check(len(b) == len(a), f"{name} request {r.rid}: {len(b)} tokens")
+        diff = np.nonzero(a != b)[0]
+        if not len(diff):
+            equal += 1
+            continue
+        j = int(diff[0])
+        _, gap = teacher_forced(model, qparams, r.prompt, a, dev)
+        print(f"  {name} request {r.rid}: parts from single-device at token "
+              f"{j}, where the single-device top-2 gap is {gap[j]:.4f}",
+              flush=True)
+        check(gap[j] <= TIE_TOL, f"{name} request {r.rid}: parts from "
+              f"single-device at token {j}, not a tie ({gap[j]:.4f} > "
+              f"{TIE_TOL})")
+        ties += 1
+    return equal, ties
+
+
+def _skeleton(tree):
+    """``tree``'s structure with empty host tensors at the leaves (what
+    ``checkpoint.restore`` reads the saved tree's shape from)."""
+    from repro_torch.dist import _tree
+    return _tree.tree_map(lambda leaf: torch.empty(0), tree)
+
+
+def tp_paths(dev, model, qparams, reqs, results, ckpt_dir):
+    """Tensor-parallel serving at full llama3-8b width over 2 ranks that
+    share the card over gloo (NCCL refuses two ranks on one device): the
+    ranks restore the packed tree the phase before saved and cut their
+    shards; the dense run's first 4 requests served on 2 slots (each slot
+    admitted twice) dense and paged, with the bf16 and the int8 KV cache,
+    each request's tokens equal to single-device on the same slots or
+    parting first at a tie; the collectives per decode step; MoE expert
+    parallelism on the 2-layer cut against the local path; a 1 x 1 NCCL
+    mesh against ``mesh=None``.  The tok/s is that of 2 ranks on one card
+    with host-staged collectives, not a tensor-parallel speed.  Returns
+    {row name: launches} for the sharded route rows."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    phase("main path: tensor-parallel serving (2 ranks sharing the card "
+          "over gloo)")
+    cfg = model.cfg
+    tp_reqs = reqs[:TP_REQUESTS]
+    # single-device references on the TP runs' schedule: TP_SLOTS slots
+    eng2 = ServeEngine(model, qparams, n_slots=TP_SLOTS, max_len=1024,
+                       device=dev)
+    res2 = eng2.serve(fresh(tp_reqs))
+    same = sum(np.array_equal(res2[r.rid], results[r.rid]) for r in tp_reqs)
+    print(f"  single-device on {TP_SLOTS} slots: {same}/{len(tp_reqs)} "
+          f"requests bit for bit with the 4-slot dense run", flush=True)
+    model8 = build_model(cfg.scaled(kv_cache_bits=8))
+    eng8 = ServeEngine(model8, qparams, n_slots=TP_SLOTS, max_len=1024,
+                       device=dev)
+    res8 = eng8.serve(fresh(tp_reqs))
+    del eng2, eng8
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  parent holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"(the packed tree) before the ranks start", flush=True)
+    moe_cfg = ARCHS["qwen2-moe-a2.7b"].scaled(n_layers=2,
+                                              moe_capacity_factor=16.0)
+    store = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t0 = time.perf_counter()
+        tp = spawn(tp_rank_serve, (1, TP_RANKS), "gloo", store, ckpt_dir,
+                   _skeleton(qparams), cfg,
+                   [(r.rid, np.asarray(r.prompt).tolist(), r.max_new_tokens)
+                    for r in tp_reqs], moe_cfg,
+                   device="cuda", timeout=TP_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = spawn(tp_rank_nccl, (1, 1), "nccl", store, device="cuda",
+                     timeout=TP_TIMEOUT)
+        nccl_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"  2 ranks on {torch.cuda.get_device_name(0)}: restore "
+          f"{tp['restore_s']:.2f} s on the host; every rank's spawn to exit "
+          f"{ranks_s:.2f} s; max_memory_allocated on rank 0 "
+          f"{tp['max_memory_allocated_gib']:.2f} GiB", flush=True)
+    for name, want, rs in (("dense", res2, tp_reqs),
+                           ("paged", res2, tp_reqs),
+                           ("int8 dense", res8, tp_reqs),
+                           ("int8 paged", res8, tp_reqs)):
+        run = tp[name]
+        check(run["mesh"] == {"data": 1, "model": TP_RANKS},
+              f"{name}: mesh {run['mesh']}")
+        equal, ties = _tie_or_equal(f"TP {name}", model, qparams, rs, want,
+                                    run["tokens"], dev)
+        steps = run["decode_steps"] + run["prefill_batches"]
+        check(run["prefill_batches"] >= len(rs) // TP_SLOTS,
+              f"{name}: {run['prefill_batches']} prefill batches, no slot "
+              f"admitted again")
+        coll = run["collectives"]
+        print(f"  TP {name} (KV cache {run['cache_shape']} per rank): "
+              f"{equal}/{len(rs)} requests bit for bit with single-device, "
+              f"{ties} parting at a tie; {run['tokens_generated']} tokens in "
+              f"{run['serve_s']:.2f} s = "
+              f"{run['tokens_generated'] / run['serve_s']:.1f} tok/s (2 "
+              f"ranks on one card, not a TP speed); weights cut and placed "
+              f"in {run['place_s']:.2f} s", flush=True)
+        print(f"    collectives per engine step ({run['decode_steps']} decode "
+              f"steps + {run['prefill_batches']} prefill batches): all_reduce "
+              f"{coll['all_reduce']['calls'] / steps:.1f} (at most "
+              f"{coll['all_reduce']['max_elements']} elements), all_gather "
+              f"{coll['all_gather']['calls'] / steps:.2f} (the logits, "
+              f"{coll['all_gather']['last_shape']}), all_to_all "
+              f"{coll['all_to_all']['calls']}, broadcast (the clock) "
+              f"{coll['broadcast']['calls'] / steps:.2f}", flush=True)
+        check(coll["all_gather"]["calls"] == steps,
+              f"{name}: {coll['all_gather']['calls']} all_gathers in "
+              f"{steps} steps")
+        check(coll["all_to_all"]["calls"] == 0, f"{name}: an all_to_all")
+        check(coll["all_reduce"]["max_elements"] <= 4 * 512 * cfg.d_model,
+              f"{name}: an all_reduce beyond the activations")
+        print(f"    launches on rank 0: {run['launches']}", flush=True)
+    for name in ("decode", "prefill"):
+        moe = tp["moe"][name]
+        print(f"  MoE EP ({tp['moe']['experts']} of {MOE_EXPERTS} experts "
+              f"per rank, capacity factor 16) {name}: bit for bit with the "
+              f"local path {moe['bits']} (rel_err {moe['rel_err']:.3e}, "
+              f"limit {EXACT_REL_TOL:.0e}); {moe['launches']} grouped "
+              f"launches, {moe['all_to_all']} all_to_alls", flush=True)
+        check(moe["finite"] and (moe["bits"]
+                                 or moe["rel_err"] <= EXACT_REL_TOL),
+              f"MoE EP {name} disagrees with the local path")
+        check(moe["all_to_all"] == 2, f"MoE EP {name}: not expert-parallel")
+    print(f"  NCCL 1 x 1 mesh ({nccl['backend']}): tokens equal to "
+          f"mesh=None bit for bit {nccl['equal']}; all_reduce / all_gather / "
+          f"all_to_all / broadcast on the 1-rank group "
+          f"{nccl['collectives']}; {nccl_s:.2f} s", flush=True)
+    check(nccl["backend"] == "nccl" and nccl["equal"]
+          and nccl["collectives"], "the NCCL 1 x 1 mesh")
+
+    def routes(name, take):
+        return sum(n for run in ("dense", "paged", "int8 dense",
+                                 "int8 paged")
+                   for route, n in tp[run]["routes"][name].items()
+                   if take(route))
+
+    def launched(kernel, *runs):
+        return sum(tp[run]["launches"][kernel] for run in runs)
+
+    column = {f"k{k} n{n}" for k, n in TP_COLUMN}
+    row = {f"k{k} n{n}" for k, n in TP_ROW}
+    return {"quant_matmul_tp2_column": routes("quant_matmul",
+                                              column.__contains__),
+            "quant_matmul_tp2_row": routes("quant_matmul", row.__contains__),
+            "flash_decode_tp2": launched("flash_decode", "dense"),
+            "flash_decode_q8_tp2": launched("flash_decode_q8", "int8 dense"),
+            "flash_attention_tp2": launched("flash_attention", "dense",
+                                            "paged", "int8 dense",
+                                            "int8 paged"),
+            "flash_decode_paged_tp2": launched("flash_decode_paged",
+                                               "paged"),
+            "flash_decode_paged_q8_tp2": launched("flash_decode_paged_q8",
+                                                  "int8 paged"),
+            "quant_matmul_experts_ep2": sum(tp["moe"][n]["launches"]
+                                            for n in ("decode", "prefill"))}
 
 
 def teacher_forced(model, qparams, prompt, toks, dev, extra=None):
@@ -3813,9 +4488,15 @@ def main():
                lambda r: r == f"G1 hd64 S{WHISPER_PROMPT + NEW_TOKENS}"),
               ("flash_decode_cross_g1", fd.KERNEL, "whisper",
                lambda r: r == f"G1 hd64 S{WHISPER_FRAMES}")]
+    # the sharded routes of tensor-parallel serving (their launches are
+    # rank 0's in the TP phase)
+    tp_rows = ["quant_matmul_tp2_column", "quant_matmul_tp2_row",
+               "quant_matmul_experts_ep2", "flash_decode_tp2",
+               "flash_decode_q8_tp2", "flash_attention_tp2",
+               "flash_decode_paged_tp2", "flash_decode_paged_q8_tp2"]
     kernels = tuple(by_name.values())
     rows = {r["name"]: r for r in kernel_phase(dev)}
-    names = list(by_name) + [name for name, *_ in routes]
+    names = list(by_name) + [name for name, *_ in routes] + tp_rows
     check(sorted(rows) == sorted(names), f"kernel rows {sorted(rows)}")
     rows = [rows[name] for name in names]
     phase("reference: tiny model, card against CPU")
@@ -3840,6 +4521,8 @@ def main():
     for row, kern in zip(rows, kernels):
         row.update(row_keys.get(row["name"], {}))
         row["launches"] = launches[kern.symbol]
+    for row in rows[len(kernels) + len(routes):]:
+        row["launches"] = row_keys["tp"][row["name"]]
     for row, (_, kern, family, takes) in zip(rows[len(kernels):], routes):
         row["launches"] = sum(
             n for path, counts in family_counts.items()

@@ -1,0 +1,338 @@
+"""Logical-axis sharding rules, and each rank's shard of a tree.
+
+Models name tensor dimensions with *logical* axes ("batch", "heads",
+"ff", ...); a rule table maps each logical name to zero or more *mesh*
+axes.  The three tables are the reference's (``repro.dist.sharding``):
+
+* :data:`DEFAULT_RULES`        — training / calibration: batch and FSDP
+  over ``(pod, data)``, tensor-parallel weights over ``model``.
+* :data:`SERVE_PREFILL_RULES`  — prefill also sequence-shards activations
+  over ``model``.
+* :data:`SERVE_DECODE_RULES`   — decode: ``qin`` replicated (the
+  reference's opt-in marker for its packed-domain transfer constraint).
+
+:func:`logical_to_spec` resolves names to mesh axes best-effort, as the
+reference does: a mesh axis absent from the mesh is dropped; each mesh
+axis is used at most once per tensor (earlier dimensions win); a dimension
+that the surviving axes' product does not divide is replicated, with a
+warning once per site.  It returns a plain tuple with one entry per
+dimension (``None``, a mesh axis, or a tuple of them) where the reference
+returns a ``PartitionSpec``.
+
+Where the reference hands GSPMD a ``NamedSharding`` per leaf
+(``tree_shardings`` / ``tree_hint``), the port cuts each rank's shard
+itself: :func:`shard_tree` returns the tree with every leaf replaced by
+this rank's block of it, a contiguous copy made once.  A
+:class:`~repro_torch.core.quantizer.QuantizedTensor` is cut as one
+weight: a split of its output dimension cuts ``codes``, ``scale`` and
+``zero`` on ``n_out``; a split of its input dimension cuts ``codes`` on
+packed rows, ``scale`` / ``zero`` on groups and ``act_scale`` on
+``n_in``.  An input split falls on whole groups, or inside one group,
+whose scale and zero row each of its shards then copies (a sub-group:
+the same dequantized weights).
+
+The active ``(mesh, rules)`` context (:func:`axis_rules`) is what the
+models read to run their collectives (:mod:`.collectives`).
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import threading
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core.quantizer import QuantizedTensor
+
+logger = logging.getLogger(__name__)
+
+# ---------------------------------------------------------------------------
+# Rule tables (the reference's, entry for entry)
+# ---------------------------------------------------------------------------
+
+DEFAULT_RULES = {
+    # data / activation axes
+    "batch":    ("pod", "data"),
+    "seq":      None,
+    "embed":    None,
+    # weight / head axes (tensor parallel)
+    "heads":    "model",
+    "kv_heads": "model",
+    "kv_seq":   "model",     # fallback when the head count doesn't divide
+    "ff":       "model",
+    "vocab":    "model",
+    "expert":   "model",
+    "experts":  "model",     # stacked expert dim in MoE param trees
+    "fsdp":     ("pod", "data"),
+    # QuantizedTensor children
+    "qin":      ("pod", "data"),
+    "qout":     "model",
+    "qgroups":  None,
+}
+
+SERVE_PREFILL_RULES = dict(DEFAULT_RULES, seq="model")
+
+SERVE_DECODE_RULES = dict(DEFAULT_RULES, qin=None)
+
+
+# ---------------------------------------------------------------------------
+# Active-context machinery
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+def _stack():
+    if not hasattr(_CTX, "stack"):
+        _CTX.stack = []
+    return _CTX.stack
+
+
+@contextlib.contextmanager
+def axis_rules(mesh, rules: Optional[dict] = None):
+    """Activate ``(mesh, rules)`` in this thread.  Nestable; inner wins."""
+    _stack().append((mesh, DEFAULT_RULES if rules is None else rules))
+    try:
+        yield mesh
+    finally:
+        _stack().pop()
+
+
+def active_mesh():
+    """The mesh of the innermost :func:`axis_rules` context (or None)."""
+    s = _stack()
+    return s[-1][0] if s else None
+
+
+def active_rules() -> dict:
+    s = _stack()
+    return s[-1][1] if s else DEFAULT_RULES
+
+
+def active_rule(name: str):
+    """The mesh-axis mapping the active rule table gives ``name``."""
+    return active_rules().get(name)
+
+
+@contextlib.contextmanager
+def row_parallel():
+    """Mark a row-parallel region (weight split on its input dimension):
+    under a ``qin: None`` table it rebinds ``qin`` to ``model``, as the
+    reference does; a no-op without an active mesh or when ``qin`` is
+    already bound."""
+    mesh = active_mesh()
+    if mesh is None or active_rule("qin") is not None:
+        yield
+        return
+    with axis_rules(mesh, dict(active_rules(), qin="model")):
+        yield
+
+
+def axis_size(axis: str) -> int:
+    """Ranks along ``axis`` of the active mesh (1 without one)."""
+    mesh = active_mesh()
+    return 1 if mesh is None else mesh.size(axis)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's coordinate on ``axis`` of the active mesh (0 without
+    one)."""
+    mesh = active_mesh()
+    return 0 if mesh is None else mesh.index(axis)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes -> per-dimension mesh axes
+# ---------------------------------------------------------------------------
+
+def _mesh_axis_sizes(mesh) -> dict:
+    return dict(mesh.shape)
+
+
+# divisibility fallbacks already warned about, keyed on (axes, shape, dim,
+# logical name, dropped mesh axes): a site that silently replicates shows
+# up in the log once; two sites that drop a different logical name are two
+# warnings
+_WARNED_DROPS: set = set()
+
+
+def _warn_dropped(axes, shape, dim, name, cand, total):
+    if shape[dim] == 1:
+        return  # replicating a singleton dim loses nothing
+    key = (tuple(axes), tuple(shape), dim, name, cand)
+    if key in _WARNED_DROPS:
+        return
+    _WARNED_DROPS.add(key)
+    logger.warning(
+        "logical_to_spec: replicating dim %d (logical %r, size %d) of "
+        "shape %s — mesh axes %s have total size %d which does not divide "
+        "it; tensor stays correct but this site is NOT sharded",
+        dim, name, shape[dim], tuple(shape), cand, total)
+
+
+def logical_to_spec(axes: Sequence[Optional[str]], *, shape: Sequence[int],
+                    mesh, rules: Optional[dict] = None) -> tuple:
+    """Per-dimension mesh axes for a tensor of ``shape`` whose dimensions
+    carry the logical names ``axes`` (``None`` replicates).  A rule names
+    one mesh axis or a tuple of them (sharded over their product).
+    Fallbacks, in order: mesh axes absent from ``mesh`` are dropped; mesh
+    axes claimed by an earlier dimension are dropped; if the survivors'
+    product does not divide ``shape[i]``, dimension i replicates."""
+    rules = active_rules() if rules is None else rules
+    sizes = _mesh_axis_sizes(mesh)
+    used: set = set()
+    entries = []
+    for dim, name in enumerate(axes):
+        rule = rules.get(name) if name is not None else None
+        if rule is None:
+            entries.append(None)
+            continue
+        cand = (rule,) if isinstance(rule, str) else tuple(rule)
+        cand = tuple(a for a in cand if a in sizes and a not in used)
+        if not cand:
+            entries.append(None)
+            continue
+        total = 1
+        for a in cand:
+            total *= sizes[a]
+        if shape[dim] % total != 0:
+            _warn_dropped(axes, shape, dim, name, cand, total)
+            entries.append(None)
+            continue
+        used.update(cand)
+        entries.append(cand[0] if len(cand) == 1 else cand)
+    return tuple(entries)
+
+
+def _parts(entry, mesh):
+    """(number of shards, this rank's shard index) of a spec entry: the
+    product of its axes' sizes, and the rank's coordinates on them read
+    row-major in the entry's order."""
+    if entry is None:
+        return 1, 0
+    n, idx = 1, 0
+    for a in (entry,) if isinstance(entry, str) else entry:
+        n *= mesh.size(a)
+        idx = idx * mesh.size(a) + mesh.index(a)
+    return n, idx
+
+
+def _block(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    size = x.shape[dim] // n
+    return x.narrow(dim, i * size, size)
+
+
+def _annotation(axes, ndim: int):
+    ax = list(axes)[:ndim]
+    return ax + [None] * (ndim - len(ax))
+
+
+def local_shape(shape, axes, mesh, rules: Optional[dict] = None) -> tuple:
+    """This rank's block shape of a tensor of ``shape`` annotated ``axes``
+    (padded / truncated with ``None`` to the rank)."""
+    spec = logical_to_spec(_annotation(axes, len(shape)), shape=shape,
+                           mesh=mesh, rules=rules)
+    return tuple(s // _parts(e, mesh)[0] for s, e in zip(shape, spec))
+
+
+def _cut_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    out, cut = x, False
+    for dim, entry in enumerate(spec):
+        n, i = _parts(entry, mesh)
+        if n > 1:
+            out, cut = _block(out, dim, n, i), True
+    # a copy of its own: a view would keep the whole leaf alive and hand a
+    # strided operand to the kernels
+    return out.clone(memory_format=torch.contiguous_format) if cut else x
+
+
+def _cut_quantized(qt: QuantizedTensor, axes, mesh, rules) -> QuantizedTensor:
+    """One QuantizedTensor cut as the weight ``(..., n_in, n_out)`` it
+    stores (see the module docstring)."""
+    lead = tuple(qt.codes.shape[:-2])
+    n_out = qt.codes.shape[-1]
+    shape = lead + (qt.n_in, n_out)
+    spec = logical_to_spec(_annotation(axes, len(shape)), shape=shape,
+                           mesh=mesh, rules=rules)
+    if all(e is None for e in spec):
+        return qt
+    n_in_parts, i_in = _parts(spec[-2], mesh)
+    n_groups = qt.scale.shape[-2]
+    g = qt.n_in // n_groups
+    rows = qt.n_in // n_in_parts
+    if n_in_parts > 1 and (rows % 2 if qt.packed else False):
+        raise ValueError(f"an input split of {qt.n_in} rows in {n_in_parts} "
+                         f"leaves {rows} rows, not whole packed bytes")
+    if n_in_parts > 1 and rows % g and g % rows:
+        raise ValueError(f"an input split of {qt.n_in} rows in {n_in_parts} "
+                         f"falls neither on whole groups of {g} nor inside "
+                         f"one group")
+    lead_spec = spec[:-2]
+    out_spec = spec[-1]
+    codes = _cut_tensor(qt.codes, lead_spec + (spec[-2], out_spec), mesh)
+    if n_in_parts > 1 and rows < g:
+        # a sub-group: this shard's rows lie inside group (i * rows) // g,
+        # whose scale and zero row it copies
+        grp = (i_in * rows) // g
+        meta = [_cut_tensor(t.narrow(-2, grp, 1), lead_spec + (None, out_spec),
+                            mesh).clone(memory_format=torch.contiguous_format)
+                for t in (qt.scale, qt.zero)]
+    else:
+        meta = [_cut_tensor(t, lead_spec + (spec[-2], out_spec), mesh)
+                for t in (qt.scale, qt.zero)]
+    act = None if qt.act_scale is None else _cut_tensor(
+        qt.act_scale, lead_spec + (spec[-2],), mesh)
+    return QuantizedTensor(codes=codes, scale=meta[0], zero=meta[1],
+                           spec=qt.spec, n_in=rows, packed=qt.packed,
+                           act_scale=act)
+
+
+def shard_leaf(leaf, axes, mesh, rules: Optional[dict] = None):
+    """This rank's shard of one tensor or QuantizedTensor leaf annotated
+    ``axes`` (``None``: the leaf itself, replicated)."""
+    if axes is None or leaf is None:
+        return leaf
+    if isinstance(leaf, QuantizedTensor):
+        return _cut_quantized(leaf, axes, mesh, rules)
+    spec = logical_to_spec(_annotation(axes, leaf.dim()), shape=leaf.shape,
+                           mesh=mesh, rules=rules)
+    return _cut_tensor(leaf, spec, mesh)
+
+
+def shard_tree(tree, axes_tree, mesh, rules: Optional[dict] = None):
+    """``tree`` (nested dicts of tensors / QuantizedTensors) with every leaf
+    replaced by this rank's shard.  ``axes_tree`` mirrors it; the first
+    tuple / list met on a path annotates everything below it (one
+    annotation per stacked site), and a path it lacks, or annotates
+    ``None``, replicates.  Annotations shorter or longer than a leaf's rank
+    are padded / truncated with ``None``."""
+    if isinstance(axes_tree, (tuple, list)) or axes_tree is None:
+        if isinstance(tree, dict):
+            return {k: shard_tree(v, axes_tree, mesh, rules)
+                    for k, v in tree.items()}
+        return shard_leaf(tree, axes_tree, mesh, rules)
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, axes_tree.get(k), mesh, rules)
+                for k, v in tree.items()}
+    return tree
+
+
+def serving_rules(cfg, mesh, base: Optional[dict] = None) -> dict:
+    """The table a serving engine places weights and caches with: ``base``
+    (default :data:`SERVE_DECODE_RULES`) with the weights whole across
+    ``data`` (no FSDP split of their input dimension while serving), no
+    sequence-sharded cache, and attention replicated where the head counts
+    do not divide ``model`` (the reference's shard_map guard)."""
+    rules = dict(SERVE_DECODE_RULES if base is None else base,
+                 fsdp=None, kv_seq=None)
+    if not attention_splits(cfg, mesh.size("model")):
+        rules.update(heads=None, kv_heads=None)
+    return rules
+
+
+def attention_splits(cfg, m: int) -> bool:
+    """Whether attention runs on ``H / m`` query and ``KH / m`` KV heads per
+    rank: both head counts must divide ``m`` (otherwise every rank runs
+    every head)."""
+    return m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0

@@ -3,6 +3,12 @@
 The kernel is chosen by the tensor's device alone: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor the hand-written kernel (see each
 wrapper).  There is no environment switch and no fallback.
+
+Under tensor parallelism the attention entry points take this rank's
+heads as they are: q with H/m query heads and caches / page stores with
+KH/m KV heads (the reference wraps the same bodies in a head-axis
+``shard_map``), page tables and lengths whole.  The head counts come from
+the shapes, so nothing in a kernel changes, and nothing crosses ranks.
 """
 from __future__ import annotations
 

@@ -235,10 +235,12 @@ def _launch_tc(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     ptrs = (xp.data_ptr(), cp.data_ptr(), sp.data_ptr(), zp.data_ptr(),
             out.data_ptr(), partial, counters)
     shape = (m, kp, n_pad, g, sp.shape[-2], p.chunk, p.cfg, p.cpb)
+    route = f"k{x.shape[-1]} n{n}"
     if experts is None:
-        KERNEL.launch(*ptrs, *shape, 1, stream)
+        KERNEL.launch(*ptrs, *shape, 1, stream, route=route)
     else:
-        KERNEL_EXPERTS.launch(*ptrs, e, *shape, stream)
+        KERNEL_EXPERTS.launch(*ptrs, e, *shape, stream,
+                              route=f"E{e} {route}")
     return out if n_pad == n else out[..., :n].contiguous()
 
 

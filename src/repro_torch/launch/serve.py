@@ -14,8 +14,17 @@ FAQ-quantize to packed int4, and serve synthetic requests.
     # reference's: the format is shared)
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
         --ckpt-dir /tmp/lt
+    # tensor-parallel on a (data, model) mesh of ranks this command starts
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --mesh 1,2
 
 Runs on the card by default (``--device cuda``) and fails there is none.
+``--mesh DATA,MODEL`` starts ``DATA * MODEL`` ranks itself
+(:func:`repro_torch.launch.mesh.spawn`), one process each, over
+``--backend`` (``nccl`` for ``--device cuda``, one card per rank;
+``gloo`` for ``--device cpu``): every rank builds the same weights from
+the seed, calibrates and quantizes them alike, and serves its shards
+(``ServeEngine(mesh=)``); rank 0 prints.
 At full width (``--no-tiny``) the synthetic data vocabulary is capped at
 ``DATA_VOCAB_CAP`` tokens: the data generator keeps a dense (v, v)
 float64 transition matrix, which at llama3's 128256-token vocabulary
@@ -26,6 +35,9 @@ calibration come from the capped range.
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +48,7 @@ from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
                                         calibration_batches)
 from repro_torch.device import resolve_device
 from repro_torch.dist import checkpoint as ckpt
+from repro_torch.launch.mesh import spawn
 from repro_torch.models.registry import build_model
 from repro_torch.obs import Tracer, profile_session
 from repro_torch.serve.draft import registry_draft, self_int8_draft
@@ -45,6 +58,8 @@ from repro_torch.serve.overload import SLOConfig
 from repro_torch.serve.spec import SpecConfig
 
 DATA_VOCAB_CAP = 4096
+# seconds the --mesh ranks have to finish before the run fails
+RANK_TIMEOUT_S = 3600.0
 
 
 def parse_chunk(arg):
@@ -59,6 +74,22 @@ def parse_chunk(arg):
         raise argparse.ArgumentTypeError(
             f"--prefill-chunk expects 'auto', an int, or 0/none, got {arg!r}")
     return n if n > 0 else None
+
+
+def parse_mesh(arg):
+    """'DATA,MODEL' -> (data, model), with clear errors for bad input."""
+    if arg is None:
+        return None
+    try:
+        data, model = (int(x) for x in arg.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh expects 'DATA,MODEL' (two comma-separated ints), "
+            f"got {arg!r}")
+    if data < 1 or model < 1:
+        raise argparse.ArgumentTypeError(
+            f"--mesh sizes must be >= 1, got {arg!r}")
+    return data, model
 
 
 def parse_at(arg):
@@ -144,6 +175,14 @@ def main(argv=None):
                     help="draft source for --spec-k: 'self-int8' (FAQ int8 "
                          "self-draft sharing the target's KV) or a registry "
                          "config name for an independent draft model")
+    ap.add_argument("--mesh", type=parse_mesh, default=None,
+                    metavar="DATA,MODEL",
+                    help="serve tensor-parallel on a (data, model) mesh of "
+                         "DATA*MODEL ranks that this command starts, e.g. "
+                         "--mesh 1,4")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="process-group backend of --mesh (default: nccl "
+                         "with --device cuda, gloo with --device cpu)")
     # -- overload response (serve/overload.py) --
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="per-request SLO relative to submission; enables "
@@ -184,6 +223,33 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.mesh is None:
+        return serve_main(args, device)
+    backend = args.backend or ("gloo" if device.type == "cpu" else "nccl")
+    store = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    try:
+        n = args.mesh[0] * args.mesh[1]
+        threads = (max(1, (os.cpu_count() or 1) // n)
+                   if device.type == "cpu" else None)
+        return spawn(_serve_rank, args.mesh, backend, store, args,
+                     device=device.type, timeout=RANK_TIMEOUT_S,
+                     threads=threads)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _serve_rank(mesh, args):
+    return serve_main(args, mesh.device, mesh)
+
+
+def serve_main(args, device, mesh=None):
+    """The CLI's run on one process: a whole engine, or this rank's part of
+    a mesh (rank 0 prints, exports the trace and writes the profile)."""
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh: data={mesh.size('data')} model={mesh.size('model')} "
+            f"over {mesh.n_ranks} {device.type} ranks ({mesh.backend})")
     cfg = ARCHS[args.arch].tiny() if args.tiny else ARCHS[args.arch]
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
@@ -191,7 +257,7 @@ def main(argv=None):
         params = load_params(args.ckpt_dir, params)
     data = data_for(cfg)
     if data.cfg.vocab_size < cfg.vocab_size:
-        print(f"data vocabulary capped at {data.cfg.vocab_size} of "
+        say(f"data vocabulary capped at {data.cfg.vocab_size} of "
               f"{cfg.vocab_size} tokens")
     calib = calibration_batches(data, args.calib_n, args.calib_len)
     stats = run_calibration(model.forward, params, calib)
@@ -231,9 +297,9 @@ def main(argv=None):
                       page_size=args.page_size, n_pages=args.n_pages,
                       prefill_chunk=args.prefill_chunk, spec=spec,
                       device=device, slo=slo, faults=faults, tracer=tracer,
-                      profile=bool(args.profile_dir))
+                      profile=bool(args.profile_dir), mesh=mesh)
     if args.paged and not eng.paged:
-        print("note: model cache layout does not support paging; serving "
+        say("note: model cache layout does not support paging; serving "
               "from the dense cache")
     reqs = [Request(rid=i, prompt=data.sequence(40_000_000 + i, 12),
                     max_new_tokens=args.new_tokens)
@@ -244,42 +310,42 @@ def main(argv=None):
             r.arrival = t_sub
             r.deadline = t_sub + args.deadline_s
     t0 = time.time()
-    with profile_session(args.profile_dir):
+    with profile_session(args.profile_dir if lead else None):
         results = eng.serve(reqs)
     dt = time.time() - t0
     tok = sum(len(v) for v in results.values())
     for rid in sorted(results):
-        print(f"req {rid}: {np.asarray(results[rid]).tolist()}")
+        say(f"req {rid}: {np.asarray(results[rid]).tolist()}")
     m = eng.metrics()
-    print(f"{tok} tokens in {dt:.1f}s ({tok / dt:.1f} tok/s, "
+    say(f"{tok} tokens in {dt:.1f}s ({tok / dt:.1f} tok/s, "
           f"{args.method} int{args.bits} packed, {device})")
-    print(f"prefill: {m['prefill_batches']} batches (buckets {m['buckets']}, "
+    say(f"prefill: {m['prefill_batches']} batches (buckets {m['buckets']}, "
           f"chunk {m['prefill_chunk'] or 'off'}, "
           f"{m['chunked_admissions']} chunked), "
           f"decode: {m['decode_steps']} steps")
     if m["spec"]:
-        print(f"spec: k={m['spec_k']} draft={m['draft_kind']}, "
+        say(f"spec: k={m['spec_k']} draft={m['draft_kind']}, "
               f"{m['spec_cycles']} cycles, accept_rate "
               f"{m['accept_rate']:.3f}, draft_share {m['draft_share']:.3f}, "
               f"tokens_per_step {m['tokens_per_step']:.2f}")
     if m["paged"]:
-        print(f"paged: page_size={m['page_size']}, peak {m['pages_peak']}/"
+        say(f"paged: page_size={m['page_size']}, peak {m['pages_peak']}/"
               f"{m['pages_total']} pages ({m['peak_cache_bytes'] / 1e6:.2f} "
               f"MB), prefix hits {m['prefix_hits']}, cow copies "
               f"{m['cow_copies']}, preempted {m['preempted']}")
     if slo is not None or faults is not None or m["preempted"]:
-        print(f"overload: shed {m['shed']} (+{m['shed_retried']} retried), "
+        say(f"overload: shed {m['shed']} (+{m['shed_retried']} retried), "
               f"expired {m['expired']}, truncated {m['truncated']}, "
               f"preempted {m['preempted']}, resumed {m['resumed']}, "
               f"pressure events {m['pressure_events']}")
     if m["faults"] is not None:
-        print(f"faults: {m['faults']}")
-    if args.trace_out:
+        say(f"faults: {m['faults']}")
+    if args.trace_out and lead:
         eng.export_trace(args.trace_out)
-        print(f"trace: {m['trace']['events']} events "
+        say(f"trace: {m['trace']['events']} events "
               f"({m['trace']['dropped']} dropped) -> {args.trace_out}")
     if args.profile_dir:
-        print(f"profile: torch.profiler trace in "
+        say(f"profile: torch.profiler trace in "
               f"{args.profile_dir}/trace.json")
     return results
 

@@ -10,8 +10,9 @@ Resumes from the newest complete step in ``--ckpt-dir``; saves
 more at the end, each labelled with the number of steps it holds, in the
 reference's checkpoint format (``repro_torch.launch.serve --ckpt-dir``
 serves the result).  On the card the forward and backward run the
-flash-attention and rms_norm kernels.  ``--shape`` and a device mesh
-arrive with the distributed slice.
+flash-attention and rms_norm kernels.  ``--shape`` (training on a device
+mesh) is not ported yet; serving on a mesh is (``launch/serve.py
+--mesh``).
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     args = ap.parse_args(argv)
     if args.shape is not None:
-        raise NotImplementedError("--shape needs a device mesh, which "
-                                  "arrives with the distributed slice")
+        raise NotImplementedError("--shape needs training on a device "
+                                  "mesh, which is not ported yet")
 
     device = resolve_device(args.device)
     cfg = ARCHS[args.arch].tiny() if args.tiny else ARCHS[args.arch]

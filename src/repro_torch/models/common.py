@@ -16,6 +16,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantizer import QuantizedTensor
+from repro_torch.dist.collectives import all_gather, all_reduce
+from repro_torch.dist.sharding import axis_index, axis_size
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
 from repro_torch.kernels.ops import quant_matmul
 # the row kernel on a CUDA tensor (a row's bits do not depend on how many
@@ -245,6 +247,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # MLP
 # ---------------------------------------------------------------------------
 
+def reduce_row_parallel(y: torch.Tensor, local: int,
+                        full: int) -> torch.Tensor:
+    """``y`` of a row-parallel product, summed over ``model``: a product
+    whose input dimension is this rank's ``local`` of ``full`` columns is
+    a partial sum (one all_reduce); a whole one is ``y`` itself."""
+    return all_reduce(y, "model") if local < full else y
+
+
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return qlinear(F.silu(qlinear(x, w_gate)) * qlinear(x, w_up), w_down)
 
@@ -257,8 +267,23 @@ def padded_vocab(vocab_size: int, multiple: int = 256) -> int:
     return ((vocab_size + multiple - 1) // multiple) * multiple
 
 
-def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), embedding)
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Row lookup.  Given the model's ``vocab_size``, a table of fewer rows
+    than its padded vocabulary is this rank's vocab shard (rows ``rank *
+    rows ...``): a masked local lookup (ids outside the shard read zeros)
+    and one all_reduce over ``model``, which adds each id's row to zeros
+    exactly."""
+    rows = embedding.shape[0]
+    if (vocab_size is None or axis_size("model") == 1
+            or rows >= padded_vocab(vocab_size)):
+        return F.embedding(tokens.long(), embedding)
+    ids = tokens.long() - axis_index("model") * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = F.embedding(torch.where(mine, ids, 0), embedding)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return all_reduce(x, "model")
 
 
 # rows per lm_head product: every call has this many rows (zero-padded)
@@ -296,16 +321,25 @@ def logits_from_hidden(x: torch.Tensor, lm_head, vocab_size: int) -> torch.Tenso
     columns get a -1e30 additive mask so softmax, cross-entropy, and argmax
     all behave as if the vocab were unpadded.  A float head is multiplied
     in fixed-size row blocks, so each row's logits are the same bits at any
-    batch (:func:`_fixed_rows_matmul`)."""
+    batch (:func:`_fixed_rows_matmul`).  A head of fewer columns than the
+    padded vocabulary is this rank's vocab shard (columns ``rank * cols
+    ...``): the rank's columns, masked by their global index, then one
+    all_gather over ``model`` to the padded width."""
     if isinstance(lm_head, QuantizedTensor):
         out = qlinear(x, lm_head)
     else:
         out = _fixed_rows_matmul(x, lm_head)
-    v_pad = out.shape[-1]
+    cols = out.shape[-1]
+    sharded = axis_size("model") > 1 and cols < padded_vocab(vocab_size)
+    v_pad = padded_vocab(vocab_size) if sharded else cols
     if v_pad != vocab_size:
-        bias = torch.where(torch.arange(v_pad, device=out.device) < vocab_size,
+        first = axis_index("model") * cols if sharded else 0
+        bias = torch.where(torch.arange(first, first + cols,
+                                        device=out.device) < vocab_size,
                            0.0, NEG_INF)
         out = out.float() + bias
+    if sharded:
+        out = all_gather(out, "model", dim=-1)
     return out
 
 

@@ -14,6 +14,17 @@ per-slot page table (the serving engine owns the table and the lengths).
 Both decode entry points take T >= 1 tokens per slot: T > 1 is the
 speculative verify burst (``verify_step`` / ``verify_step_paged``), whose
 attention is one T-query launch per layer.
+
+Tensor parallelism (a serving engine's ``mesh=``): the entry points run
+on this rank's shards (:func:`repro_torch.dist.sharding.shard_tree` over
+:meth:`DenseLM.param_axes`).  Attention runs on the rank's H/m query and
+KH/m KV heads (``wq`` / ``wk`` / ``wv`` column-parallel, its caches hold
+those KV heads), ``wo`` and ``w_down`` are row-parallel (the local
+product, then one all_reduce over ``model``), the embedding and the head
+are vocab-sharded.  The head counts are read from the shards' widths, so
+the same code runs whole weights, and attention whose heads do not divide
+``model`` (replicated on every rank).  Nothing in a decode step moves a
+cache between ranks.
 """
 from __future__ import annotations
 
@@ -31,7 +42,8 @@ from repro_torch.kernels.ops import (decode_attention, decode_attention_q8,
                                     verify_attention, verify_attention_q8)
 from .common import (apply_rope, chunked_attention, dense_init,
                      embed_tokens, last_valid_hidden, logits_from_hidden,
-                     padded_vocab, qlinear, quantize_kv, rms_norm, run_block,
+                     padded_vocab, qlinear, quantize_kv, reduce_row_parallel,
+                     rms_norm, run_block,
                      stack_layer_stats, update_cache_at, update_pages_at)
 
 
@@ -87,6 +99,28 @@ class DenseLM:
             "lm_head": dense(d, v_pad),
         }
 
+    def param_axes(self) -> dict:
+        """Logical axes of :meth:`init`'s tree, the reference's with
+        ``wk`` / ``wv`` column-parallel on ``kv_heads`` (the reference
+        replicates them and slices K/V after the product; the port's
+        ranks compute only their KV heads' columns)."""
+        return {
+            "embed": ("vocab", "fsdp"),
+            "blocks": {
+                "attn_norm": (None, None),
+                "wq": (None, "fsdp", "heads"),
+                "wk": (None, "fsdp", "kv_heads"),
+                "wv": (None, "fsdp", "kv_heads"),
+                "wo": (None, "heads", "fsdp"),
+                "mlp_norm": (None, None),
+                "w_gate": (None, "fsdp", "ff"),
+                "w_up": (None, "fsdp", "ff"),
+                "w_down": (None, "ff", "fsdp"),
+            },
+            "final_norm": (None,),
+            "lm_head": ("fsdp", "vocab"),
+        }
+
     def quant_site_map(self) -> dict:
         return {
             ("blocks", "wq"): "attn_in",
@@ -111,9 +145,14 @@ class DenseLM:
         cfg = self.cfg
         hd = cfg.head_dim_
         b, t, _ = x.shape
-        q = qlinear(x, p["wq"]).reshape(b, t, cfg.n_heads, hd)
-        k = qlinear(x, p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
-        v = qlinear(x, p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+        # this rank's heads: all of them, or H/m and KH/m under TP
+        q = qlinear(x, p["wq"])
+        n_h = q.shape[-1] // hd
+        q = q.reshape(b, t, n_h, hd)
+        k = qlinear(x, p["wk"])
+        n_kv = k.shape[-1] // hd
+        k = k.reshape(b, t, n_kv, hd)
+        v = qlinear(x, p["wv"]).reshape(b, t, n_kv, hd)
         mrope = cfg.mrope_sections or None
         q = apply_rope(q, positions, cfg.rope_theta, mrope_sections=mrope)
         k = apply_rope(k, positions, cfg.rope_theta, mrope_sections=mrope)
@@ -157,8 +196,9 @@ class DenseLM:
                     attend = verify_attention_q8 if q8 else verify_attention
                     o = attend(q, *cache, pos, window=window)
             kv = cache
-        o = o.reshape(b, t, cfg.n_heads * hd)
-        return qlinear(o, p["wo"]), kv, o
+        o = o.reshape(b, t, n_h * hd)
+        out = reduce_row_parallel(qlinear(o, p["wo"]), n_h, cfg.n_heads)
+        return out, kv, o
 
     def _block(self, p, x, positions, collect, *, cache=None, cache_len=None,
                kv_lens=None, paged=None):
@@ -178,7 +218,8 @@ class DenseLM:
         hidden = F.silu(qlinear(h, p["w_gate"])) * qlinear(h, p["w_up"])
         if collect:
             stats["mlp_down"] = site_stat(hidden)
-        x = x + qlinear(hidden, p["w_down"])
+        x = x + reduce_row_parallel(qlinear(hidden, p["w_down"]),
+                                    hidden.shape[-1], self.cfg.d_ff)
         return x, kv, stats
 
     # -- entry points --------------------------------------------------------
@@ -199,7 +240,8 @@ class DenseLM:
         if positions is None:
             positions = self._maybe_mrope(
                 torch.arange(t, device=tokens.device).expand(b, t))
-        x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x = embed_tokens(params["embed"], tokens,
+                         self.cfg.vocab_size).to(self.dtype)
         x, stacked, moe_aux = self._forward_layers(params, x, positions,
                                                    collect_stats)
         logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
@@ -250,7 +292,8 @@ class DenseLM:
             plen = torch.as_tensor(prompt_len, dtype=torch.int32,
                                    device=dev).reshape(-1).expand(b)
             kv_lens = plen
-        x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x = embed_tokens(params["embed"], tokens,
+                         self.cfg.vocab_size).to(self.dtype)
         blocks = params["blocks"]
         for l in range(self.cfg.n_layers):
             x, (k, v), _ = self._block(_layer(blocks, l), x, positions, False,
@@ -345,7 +388,8 @@ class DenseLM:
                        paged=None):
         """Embed ``token``, run every layer against ``layer_cache(l)`` and
         return the logits."""
-        x = embed_tokens(params["embed"], token).to(self.dtype)
+        x = embed_tokens(params["embed"], token,
+                         self.cfg.vocab_size).to(self.dtype)
         blocks = params["blocks"]
         for l in range(self.cfg.n_layers):
             x, _, _ = self._block(_layer(blocks, l), x, positions, False,
@@ -380,6 +424,20 @@ class DenseLM:
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
         return dict(self._kv_leaves(shape, dev),
                     len=torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+    def cache_axes(self) -> dict:
+        """Logical axes of :meth:`init_cache`'s leaves (L, B, KH, S, .):
+        slots on ``batch``, KV heads on ``kv_heads``."""
+        ax = (None, "batch", "kv_heads", "kv_seq", None)
+        keys = self._cache_keys()
+        return dict({key: ax for key in keys}, len=None)
+
+    def paged_cache_axes(self) -> dict:
+        """Logical axes of :meth:`init_paged_cache`'s leaves (L, P, KH, ps,
+        .): pages replicated (any slot's table may point anywhere), KV
+        heads on ``kv_heads``, the dense cache's head split."""
+        ax = (None, None, "kv_heads", None, None)
+        return {key: ax for key in self._cache_keys()}
 
     def init_paged_cache(self, n_pages: int, page_size: int,
                          device="cuda") -> dict:

@@ -23,8 +23,17 @@ Capacity is a function of the routed token count N = B·T, as in the
 reference: bucket-padding tokens of a batched prefill are routed and
 compete for it, and a batched decode step depends on which requests share
 the batch.  A speculative verify span routes each position on its own, so
-that a burst drops the same tokens as sequential decode.  The sharded
-(expert-parallel) path of the reference is not ported.
+that a burst drops the same tokens as sequential decode.
+
+Expert parallelism (a serving engine's ``mesh=``, :meth:`MoELM.param_axes`
+put E/m experts on each rank of ``model``): :func:`moe_ffn` routes this
+rank's tokens (the sequence split over ``model`` where T divides, else
+every rank routes the same tokens), exchanges the ``(m, E/m, C, d)``
+dispatch buffer with one all_to_all, runs the local experts'
+``quant_matmul_experts`` over ``m * C`` rows each, and sends the rows
+back with a second.  Capacity is per (rank, expert) sub-batch, so the
+result equals the local path where nothing drops.  Calibration
+(``collect``) runs the local path on whole weights, as in the reference.
 """
 from __future__ import annotations
 
@@ -35,8 +44,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import all_gather, all_reduce, all_to_all
+from repro_torch.dist.sharding import axis_index, axis_size
 from repro_torch.kernels.ops import quant_matmul_experts
-from .common import NEG_INF, normal_init, padded_vocab, qlinear, rms_norm
+from .common import (NEG_INF, normal_init, padded_vocab, qlinear,
+                     reduce_row_parallel, rms_norm)
 from .dense import DenseLM
 
 
@@ -140,6 +152,84 @@ def moe_ffn_local(x, router_w, wg, wu, wd, cfg: ModelConfig,
     return y.reshape(b, t, d), aux, stats
 
 
+def _moe_body_sharded(x, router_w, wg, wu, wd, *, cfg: ModelConfig,
+                      data_axes=()):
+    """One rank's expert-parallel MoE FFN over ``model``.  Shapes are this
+    rank's: x (b, T, d) its tokens, ``router_w`` (d, E) whole, ``wg`` /
+    ``wu`` (E/m, d, f) and ``wd`` (E/m, f, d) its experts (float or
+    QuantizedTensor), experts ``rank * E/m ...``.  Returns (y (b, T, d),
+    aux averaged over ``model`` and ``data_axes``)."""
+    b, t, d = x.shape
+    x_flat = x.reshape(-1, d)
+    n = b * t
+    e_pad = router_w.shape[-1]
+    m = axis_size("model")
+    e_loc = e_pad // m
+    k = cfg.experts_per_token
+    cap = _capacity(n, k, cfg.n_experts, cfg.moe_capacity_factor)
+    probs, topi, aux = _route(x_flat, router_w, cfg.n_experts, k)
+    buf, dest, keep, src, gate = _dispatch(x_flat, topi, probs, e_pad, cap)
+    # exchange (E, C, d) as (dest rank, e_loc, C, d): after it, block j is
+    # source rank j's rows for this rank's experts
+    buf = all_to_all(buf.reshape(m, e_loc, cap, d), "model")
+    buf = buf.transpose(0, 1).reshape(e_loc, m * cap, d)
+    out_buf, _ = _expert_ffn(buf, wg, wu, wd)
+    # back: rows return to their source rank; block j then holds expert
+    # owner j's rows, so global expert j * e_loc + e matches the dispatch
+    out_buf = out_buf.reshape(e_loc, m, cap, d).transpose(0, 1).contiguous()
+    out_buf = all_to_all(out_buf, "model").reshape(e_pad, cap, d)
+    y = _combine(out_buf, dest, keep, src, gate, n, d)
+    ranks = m
+    aux = all_reduce(aux, "model")
+    for a in data_axes:
+        aux = all_reduce(aux, a)
+        ranks *= axis_size(a)
+    return y.reshape(b, t, d), aux / ranks
+
+
+def _expert_specs(w):
+    """This rank's block of one expert weight, per child: the mesh axis of
+    each dimension of a float ``(E, d_in, d_out)`` weight, or a dict of the
+    same for a QuantizedTensor's ``codes`` / ``scale`` / ``zero`` (``(E,
+    rows, d_out)``) and ``act_scale`` (``(E, d_in)``, None without one).
+    Experts split over ``model``; the rest stays whole (the reference's
+    FSDP also splits the input dimension over ``data``; the port's serving
+    keeps it whole)."""
+    spec = ("model", None, None)
+    if not isinstance(w, QuantizedTensor):
+        return spec
+    return {"codes": spec, "scale": spec, "zero": spec,
+            "act_scale": None if w.act_scale is None else ("model", None)}
+
+
+def _n_experts(w) -> int:
+    return (w.codes if isinstance(w, QuantizedTensor) else w).shape[-3]
+
+
+def moe_ffn(x, router_w, wg, wu, wd, cfg: ModelConfig,
+            collect: bool = False):
+    """The MoE FFN: expert-parallel when the expert weights are this
+    rank's E/m of them, local otherwise (and for ``collect``).  Tokens
+    split over ``model`` on the sequence where T divides; the ranks' rows
+    are gathered back.  Returns (y, aux, stats)."""
+    m = axis_size("model")
+    if m == 1 or _n_experts(wg) == router_w.shape[-1]:
+        return moe_ffn_local(x, router_w, wg, wu, wd, cfg, collect)
+    if collect:
+        raise ValueError("statistics are collected on whole expert weights "
+                         "(the local path)")
+    data_axes = ("data",) if axis_size("data") > 1 else ()
+    t = x.shape[1]
+    if t % m == 0:
+        part = t // m
+        x = x[:, axis_index("model") * part:][:, :part]
+    y, aux = _moe_body_sharded(x, router_w, wg, wu, wd, cfg=cfg,
+                               data_axes=data_axes)
+    if t % m == 0:
+        y = all_gather(y, "model", dim=1)
+    return y, aux, {}
+
+
 class MoELM(DenseLM):
     """Dense attention + MoE FFN blocks, with an optional shared expert.
 
@@ -205,6 +295,27 @@ class MoELM(DenseLM):
         return {"embed": embed, "blocks": blocks, "final_norm": ones(d),
                 "lm_head": head}
 
+    def param_axes(self) -> dict:
+        """Logical axes of :meth:`init`'s tree: the dense attention's, the
+        router whole, experts on ``experts``, the shared expert on
+        ``ff``."""
+        ax = DenseLM.param_axes(self)
+        blocks = {k: v for k, v in ax["blocks"].items()
+                  if k in ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")}
+        blocks.update({
+            "router": (None, None, None),
+            "wg_exp": (None, "experts", "fsdp", None),
+            "wu_exp": (None, "experts", "fsdp", None),
+            "wd_exp": (None, "experts", None, "fsdp"),
+        })
+        if self.cfg.n_shared_experts:
+            blocks.update({
+                "wg_sh": (None, "fsdp", "ff"),
+                "wu_sh": (None, "fsdp", "ff"),
+                "wd_sh": (None, "ff", "fsdp"),
+            })
+        return dict(ax, blocks=blocks)
+
     def quant_site_map(self) -> dict:
         m = {
             ("blocks", "wq"): "attn_in",
@@ -248,19 +359,21 @@ class MoELM(DenseLM):
             # drops what sequential T = 1 decode drops
             outs, auxes = [], []
             for i in range(h.shape[1]):
-                y_i, aux_i, _ = moe_ffn_local(h[:, i:i + 1], *experts, cfg)
+                y_i, aux_i, _ = moe_ffn(h[:, i:i + 1], *experts, cfg)
                 outs.append(y_i)
                 auxes.append(aux_i)
             y = torch.cat(outs, dim=1)
             aux = torch.stack(auxes).mean()
         else:
-            y, aux, moe_stats = moe_ffn_local(h, *experts, cfg, collect)
+            y, aux, moe_stats = moe_ffn(h, *experts, cfg, collect)
             stats.update(moe_stats)
         if cfg.n_shared_experts:
             hidden = F.silu(qlinear(h, p["wg_sh"])) * qlinear(h, p["wu_sh"])
             if collect:
                 stats["shared_down"] = site_stat(hidden)
-            y = y + qlinear(hidden, p["wd_sh"])
+            y = y + reduce_row_parallel(qlinear(hidden, p["wd_sh"]),
+                                        hidden.shape[-1],
+                                        cfg.shared_expert_ff)
         return x + y, kv, stats, aux
 
     def _block(self, p, x, positions, collect, *, cache=None, cache_len=None,

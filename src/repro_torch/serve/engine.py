@@ -47,11 +47,29 @@ iterations and forces preemptions on a seeded schedule; ``registry=``
 counters; ``tracer=`` (a :class:`repro_torch.obs.Tracer`, its clock
 re-pointed at the engine's) records request and step spans;
 ``profile=True`` runs every engine step inside a named
-``torch.profiler`` region.  Tensor parallelism (``mesh=``) is not
-ported: it raises ``NotImplementedError``.
+``torch.profiler`` region.
+
+Tensor parallelism (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh`):
+every rank constructs the engine with the same arguments and runs the
+same host loop.  The weights are cut to the rank's shards
+(:func:`repro_torch.dist.sharding.shard_tree` over the model's
+``param_axes`` under :func:`~repro_torch.dist.sharding.serving_rules`),
+the caches and page stores hold the rank's KV heads, and each step's
+logits are gathered over ``model`` (one all_gather) before the sampler,
+so every rank samples the same tokens from the same generator.  With
+``data > 1`` the dense, non-speculative engine runs ``n_slots / data``
+slots per data row where that divides, and gathers the step's logits over
+``data``; the paged and speculative engines run every slot on every data
+row (the page store is replicated over ``data``, as the reference's
+paged axes say).  The weights stay whole across ``data`` (the reference
+splits their input dimension there, FSDP; the tokens do not change).
+The clock is rank 0's, broadcast at every read, so deadlines decide alike
+on every rank.  Dense and MoE models only; ``slo=``, ``faults=`` and
+``serve(feed=)`` are refused under a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import time
 from typing import List, Optional
@@ -59,7 +77,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.bridge import tree_to
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import all_gather, broadcast
+from repro_torch.dist.sharding import (axis_rules, local_shape,
+                                       serving_rules, shard_tree)
 from repro_torch.obs import MetricsRegistry
 from . import instrument
 from .admission import AdmissionPipeline, ServeRun
@@ -71,6 +93,36 @@ from .slots import Request, effective_prompt, empty_tokens
 from .stepper import DenseStepper, PagedStepper
 
 __all__ = ["Request", "ServeEngine"]
+
+
+def _check_mesh(model, mesh, device, slo, faults):
+    """Refuse what tensor-parallel serving does not carry yet."""
+    family = model.cfg.family
+    if family not in ("dense", "moe"):
+        raise NotImplementedError(f"ServeEngine(mesh=) serves the dense and "
+                                  f"MoE families; {model.cfg.name} is "
+                                  f"{family}")
+    if slo is not None or faults is not None:
+        raise NotImplementedError("slo= and faults= are not ported to a "
+                                  "mesh")
+    if mesh.device.type != device.type:
+        raise ValueError(f"the mesh's rank runs on {mesh.device}, the engine "
+                         f"was asked for {device}")
+
+
+def _rank0_clock(clock, mesh, rules):
+    """``clock`` read on rank 0 and broadcast to every rank at each read:
+    every rank runs the same loop, so the reads pair up, and each rank
+    decides deadlines on the same time."""
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+    def read():
+        now = torch.tensor([clock() if mesh.rank == 0 else 0.0],
+                           dtype=torch.float64, device=dev)
+        with axis_rules(mesh, rules):
+            return float(broadcast(now)[0])
+
+    return read
 
 
 def _first_tensor(tree):
@@ -92,17 +144,25 @@ class ServeEngine:
                  n_pages: Optional[int] = None, spec=None, mesh=None,
                  slo=None, faults=None, tracer=None, registry=None,
                  profile: bool = False):
-        if mesh is not None:
-            raise NotImplementedError("ServeEngine(mesh=...) is not ported "
-                                      "yet")
         self.device = resolve_device(device)
         leaf = _first_tensor(params)
-        if leaf is not None and leaf.device.type != self.device.type:
+        # under a mesh, whole weights on the host are cut there and only
+        # this rank's shards move to its device
+        if (leaf is not None and leaf.device.type != self.device.type
+                and (mesh is None or leaf.device.type != "cpu")):
             raise ValueError(f"params live on {leaf.device}, the engine on "
                              f"{self.device}")
         self.model = model
-        self.params = params
+        self.mesh = mesh
         self.clock = clock if clock is not None else time.time
+        if mesh is not None:
+            _check_mesh(model, mesh, self.device, slo, faults)
+            self.device = mesh.device
+            self._rules = serving_rules(model.cfg, mesh)
+            params = self.place(params, model)
+            if mesh.n_ranks > 1:
+                self.clock = _rank0_clock(self.clock, mesh, self._rules)
+        self.params = params
         # one registry for every component's counters, and an optional
         # span tracer whose clock is the engine's seam; both exist before
         # the stepper and spec runner so their groups land in it
@@ -150,6 +210,16 @@ class ServeEngine:
         else:
             self.prefill_chunk = bucket_for(self.buckets, int(prefill_chunk))
 
+        # the slots this rank computes: a block of them per data row (the
+        # dense, non-speculative engine where n_slots divides and every
+        # admission is a batched prefill of its block), else all
+        self._rows = slice(None)
+        data = 1 if mesh is None else mesh.size("data")
+        if (data > 1 and n_slots % data == 0 and not self.paged
+                and spec is None and self._supports_plen):
+            per = n_slots // data
+            self._rows = slice(mesh.index("data") * per,
+                               (mesh.index("data") + 1) * per)
         self._stepper = (PagedStepper(self, page_size, n_pages)
                          if self.paged else DenseStepper(self))
         # speculative decoding: a model without the span-write decode path
@@ -171,6 +241,67 @@ class ServeEngine:
         # one-iteration admission hold after a pressure-relieving preemption
         self._hold_fill = False
         self._req_stats: dict = {}   # rid -> dict(tokens=..., steps=...)
+
+    # -- mesh plumbing ---------------------------------------------------------
+    def _mesh_ctx(self):
+        """The mesh and its rules, active for the models' collectives
+        (nothing without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return axis_rules(self.mesh, self._rules)
+
+    def place(self, params, model):
+        """``params`` of ``model`` cut to this rank's shards, on the
+        engine's device (itself without a mesh)."""
+        if self.mesh is None:
+            return params
+        return tree_to(shard_tree(params, model.param_axes(), self.mesh,
+                                  serving_rules(model.cfg, self.mesh)),
+                       self.device)
+
+    def _zeros(self, meta: dict, axes: dict, rules: dict) -> dict:
+        """Zeros of this rank's block of every leaf of ``meta`` (a cache
+        tree on the meta device), allocated at the block's shape."""
+        rules = dict(rules, batch=None)    # slots are cut by self._rows
+        out = {}
+        for key, leaf in meta.items():
+            ax = axes.get(key)
+            shape = (tuple(leaf.shape) if ax is None else
+                     local_shape(leaf.shape, ax, self.mesh, rules))
+            out[key] = torch.zeros(shape, dtype=leaf.dtype,
+                                   device=self.device)
+        return out
+
+    def new_cache(self, model, batch: int, max_len: int) -> dict:
+        """``model.init_cache(batch, max_len)`` on the engine's device, at
+        this rank's KV heads under a mesh."""
+        if self.mesh is None:
+            return model.init_cache(batch, max_len, device=self.device)
+        return self._zeros(model.init_cache(batch, max_len, device="meta"),
+                           model.cache_axes(),
+                           serving_rules(model.cfg, self.mesh))
+
+    def new_paged_cache(self, n_pages: int, page_size: int) -> dict:
+        """The model's page store, at this rank's KV heads under a mesh."""
+        model = self.model
+        if self.mesh is None:
+            return model.init_paged_cache(n_pages, page_size,
+                                          device=self.device)
+        return self._zeros(model.init_paged_cache(n_pages, page_size,
+                                                  device="meta"),
+                           model.paged_cache_axes(), self._rules)
+
+    @property
+    def n_local_slots(self) -> int:
+        """Slots this rank computes (``n_slots`` unless cut over data)."""
+        return len(range(self.n_slots)[self._rows])
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A step's per-slot rows of this rank's slots, gathered over
+        ``data`` to every slot (``x`` itself when the slots are not cut)."""
+        if self._rows == slice(None):
+            return x
+        return all_gather(x, "data", dim=0)
 
     # -- paged state -----------------------------------------------------------
     def _paged_stepper(self) -> PagedStepper:
@@ -207,7 +338,12 @@ class ServeEngine:
     # -- single-request path -------------------------------------------------
     def generate(self, request: Request) -> np.ndarray:
         """Single-request generate: exact-length batch-1 prefill + batch-1
-        decode through the same stepper bodies as the batched path."""
+        decode through the same stepper bodies as the batched path (every
+        data row runs it whole under a mesh)."""
+        with self._mesh_ctx():
+            return self._generate(request)
+
+    def _generate(self, request: Request) -> np.ndarray:
         self._check_prompt(request)
         if request.max_new_tokens <= 0:
             return empty_tokens()
@@ -367,6 +503,13 @@ class ServeEngine:
         bind (more pages than the whole pool, or more tokens than its
         tenant's whole quota) is shed once no slot is active.
         """
+        if feed is not None and self.mesh is not None:
+            raise NotImplementedError("open-loop arrivals (serve(feed=)) "
+                                      "are not ported to a mesh")
+        with self._mesh_ctx():
+            return self._serve(requests, feed)
+
+    def _serve(self, requests, feed) -> dict:
         self._req_stats = {}         # per-serve scope
         t0 = self.clock()
         for r in requests:

@@ -206,7 +206,7 @@ def collect_metrics(eng) -> dict:
     m["retrace_count"] = 0
     m["retrace_by_entry"] = {}
     m["paged"] = eng.paged
-    m["mesh"] = None
+    m["mesh"] = dict(eng.mesh.shape) if eng.mesh is not None else None
     m["prefill_chunk"] = eng.prefill_chunk or 0
     if eng.paged:
         pool = eng.pool

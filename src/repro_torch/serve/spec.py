@@ -69,10 +69,17 @@ class SpecRunner:
                              f"{tv}; the accept/resample rule compares the "
                              "two distributions elementwise")
         self.shares = bool(getattr(self.draft, "shares_cache", False))
+        if engine.mesh is not None:
+            # the draft's weights on the engine's mesh, cut along the draft
+            # model's own logical axes (its steps run on local heads, as the
+            # target's); the caller's draft keeps its whole weights
+            self.draft = dataclasses.replace(
+                self.draft, params=engine.place(self.draft.params,
+                                                self.dmodel))
         self.dcache = None
         if not self.shares:
-            self.dcache = self.dmodel.init_cache(
-                engine.n_slots, engine.max_len, device=engine.device)
+            self.dcache = engine.new_cache(self.dmodel, engine.n_slots,
+                                           engine.max_len)
         self.m = engine.registry.group("spec").init(
             spec_cycles=0, draft_steps=0, proposed_tokens=0,
             accepted_tokens=0, emitted_draft_tokens=0)
@@ -90,7 +97,7 @@ class SpecRunner:
         tokens[0, :len(p)] = p
         _, c1 = self.dmodel.prefill(
             self.draft.params, torch.as_tensor(tokens, device=eng.device),
-            self.dmodel.init_cache(1, eng.max_len, device=eng.device),
+            eng.new_cache(self.dmodel, 1, eng.max_len),
             torch.as_tensor([len(p)], dtype=torch.int32, device=eng.device))
         self.dcache = write_slot(self.dcache, c1, slot)
 

@@ -23,6 +23,13 @@ interface:
   ``slot_overflows`` — the capacity side of the backpressure protocol
   (trivially satisfied dense),
 * ``prefill1`` / ``decode`` — the dense bodies, also used by ``generate``.
+
+Under a mesh the caches and page stores come from the engine
+(``new_cache`` / ``new_paged_cache``: this rank's KV heads, its block of
+slots when the slots are cut over ``data``), page tables stay whole on
+every rank, and each page update stays local to the rank's heads.  A
+step's logits of this rank's slots are gathered over ``data`` before the
+sampler (``engine.gather_rows``).
 """
 from __future__ import annotations
 
@@ -50,8 +57,7 @@ class DenseStepper:
     # -- lifecycle -----------------------------------------------------------
     def begin(self):
         eng = self.engine
-        self.cache = eng.model.init_cache(eng.n_slots, eng.max_len,
-                                          device=eng.device)
+        self.cache = eng.new_cache(eng.model, eng.n_local_slots, eng.max_len)
 
     def retire(self, st: SlotTable, s: int):
         pass
@@ -108,27 +114,34 @@ class DenseStepper:
         """Exact-length batch-1 prefill into a fresh cache; returns
         (first token (1,), cache)."""
         eng = self.engine
-        cache = eng.model.init_cache(1, eng.max_len, device=eng.device)
+        cache = eng.new_cache(eng.model, 1, eng.max_len)
         self.prefill_calls += 1
         logits, cache = eng.model.prefill(eng.params, tokens, cache)
         return self._sample(logits[:, 0], policy), cache
 
-    def decode(self, cache, slot_last, active, policy):
+    def decode(self, cache, slot_last, active, policy, rows=slice(None)):
         """One decode step with inactive slots masked.
 
         Inactive slots still flow through the batched matmuls (shape
         stability) but their ``len`` is restored afterwards and their
         in-bounds scratch write lands at a position attention masks out —
-        a dead slot's cache length can never pass ``max_len``."""
+        a dead slot's cache length can never pass ``max_len``.  ``rows``
+        are the slots ``cache`` holds (this rank's block when the slots
+        are cut over ``data``): the step runs those rows and gathers their
+        logits to every slot before the sampler."""
         eng = self.engine
+        act = active[rows]
         old_len = cache["len"]
-        safe_len = torch.where(active, old_len,
+        safe_len = torch.where(act, old_len,
                                torch.clamp(old_len, max=eng.max_len - 1))
         logits, cache = eng.model.decode_step(eng.params,
                                               dict(cache, len=safe_len),
-                                              slot_last[:, None])
-        cache = dict(cache, len=torch.where(active, cache["len"], old_len))
-        nxt = self._sample(logits[:, 0], policy)
+                                              slot_last[rows, None])
+        cache = dict(cache, len=torch.where(act, cache["len"], old_len))
+        logits = logits[:, 0]
+        if rows != slice(None):
+            logits = eng.gather_rows(logits)
+        nxt = self._sample(logits, policy)
         return torch.where(active, nxt, slot_last), cache
 
     # -- admission entry points ----------------------------------------------
@@ -138,14 +151,15 @@ class DenseStepper:
         admitted slots; samples each admitted slot's first token."""
         eng = self.engine
         dev = eng.device
+        rows = eng._rows
         mask = torch.as_tensor(admit_mask, device=dev)
-        scratch = eng.model.init_cache(eng.n_slots, eng.max_len, device=dev)
+        scratch = eng.new_cache(eng.model, eng.n_local_slots, eng.max_len)
         self.prefill_calls += 1
         logits, new = eng.model.prefill(
-            eng.params, torch.as_tensor(tokens, device=dev), scratch,
-            torch.as_tensor(plen, device=dev))
-        self.cache = merge_slots(self.cache, new, mask)
-        first = self._sample(logits[:, 0],
+            eng.params, torch.as_tensor(tokens[rows], device=dev), scratch,
+            torch.as_tensor(plen[rows], device=dev))
+        self.cache = merge_slots(self.cache, new, mask[rows])
+        first = self._sample(eng.gather_rows(logits[:, 0]),
                              self.policy_args(st.temps, st.top_k, st.top_p))
         st.slot_last = torch.where(mask, first, st.slot_last)
 
@@ -170,7 +184,7 @@ class DenseStepper:
                 np.minimum(st.slot_len, eng.max_len - 1)))
         st.slot_last, self.cache = self.decode(
             self.cache, sl, torch.as_tensor(st.active, device=eng.device),
-            self.policy_args(st.temps, st.top_k, st.top_p))
+            self.policy_args(st.temps, st.top_k, st.top_p), eng._rows)
 
     def spec_cycle(self, st: SlotTable, k_eff: int):
         """One speculative cycle; inactive slots' bursts start at a length
@@ -189,7 +203,8 @@ class DenseStepper:
     def spec_rollback(self, st: SlotTable):
         """Republish the host lengths after a burst: rejected suffixes roll
         back by length alone."""
-        self.cache = truncate_slot(self.cache, st.slot_len)
+        self.cache = truncate_slot(self.cache,
+                                   st.slot_len[self.engine._rows])
 
 
 class PagedStepper(DenseStepper):
@@ -216,8 +231,7 @@ class PagedStepper(DenseStepper):
                              registry=eng.registry)
         # persists across serve() calls so the prefix index keeps paying
         # off between bursts
-        self.store = eng.model.init_paged_cache(self.n_pages, page_size,
-                                                device=eng.device)
+        self.store = eng.new_paged_cache(self.n_pages, page_size)
         self.table = np.full((eng.n_slots, self.pages_per_slot),
                              PagePool.TRASH, np.int32)
 
@@ -339,8 +353,7 @@ class PagedStepper(DenseStepper):
         ps = self.page_size
         n_scratch_pages = -(-b // ps)
         mask = torch.as_tensor(admit_mask, device=dev)
-        scratch = eng.model.init_cache(eng.n_slots, n_scratch_pages * ps,
-                                       device=dev)
+        scratch = eng.new_cache(eng.model, eng.n_slots, n_scratch_pages * ps)
         self.prefill_calls += 1
         logits, scratch = eng.model.prefill(
             eng.params, torch.as_tensor(tokens, device=dev), scratch,

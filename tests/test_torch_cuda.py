@@ -1560,3 +1560,183 @@ def test_xlstm_engine_equals_generate_on_the_card(dev):
     for i, p in enumerate(prompts):
         alone = eng.generate(Request(rid=10 + i, prompt=p, max_new_tokens=12))
         assert torch.equal(torch.as_tensor(res[i]), torch.as_tensor(alone)), i
+
+
+# -- tensor-parallel serving: a rank's routes and ranks on the card -----------
+
+@pytest.mark.parametrize("k,n", [(4096, 2048), (4096, 512), (4096, 7168)])
+def test_quant_matmul_column_shard_is_its_columns(dev, k, n):
+    """A rank's column shard at model 2 (wq, wk / wv, gate / up of
+    llama3-8b): the product on the shard is the plain version's within the
+    exact limit and the same columns of the whole product bit for bit (k
+    and g are unchanged, so is the fold)."""
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    codes, scale, zero = _packed(k, 2 * n, 64, gen)
+    x = torch.randn(4, k, generator=gen, device=dev).bfloat16()
+    whole = qm.quant_matmul(x, codes, scale, zero)
+    for r in range(2):
+        part = [t[:, r * n:(r + 1) * n].contiguous()
+                for t in (codes, scale, zero)]
+        got = qm.quant_matmul(x, *part)
+        _bf16_close(got, qm.quant_matmul_ref(x, *part),
+                    rel_tol=EXACT_REL_TOL)
+        assert torch.equal(got, whole[:, r * n:(r + 1) * n]), r
+
+
+@pytest.mark.parametrize("k,n", [(2048, 4096), (7168, 4096)])
+def test_quant_matmul_row_shards_sum_to_the_product(dev, k, n):
+    """A rank's row shard at model 2 (wo, down): each partial product is
+    the plain version's within the exact limit; the two, summed as the
+    all_reduce sums them, are the whole product up to one more bf16
+    rounding."""
+    gen = torch.Generator(device=dev).manual_seed(k * 3 + n)
+    codes, scale, zero = _packed(2 * k, n, 64, gen)
+    x = torch.randn(4, 2 * k, generator=gen, device=dev).bfloat16()
+    total = 0
+    for r in range(2):
+        args = (x[:, r * k:(r + 1) * k].contiguous(),
+                codes[r * k // 2:(r + 1) * k // 2].contiguous(),
+                scale[r * k // 64:(r + 1) * k // 64].contiguous(),
+                zero[r * k // 64:(r + 1) * k // 64].contiguous())
+        got = qm.quant_matmul(*args)
+        _bf16_close(got, qm.quant_matmul_ref(*args), rel_tol=EXACT_REL_TOL)
+        total = total + got.float()
+    _bf16_close(total.bfloat16(), qm.quant_matmul_ref(x, codes, scale, zero))
+
+
+@pytest.mark.parametrize("variant", ["dense", "q8", "paged", "paged_q8"])
+def test_decode_on_a_ranks_heads_is_its_part(dev, variant):
+    """Decode attention on one rank's 16 query / 4 KV heads (llama3-8b at
+    model 2), every variant: the plain version's within the bf16 limit,
+    and the same heads of the single-device launch bit for bit (heads
+    never mix)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, h, kh, s, hd, ps = 4, 16, 4, 1024, 128, 16
+    lens = [44, 140, 332, 732]
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(b, 1, 2 * h, hd, generator=gen, device=dev).bfloat16()
+    kv = [torch.randn(b, 2 * kh, s, hd, generator=gen,
+                      device=dev).bfloat16() for _ in range(2)]
+    if "q8" in variant:
+        kv = [c for t in kv for c in _q8(t)]
+    perm = (torch.randperm(b * s // ps, generator=gen, device=dev) + 1) \
+        .reshape(b, s // ps).to(torch.int32)
+
+    def pages(t):
+        blocks = t.reshape(b, t.shape[1], s // ps, ps, -1) \
+            .permute(0, 2, 1, 3, 4).reshape(b * s // ps, t.shape[1], ps, -1)
+        store = torch.zeros((1 + blocks.shape[0],) + blocks.shape[1:],
+                            dtype=t.dtype, device=dev)
+        store[perm.reshape(-1).long()] = blocks
+        return store
+
+    kern, plain = {
+        "dense": (fd.flash_decode, fd.decode_attention_ref),
+        "q8": (fd.flash_decode_q8, fd.decode_attention_q8_ref),
+        "paged": (fd.flash_decode_paged, fd.paged_decode_attention_ref),
+        "paged_q8": (fd.flash_decode_paged_q8,
+                     fd.paged_decode_attention_q8_ref)}[variant]
+
+    def args(qq, caches):
+        if "paged" in variant:
+            return (qq, *(pages(c) for c in caches), perm, cl)
+        return (qq, *caches, cl)
+
+    whole = kern(*args(q, kv))
+    for r in range(2):
+        qr = q[:, :, r * h:(r + 1) * h].contiguous()
+        cr = [c[:, r * kh:(r + 1) * kh].contiguous() for c in kv]
+        a = args(qr, cr)
+        got = kern(*a)
+        _bf16_close(got, plain(*a))
+        assert torch.equal(got, whole[:, :, r * h:(r + 1) * h]), r
+
+
+def _q8(t):
+    codes, scale = quantize_kv(t.transpose(1, 2))
+    return codes.transpose(1, 2).contiguous(), scale.transpose(1, 2) \
+        .contiguous()
+
+
+def test_flash_attention_on_a_ranks_kv_heads_is_its_part(dev):
+    """Prefill attention on one rank's 4 of 8 KV heads (G 4, hd 128, T
+    512, with a key length per slot): the same rows of the single-device
+    launch bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, kh, g, t, hd = 4, 8, 4, 512, 128
+    q = torch.randn(b * kh, g, t, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b * kh, t, hd, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    lens = torch.tensor([300, 512, 37, 450], dtype=torch.int32, device=dev)
+    whole = fa.flash_attention(q, k, v, causal=True, kv_lens=lens)
+
+    def mine(w, r):
+        return w.reshape(b, kh, *w.shape[1:])[:, r * 4:(r + 1) * 4] \
+            .reshape(b * 4, *w.shape[1:])
+
+    for r in range(2):
+        got = fa.flash_attention(*(mine(w, r).contiguous() for w in (q, k, v)),
+                                 causal=True, kv_lens=lens)
+        assert torch.equal(got, mine(whole, r)), r
+
+
+def test_quant_matmul_experts_on_a_ranks_experts_is_its_part(dev):
+    """Expert parallelism at model 2: a rank's 32 of 64 experts over both
+    ranks' capacity rows (decode: every rank routes the same tokens) give
+    the rows of the single-device grouped launch bit for bit."""
+    from repro_torch.kernels.ops import quant_matmul_experts
+    from repro_torch.kernels.ref import quant_matmul_experts_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    e, c, k, n = 64, 5, 2048, 1408
+    qt = quantize_groupwise(
+        torch.randn(e, k, n, generator=gen, device=dev) / k ** 0.5,
+        QuantSpec(4, 64), pack=True,
+        act_scale=torch.rand((e, k), generator=gen, device=dev) + 0.5)
+    x = (torch.randn(e, c, k, generator=gen, device=dev) / 4).bfloat16()
+    whole = quant_matmul_experts(x, qt)
+    for r in range(2):
+        sl = slice(r * 32, (r + 1) * 32)
+        xr = torch.cat([x[sl]] * 2, dim=1)
+        got = quant_matmul_experts(xr, qt[sl])
+        _bf16_close(got, quant_matmul_experts_ref(xr, qt[sl]),
+                    rel_tol=EXACT_REL_TOL)
+        assert torch.equal(got, torch.cat([whole[sl]] * 2, dim=1)), r
+
+
+def _tp_tiny(dev, mesh=None):
+    """A tiny llama3-8b (f32, RTN int4) served on ``dev``; tokens."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = ARCHS["llama3-8b"].tiny()
+    model = build_model(cfg)
+    qp, _ = quantize_model(model.init(0, device=dev), model.quant_site_map(),
+                           None, method="rtn", spec=QuantSpec(4, 64),
+                           mode="packed")
+    gen = torch.Generator().manual_seed(2)
+    res = {}
+    for paged in (False, True):
+        eng = ServeEngine(model, qp, n_slots=2, max_len=64, paged=paged,
+                          page_size=8, mesh=mesh, device=dev)
+        out = eng.serve([Request(rid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (n,), generator=gen).numpy(),
+            max_new_tokens=8) for i, n in enumerate((5, 19, 33))])
+        res[paged] = {r: out[r].tolist() for r in out}
+    return res
+
+
+def _tp_rank(mesh):
+    return _tp_tiny(mesh.device, mesh)
+
+
+@pytest.mark.parametrize("shape,backend", [((1, 2), "gloo"),
+                                           ((1, 1), "nccl")])
+def test_ranks_on_the_card_serve_single_device_tokens(dev, tmp_path, shape,
+                                                      backend):
+    """Two ranks sharing the card over gloo (CUDA tensors staged through
+    the host), and a 1 x 1 NCCL mesh: dense and paged tokens equal the
+    single-device engine's (f32: a row-parallel sum parts from the single
+    product by float rounding only, far from a tie here)."""
+    from repro_torch.launch.mesh import spawn
+    got = spawn(_tp_rank, shape, backend, str(tmp_path), device="cuda",
+                timeout=600)
+    assert got == _tp_tiny(dev)

@@ -56,6 +56,8 @@ def test_port_imports_with_jax_unimportable():
             "import repro_torch.train, repro_torch.train.grad_compress\n"
             "import repro_torch.launch.train, repro_torch.launch.quantize\n"
             "import repro_torch.core.theory\n"
+            "import repro_torch.launch.mesh, repro_torch.dist.sharding\n"
+            "import repro_torch.dist.collectives, repro_torch.dist.elastic\n"
             "assert not any(m == 'repro' or m.startswith('repro.')\n"
             "               for m in sys.modules), 'imported repro'\n"
             "print('ok')\n")

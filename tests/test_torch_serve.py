@@ -179,9 +179,19 @@ def test_deadlines_and_zero_budget_follow_the_clock(slice_run):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_unported_engine_options_raise(slice_run, option):
+    """``mesh=`` serves (tests/test_torch_tp_serve.py); what it does not
+    carry yet raises: ``slo=`` / ``faults=`` and open-loop ``feed=``
+    under a mesh."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serve import SLOConfig
+    meshes = {"mesh": make_local_mesh}
     with pytest.raises(NotImplementedError, match=option):
         ServeEngine(slice_run["tm"], slice_run["tq"], device="cpu",
-                    **{option: True})
+                    slo=SLOConfig(seed=0), **{option: meshes[option]()})
+    eng = ServeEngine(slice_run["tm"], slice_run["tq"], device="cpu",
+                      **{option: meshes[option]()})
+    with pytest.raises(NotImplementedError, match=option):
+        eng.serve(feed=object())
 
 
 def _serve_with(slice_run, **option):
