@@ -57,14 +57,24 @@ Phases (any failure exits non-zero; nothing is caught):
               device operations of a train step), and the trained
               params' checkpoint served through launch/serve.py's restore
               with the in-memory params' tokens;
+   mesh     — the same 2 layers trained on a (data, model) mesh of 2
+              ranks that share the card over gloo, at (1, 2) (tensor
+              parallel) and (2, 1) (FSDP + data parallel), 3 steps each on
+              the train phase's batches: step 1's loss, grad_norm and
+              gathered gradients against the single-device step's, the
+              losses against its losses, collectives per step against the
+              tests' formula, a one-writer mesh save read back bit for
+              bit; the two backward routes (flash_attention_bwd on one
+              rank's 4 of 8 KV heads, rms_norm_bwd on a data rank's 1024
+              rows) are held and timed in phase 3;
 5. main path — llama3-8b at full width (d_model 4096, 32 heads, 8 KV
-              heads, d_ff 14336, vocab 128256), 24 of its 32 layers, random
+              heads, d_ff 14336, vocab 128256), 16 of its 32 layers, random
               bf16 weights from a seed: calibrate on 16 x 512 tokens (the
               flash-attention path), FAQ alpha search, int4 pack (g = 64),
               then a 4-slot engine serves 8 greedy requests of 12..700
               prompt tokens (bucketed and chunked prefill) for 32 tokens
               each; between FAQ and serving, full_search_faq (paper Eq.
-              8) over the 24 layers' 7 sites through quant_error, its
+              8) over the 16 layers' 7 sites through quant_error, its
               choices held against the plain search's.  After serving,
               the packed tree is saved by launch/quantize, restored, and
               must serve the same tokens bit for bit.  Then tensor
@@ -114,11 +124,12 @@ Phases (any failure exits non-zero; nothing is caught):
               requests greedy up to ties; an independent 2-layer
               llama3-8b-width draft with random weights, equal to plain
               serving bit for bit.  Then the serving layers above the
-              engine: 12 Poisson requests (12..700-token prompts) through
-              ``Scheduler.run_traffic`` at half the closed-loop rate, dense
-              and paged, equal to a closed-loop serve bit for bit, with
-              TTFT, queue-delay and per-token percentiles; the same trace
-              at twice the rate under SLO admission (two tenants, quotas,
+              engine: the first 8 of 12 Poisson requests (12..700-token
+              prompts) through ``Scheduler.run_traffic`` at half the
+              closed-loop rate, dense and paged, equal to a closed-loop
+              serve bit for bit, with TTFT, queue-delay and per-token
+              percentiles; the 12-request trace at twice the rate under
+              SLO admission (two tenants, quotas,
               deadlines): every request reaches one terminal outcome and
               some shed is retried; a paged serve with vetoed page
               allocations, a forced preemption and a stall, whose
@@ -219,14 +230,19 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
 # llama3-8b's main path: 24 of its 32 layers (cut so that the script,
-# with the VLM and hybrid families, stays well inside its time limit;
-# every layer has the same shapes)
+# with every family, stays inside its time limit; every layer has the same
+# shapes)
 LAYERS = 24
 PROMPT_LENS = (12, 40, 100, 200, 300, 450, 600, 700)
 NEW_TOKENS = 32
 # bf16 logits of magnitude < 8 are spaced 2**-5 apart; a token within four
 # such steps of the reference's top logit is a numerical tie, not an error
 TIE_TOL = 4 * 2.0 ** -5
+# the open-loop runs serve the first 8 requests of the 12-request trace
+# (their arrivals span 20 of its 72 s; all 12 read 149-167 s of phase at
+# 24 layers on an H100 80GB HBM3, 700 W); the SLO and tracer runs keep all
+# 12
+OPEN_LOOP_REQUESTS = 8
 # limit on ||kernel - plain|| / ||plain|| for bf16 flash_attention and
 # bf16 quant_matmul with rounded weights (groups not a multiple of 64 rows)
 BF16_REL_TOL = 1e-2
@@ -614,6 +630,7 @@ def kernel_phase(dev):
     rows += family_route_rows(dev, gen, randn)
     rows += ssm_audio_route_rows(dev, gen, randn)
     rows += tp_route_rows(dev, gen, randn)
+    rows += mesh_train_route_rows(dev, gen, randn)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
@@ -1754,6 +1771,125 @@ def rms_norm_bwd_row(dev, gen, randn):
                 f32_max_abs_err=errs[torch.float32])
 
 
+def mesh_train_route_rows(dev, gen, randn):
+    """The backward routes a rank of mesh training launches (llama3-8b at B
+    4, T 512): flash_attention_bwd on one rank's 4 of 8 KV heads at model
+    2 (q (16, 4, 512, 128), causal, bf16), each rank's launch, after its own
+    forward, held against the plain version and, bit for bit, against its
+    heads of the whole launch; rms_norm_bwd on a data rank's 1024 of the
+    2048 rows at data 2, bf16, dx and dw held against the plain version and
+    dx bit for bit against its rows of the whole launch (dw sums the rank's
+    rows only).  Each timed beside the plain version and the backward of
+    the library call (``scaled_dot_product_attention`` with GQA,
+    ``F.rms_norm``) under autograd."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as rn
+
+    phase("kernel routes of mesh training (model 2: 4 of 8 KV heads; data "
+          "2: 1024 of 2048 rows)")
+    rows = []
+    b, kh, g, t, hd = 4, 8 // TP_RANKS, 4, 512, 128
+    bkh = b * kh
+    qf, dof = (randn(b * TP_RANKS * kh, g, t, hd) for _ in range(2))
+    kf, vf = (randn(b * TP_RANKS * kh, t, hd) for _ in range(2))
+    of, lsef = fa._forward(qf, kf, vf, True, None, with_lse=True)
+    whole = fa.flash_attention_bwd(qf, kf, vf, of, lsef, dof)
+
+    def heads(w, r):
+        return w.reshape(b, TP_RANKS * kh, *w.shape[1:])[
+            :, r * kh:(r + 1) * kh].reshape(bkh, *w.shape[1:]).contiguous()
+
+    err = 0.0
+    for r in range(TP_RANKS):
+        q, k, v, do = (heads(w, r) for w in (qf, kf, vf, dof))
+        o, lse = fa._forward(q, k, v, True, None, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        want = fa.flash_attention_bwd_ref(q, k, v, do)
+        for name, a, w_, full in zip(("dq", "dk", "dv"), got, want, whole):
+            err = max(err, held(f"flash_attention_bwd_tp2 {name} q ({bkh},"
+                                f"{g},{t},{hd}) rank {r}", a, w_,
+                                rel_tol=BF16_REL_TOL))
+            same_bits(f"flash_attention_bwd_tp2 {name} rank {r}: == its "
+                      f"heads of the whole launch", a, heads(full, r))
+        if r == 0:
+            sets = (q, k, v, o, lse, do)
+        del got, want
+    del qf, kf, vf, of, lsef, dof, whole
+    q, k, v, o, lse, do = sets
+    ms = time_ms(lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                 reps=10, inner=3)
+    plain = time_ms(lambda i: fa.flash_attention_bwd_ref(q, k, v, do),
+                    reps=3, inner=2)
+    leaves = [x.reshape(shape).detach().requires_grad_() for x, shape in
+              ((q, (b, kh * g, t, hd)), (k, (b, kh, t, hd)),
+               (v, (b, kh, t, hd)))]
+    sd = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=True)
+    do_r = do.reshape(b, kh * g, t, hd)
+
+    def sdpa_bwd(i):
+        return torch.autograd.grad(sd, leaves, do_r, retain_graph=True)
+
+    held("flash_attention_bwd_tp2: library call (sdpa backward) dq against "
+         "the kernel's", sdpa_bwd(0)[0].reshape(q.shape),
+         fa.flash_attention_bwd(q, k, v, o, lse, do)[0],
+         rel_tol=BF16_REL_TOL)
+    lib = time_ms(sdpa_bwd, reps=10, inner=3)
+    b_ms, b_by = bound((3 * bkh * g * t * hd + 2 * bkh * t * hd) * 2
+                       + bkh * g * t * 4
+                       + (bkh * g * t * hd + 2 * bkh * t * hd) * 2,
+                       10 * hd * bkh * g * t * (t + 1) / 2)
+    rows.append(dict(name="flash_attention_bwd_tp2", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                     replaces="none: a kernel of the port only (repro has "
+                              "no backward kernel; forward src/repro/"
+                              "kernels/flash_attention.py:92)",
+                     shape=f"q/o/dO ({bkh},{g},{t},{hd}) bf16: 4 slots x "
+                           f"one rank's {kh} of {TP_RANKS * kh} KV heads, "
+                           f"k/v ({bkh},{t},{hd}), lse f32, causal",
+                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib))
+    del sets, q, k, v, o, lse, do, leaves, sd
+
+    n_rows, d, eps = 2048, 4096, 1e-5
+    part = n_rows // TP_RANKS
+    xf, dyf = randn(n_rows, d) * 3, randn(n_rows, d)
+    w = randn(d)
+    dx_whole, _ = rn.rms_norm_bwd(xf, w, dyf, eps)
+    err = 0.0
+    for r in range(TP_RANKS):
+        x, dy = (a[r * part:(r + 1) * part].contiguous() for a in (xf, dyf))
+        got = rn.rms_norm_bwd(x, w, dy, eps)
+        want = rn.rms_norm_bwd_ref(x, w, dy, eps)
+        err = max(err, max(held(f"rms_norm_bwd_dp2 {name} ({part},{d}) "
+                                f"rank {r}", a, w_, rel_tol=BF16_REL_TOL)
+                           for name, a, w_ in zip(("dx", "dw"), got, want)))
+        same_bits(f"rms_norm_bwd_dp2 dx rank {r}: == its rows of the whole "
+                  f"launch", got[0], dx_whole[r * part:(r + 1) * part])
+    x, dy = xf[:part].contiguous(), dyf[:part].contiguous()
+    ms = time_ms(lambda i: rn.rms_norm_bwd(x, w, dy, eps))
+    plain = time_ms(lambda i: rn.rms_norm_bwd_ref(x, w, dy, eps))
+    lib = None
+    lib_fn = getattr(torch.nn.functional, "rms_norm", None)
+    if lib_fn is not None:
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        out = lib_fn(xl, (d,), wl, eps)
+        lib = time_ms(lambda i: torch.autograd.grad(out, (xl, wl), dy,
+                                                    retain_graph=True))
+    b_ms, b_by = bound((3 * part * d + 2 * d) * 2, 10 * part * d,
+                       F32_FLOPS_PER_S)
+    rows.append(dict(name="rms_norm_bwd_dp2", route="cuda",
+                     source="src/repro_torch/csrc/rms_norm.cu",
+                     replaces="none: a kernel of the port only (repro's "
+                              "rms_norm is plain jnp, src/repro/models/"
+                              "common.py:54)",
+                     shape=f"x/dy ({part},{d}) bf16: a data rank's rows of "
+                           f"{n_rows}, w ({d},)",
+                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib))
+    return rows
+
+
 # the projections of one llama3-8b layer, (k, n); w_gate is the timed row
 LLAMA_PROJ = {"w_gate": (4096, 14336), "wq": (4096, 4096), "wk": (4096, 1024),
               "wv": (4096, 1024), "wo": (4096, 4096), "w_up": (4096, 14336),
@@ -2081,6 +2217,11 @@ def train_paths(dev, kernels):
           f"relative norm {worst:.3e} (limit {TRAIN_GRAD_TOL})", flush=True)
     check(worst <= TRAIN_GRAD_TOL, "step 1's gradients differ from the "
                                    "plain versions' step")
+    # step 1's gradients, the mesh phase's yardstick, on the disk the
+    # ranks read
+    ref = {"dir": tempfile.mkdtemp(prefix="chip_smoke_mesh_ref_"),
+           "loss1": float(loss_k)}
+    ckpt.save(ref["dir"], 1, {"grads": grads})
     del grads, plain
     torch.cuda.empty_cache()
 
@@ -2099,6 +2240,9 @@ def train_paths(dev, kernels):
                 params, opt_state, met = step_fn(params, opt_state,
                                                  batches[s])
                 losses.append(float(met["loss"]))
+                if s < MESH_STEPS:
+                    ref.setdefault("grad_norms", []).append(
+                        float(met["grad_norm"]))
                 if s + 1 == RESUME_AT:
                     t1 = time.perf_counter()
                     ckpt.save_async(tmp, RESUME_AT,
@@ -2121,6 +2265,7 @@ def train_paths(dev, kernels):
               flush=True)
         check(all(np.isfinite(losses)), "a training loss is not finite")
         check(losses[-1] < losses[0], "the loss did not fall in 20 steps")
+        ref["losses"] = losses[:MESH_STEPS]
 
         phase(f"main path: checkpoint at step {RESUME_AT}, restore, resume")
         nbytes = os.path.getsize(os.path.join(tmp, f"step_{RESUME_AT:08d}",
@@ -2216,7 +2361,315 @@ def train_paths(dev, kernels):
         shutil.rmtree(tmp, ignore_errors=True)
     del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, ref
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: training on a mesh (2 ranks sharing the card over gloo)
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = ((1, TP_RANKS), (TP_RANKS, 1))     # (data, model)
+MESH_STEPS = 3
+MESH_TIMEOUT = 600
+# limit on |mesh - single-device| / |single-device| of each step's loss
+# and grad_norm: the mesh sums partial products and gradients rounded to
+# bf16 (a row-parallel product's partial sums, the data ranks' gradients)
+# where one device rounds once, which read at most 2.5e-5 on the H100.  A
+# mesh whose AdamW step changed nothing would miss it: the single-device
+# losses move 3e-3 and 9e-3 from step 1 by step 2 and 3, and a gradient
+# taken at step-1 weights gives another grad_norm
+MESH_LOSS_TOL = 1e-3
+
+
+def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root):
+    """One rank of the mesh phase: for each of MESH_SHAPES over the same 2
+    ranks, seed-0 params cut to this rank's shards and MESH_STEPS steps on
+    this rank's rows of the train phase's batches (losses, grad_norm,
+    collectives per step, kernel launches, memory: the state after set-up
+    and the peak of each part of a step).  Step 1 runs as
+    the train step's two halves (``make_grad_fn``, then ``opt.update`` at
+    the schedule's first lr), so its gradient can be read: every leaf
+    gathered on rank 0 and held against the single-device step's by
+    relative norm.  At (1, 2) the gather is ``gather_to_host``; at (2, 1)
+    it is the mesh save of the gradient (``save_async``: the gather in this
+    thread, rank 0's write behind steps 2..3), read back after the steps
+    whole on rank 0's card (its cut == rank 0's shards bit for bit) and
+    with the mesh's specs on the other rank (== its shards).  Rank 0's
+    numbers are the phase's."""
+    import gc
+
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.dist import collectives
+    from repro_torch.dist._tree import leaves_with_keys
+    from repro_torch.dist.sharding import cut_tensor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import data_for
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import cosine_schedule
+    from repro_torch.train.trainer import (make_grad_fn, make_train_step,
+                                           param_specs, shard_params)
+
+    def gib(n):
+        return n / 2**30
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    model = build_model(cfg)
+    data = data_for(cfg)
+    lr_fn = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.total_steps)
+    kernels = {"flash_attention": fa.KERNEL, "flash_attention_bwd":
+               fa.KERNEL_BWD, "rms_norm": rn.KERNEL,
+               "rms_norm_bwd": rn.KERNEL_BWD}
+    want = None
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        want = ckpt.restore(ref_dir, 1,
+                            {"grads": model.init(device="meta")},
+                            device="cpu")["grads"]
+        want = dict(leaves_with_keys(want))
+        ref_read_s = time.perf_counter() - t0
+
+    def against_single(host):
+        """{leaf: ||mesh - single|| / ||single||} of gathered gradients"""
+        rels = {}
+        for key, g in leaves_with_keys(host):
+            w_ = want[key].to(dev).float()
+            g = g.to(dev).float()
+            check(bool((g != 0).any()), f"grad {key} is zero")
+            rels[key] = float((g - w_).norm() / w_.norm())
+        return rels
+
+    out = {}
+    for shape in MESH_SHAPES:
+        m = (mesh if shape == tuple(mesh.shape.values())
+             else make_local_mesh(*shape, device=dev))
+        saved = shape == MESH_SHAPES[-1]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"ref_read_s": ref_read_s} if mesh.rank == 0 else {}
+        t0 = time.perf_counter()
+        params = shard_params(model, model.init(0, device=dev), m)
+        step_fn, opt = make_train_step(model, tcfg, mesh=m)
+        opt_state = opt.init(params)
+        specs = param_specs(model, m)
+        g_specs = {f"['grads']{k}": v for k, v in specs.items()}
+        d, n_data = m.index("data"), m.size("data")
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                    data.batch(s, TRAIN_BATCH // n_data, TRAIN_SEQ, host=d,
+                               n_hosts=n_data).items()}
+                   for s in range(MESH_STEPS)]
+        torch.cuda.synchronize()
+        run["setup_s"] = time.perf_counter() - t0
+        mem = {"state": gib(torch.cuda.memory_allocated()),
+               "setup_peak": gib(torch.cuda.max_memory_allocated())}
+        for k in kernels.values():
+            k.launches = 0
+        collectives.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads, met = make_grad_fn(model, tcfg, m)(params, batches[0])
+        torch.cuda.synchronize()
+        mem["grad_peak"] = gib(torch.cuda.max_memory_allocated())
+        mem["with_grads"] = gib(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, gnorm = opt.update(
+            grads, opt_state, params, lr_fn(opt_state.step + 1), mesh=m,
+            specs=specs)
+        losses, norms = [float(met["loss"])], [float(gnorm)]
+        step_s = [time.perf_counter() - t0]
+        mem["update_peak"] = gib(torch.cuda.max_memory_allocated())
+        step1 = collectives.counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if saved:
+            ckpt.save_async(ckpt_root, 1, {"grads": grads}, mesh=m,
+                            specs=g_specs)
+        else:
+            host = ckpt.gather_to_host(grads, m, specs)
+            if host is not None:
+                run["grad_rel"] = against_single(host)
+            del host
+        run["gather_s"] = time.perf_counter() - t0
+        mem["gather_peak"] = gib(torch.cuda.max_memory_allocated())
+        collectives.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(1, MESH_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batches[s])
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            step_s.append(time.perf_counter() - t0)
+        mem["steps_peak"] = gib(torch.cuda.max_memory_allocated())
+        peaks = [None] * mesh.n_ranks
+        torch.distributed.all_gather_object(peaks, mem)
+        run.update(train_s=sum(step_s), step_s=step_s, losses=losses,
+                   grad_norms=norms, step1_collectives=step1,
+                   collectives=collectives.counts(),
+                   launches={n: k.launches for n, k in kernels.items()},
+                   mem_gib=peaks)
+        if saved:
+            t0 = time.perf_counter()
+            ckpt.wait_pending()
+            torch.distributed.barrier()
+            run["save_wait_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if mesh.rank == 0:
+                whole = ckpt.restore(ckpt_root, 1, {"grads": grads},
+                                     device=dev)
+                run["restored_bits"] = all(
+                    torch.equal(cut_tensor(a, g_specs.get(k), m), b)
+                    for (k, a), (_, b) in zip(leaves_with_keys(whole),
+                                              leaves_with_keys(
+                                                  {"grads": grads})))
+                run["restore_s"] = time.perf_counter() - t0
+                run["grad_rel"] = against_single(whole["grads"])
+                run["ckpt_gb"] = os.path.getsize(os.path.join(
+                    ckpt_root, "step_00000001", "data.bin")) / 1e9
+                del whole
+            else:
+                back = ckpt.restore(ckpt_root, 1, {"grads": grads},
+                                    device=dev, mesh=m, specs=g_specs)
+                check(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                    leaves_with_keys(back), leaves_with_keys(
+                        {"grads": grads}))),
+                      f"rank {mesh.rank}: the mesh save restored with the "
+                      f"mesh's specs differs from its shards")
+                del back
+        del params, opt_state, batches, grads
+        out[shape] = run
+    return out
+
+
+def mesh_train_paths(dev, ref):
+    """Training on a mesh at llama3-8b width (the train phase's 2 layers,
+    seed-0 weights, its first MESH_STEPS batches of 4 x 512 tokens) over 2
+    ranks that share the card over gloo: mesh (1, 2) (tensor parallel) and
+    (2, 1) (FSDP + data parallel) in one spawn.  Each of the MESH_STEPS
+    losses and grad_norms against the single-device run's (MESH_LOSS_TOL),
+    step 1's gathered gradients per leaf against the single-device step's
+    (TRAIN_GRAD_TOL), a loss that falls over the steps, collectives per
+    step against ``step_collectives`` (the formula the tests hold), a mesh
+    save (rank 0 writes) restored bit for bit (:func:`mesh_train_rank`).
+    The tokens/s is that of 2 ranks on one card with host-staged
+    collectives, not a TP or DP speed.  Returns {row name: launches} for
+    the mesh route rows."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.train.trainer import TrainConfig, step_collectives
+
+    phase(f"main path: training on a mesh, (1, {TP_RANKS}) and "
+          f"({TP_RANKS}, 1) (2 ranks sharing the card over gloo)")
+    cfg = ARCHS["llama3-8b"].scaled(n_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(lr=1e-3, warmup=5, total_steps=TRAIN_STEPS)
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        got = spawn(mesh_train_rank, (1, TP_RANKS), "gloo", store, cfg, tcfg,
+                    ref["dir"], ckpt_root, device="cuda",
+                    timeout=MESH_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        for path in (store, ckpt_root, ref["dir"]):
+            shutil.rmtree(path, ignore_errors=True)
+    print(f"  2 ranks on {torch.cuda.get_device_name(0)}: spawn to exit "
+          f"{spawn_s:.2f} s; rank 0 read the single-device step-1 gradients "
+          f"in {got[MESH_SHAPES[0]]['ref_read_s']:.2f} s", flush=True)
+    tokens = MESH_STEPS * TRAIN_BATCH * TRAIN_SEQ
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for shape in MESH_SHAPES:
+        run = got[shape]
+        worst = max(run["grad_rel"].values())
+        key = max(run["grad_rel"], key=run["grad_rel"].get)
+        run["loss_rel"] = [rel(a, b) for a, b in zip(run["losses"],
+                                                     ref["losses"])]
+        run["norm_rel"] = [rel(a, b) for a, b in zip(run["grad_norms"],
+                                                     ref["grad_norms"])]
+        print(f"  mesh {shape}: losses {run['losses']} (single "
+              f"{ref['losses']}; step 1's value_and_grad {ref['loss1']}), "
+              f"rel {[f'{x:.3e}' for x in run['loss_rel']]}; grad_norms "
+              f"{run['grad_norms']} (single {ref['grad_norms']}), rel "
+              f"{[f'{x:.3e}' for x in run['norm_rel']]}; limit "
+              f"{MESH_LOSS_TOL}", flush=True)
+        print(f"    step 1's {len(run['grad_rel'])} gathered gradient leaves "
+              f"against single-device: worst ||mesh - single|| / ||single|| "
+              f"{worst:.3e} ({key}; limit {TRAIN_GRAD_TOL}); all: "
+              f"{ {k: round(v, 5) for k, v in run['grad_rel'].items()} }",
+              flush=True)
+        mem = run["mem_gib"]
+        print(f"    {tokens} tokens in "
+              f"{run['train_s']:.2f} s = {tokens / run['train_s']:.0f} "
+              f"tokens/s (2 ranks on one card, host-staged collectives: not "
+              f"a TP or DP speed; steps "
+              f"{[round(x, 2) for x in run['step_s']]} s); setup "
+              f"{run['setup_s']:.2f} s, step 1's gradient gathered to rank 0 "
+              f"in {run['gather_s']:.2f} s", flush=True)
+        print(f"    GiB per rank: state after set-up (params + AdamW "
+              f"moments) {[round(x['state'], 2) for x in mem]}; peak of "
+              f"set-up {[round(x['setup_peak'], 2) for x in mem]}, of step "
+              f"1's forward + backward {[round(x['grad_peak'], 2) for x in mem]}"
+              f" (then {[round(x['with_grads'], 2) for x in mem]} held with "
+              f"the gradients), of its AdamW update "
+              f"{[round(x['update_peak'], 2) for x in mem]}, of the gradient "
+              f"gather {[round(x['gather_peak'], 2) for x in mem]}, of steps "
+              f"2..{MESH_STEPS} {[round(x['steps_peak'], 2) for x in mem]}; "
+              f"peak {[round(max(v for v in x.values()), 2) for x in mem]}",
+              flush=True)
+        # steps 2..MESH_STEPS through train_step, step 1 through its halves
+        later = MESH_STEPS - 1
+        run["per_step"] = {k: c["calls"] / later
+                           for k, c in run["collectives"].items()}
+        run["per_step_1"] = {k: float(c["calls"])
+                             for k, c in run["step1_collectives"].items()}
+        elements = {k: c["elements"] // later
+                    for k, c in run["collectives"].items()}
+        print(f"    collectives per step {run['per_step']} (the tests' "
+              f"formula {step_collectives(cfg.n_layers, shape)}); elements "
+              f"per step {elements}; rank 0's launches {run['launches']}",
+              flush=True)
+    last = got[MESH_SHAPES[-1]]
+    print(f"  mesh {MESH_SHAPES[-1]} save_async of step 1's gradients "
+          f"({last['ckpt_gb']:.2f} GB): the gather {last['gather_s']:.2f} s "
+          f"in the caller's thread, rank 0's write then "
+          f"{last['save_wait_s']:.2f} s past steps 2..{MESH_STEPS}; "
+          f"restored whole on rank 0's card in "
+          f"{last['restore_s']:.2f} s and cut, bit for bit with rank 0's "
+          f"shards {last['restored_bits']} (rank 1: with the mesh's specs, "
+          f"checked in the rank)", flush=True)
+    for shape in MESH_SHAPES:
+        run = got[shape]
+        check(len(run["loss_rel"]) == len(run["norm_rel"]) == MESH_STEPS
+              and max(run["loss_rel"] + run["norm_rel"]) <= MESH_LOSS_TOL,
+              f"mesh {shape}: a loss or grad_norm differs from "
+              f"single-device")
+        check(rel(run["losses"][0], ref["loss1"]) <= MESH_LOSS_TOL,
+              f"mesh {shape}: step 1's loss differs from single-device's "
+              f"value_and_grad")
+        check(max(run["grad_rel"].values()) <= TRAIN_GRAD_TOL,
+              f"mesh {shape}: step 1's gradients differ from single-device")
+        check(run["losses"][-1] < run["losses"][0],
+              f"mesh {shape}: the loss did not fall in {MESH_STEPS} steps")
+        formula = {k: float(v) for k, v in step_collectives(
+            cfg.n_layers, shape).items()}
+        check(run["per_step"] == formula == run["per_step_1"],
+              f"mesh {shape}: collectives per step {run['per_step']}, "
+              f"step 1 {run['per_step_1']}")
+        for name in ("flash_attention", "flash_attention_bwd", "rms_norm",
+                     "rms_norm_bwd"):
+            check(run["launches"][name] > 0,
+                  f"mesh {shape}: {name} not launched")
+    check(last["restored_bits"], "the mesh checkpoint differs from the "
+                                 "shards")
+    return {"flash_attention_bwd_tp2":
+            got[(1, TP_RANKS)]["launches"]["flash_attention_bwd"],
+            "rms_norm_bwd_dp2": got[(TP_RANKS, 1)]["launches"]["rms_norm_bwd"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4224,9 +4677,9 @@ def traffic_paths(dev, kernels, model, qparams, data, serve_s):
     def trace_at(rate):
         return make_trace(TrafficConfig(rate=rate, **tkw))
 
-    phase(f"main path: open-loop traffic, 12 Poisson requests at 0.5 x the "
-          f"closed-loop rate ({0.5 * closed_rps:.3f} requests/s), dense and "
-          f"paged")
+    phase(f"main path: open-loop traffic, the first {OPEN_LOOP_REQUESTS} of "
+          f"12 Poisson requests at 0.5 x the closed-loop rate "
+          f"({0.5 * closed_rps:.3f} requests/s), dense and paged")
     base = trace_at(0.5 * closed_rps)
     lens = [len(r.prompt) for _, r in base]
     print(f"  prompt lengths {lens}; arrivals at "
@@ -4256,12 +4709,14 @@ def traffic_paths(dev, kernels, model, qparams, data, serve_s):
                if paged else eng_d)
         res, counts[name] = counted(
             kernels, lambda: Scheduler(eng).run_traffic(
-                trace_at(0.5 * closed_rps)))
+                trace_at(0.5 * closed_rps)[:OPEN_LOOP_REQUESTS]))
         traffic_report(name, res)
-        check(res.summary["completed"] == 12, f"{name}: not all completed")
-        same = [np.array_equal(res[r.rid], closed[r.rid]) for _, r in base]
+        check(res.summary["completed"] == OPEN_LOOP_REQUESTS,
+              f"{name}: not all completed")
+        same = [np.array_equal(res[r.rid], closed[r.rid])
+                for _, r in base[:OPEN_LOOP_REQUESTS]]
         print(f"  {name}: tokens equal the closed-loop dense serve's bit for "
-              f"bit: {sum(same)}/12", flush=True)
+              f"bit: {sum(same)}/{len(same)}", flush=True)
         check(all(same), f"{name}: tokens differ from the closed-loop serve")
         del eng
 
@@ -4494,15 +4949,20 @@ def main():
                "quant_matmul_experts_ep2", "flash_decode_tp2",
                "flash_decode_q8_tp2", "flash_attention_tp2",
                "flash_decode_paged_tp2", "flash_decode_paged_q8_tp2"]
+    # the backward routes of mesh training (rank 0's launches in the mesh
+    # phase)
+    mesh_rows = ["flash_attention_bwd_tp2", "rms_norm_bwd_dp2"]
     kernels = tuple(by_name.values())
     rows = {r["name"]: r for r in kernel_phase(dev)}
-    names = list(by_name) + [name for name, *_ in routes] + tp_rows
+    names = (list(by_name) + [name for name, *_ in routes] + tp_rows
+             + mesh_rows)
     check(sorted(rows) == sorted(names), f"kernel rows {sorted(rows)}")
     rows = [rows[name] for name in names]
     phase("reference: tiny model, card against CPU")
     reference_phase(dev)
     phase("main path: train llama3-8b width on the card")
-    train_counts = train_paths(dev, kernels)
+    train_counts, mesh_ref = train_paths(dev, kernels)
+    mesh_launches = mesh_train_paths(dev, mesh_ref)
     phase("main path: llama3-8b calibrate -> FAQ -> int4 pack -> serve")
     launches, row_keys = main_path_phase(dev, kernels)
     phase("main path: the MoE family (qwen2-moe-a2.7b)")
@@ -4522,7 +4982,9 @@ def main():
         row.update(row_keys.get(row["name"], {}))
         row["launches"] = launches[kern.symbol]
     for row in rows[len(kernels) + len(routes):]:
-        row["launches"] = row_keys["tp"][row["name"]]
+        row["launches"] = (mesh_launches[row["name"]]
+                           if row["name"] in mesh_launches
+                           else row_keys["tp"][row["name"]])
     for row, (_, kern, family, takes) in zip(rows[len(kernels):], routes):
         row["launches"] = sum(
             n for path, counts in family_counts.items()

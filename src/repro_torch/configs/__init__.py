@@ -1,9 +1,10 @@
 """Architecture configs (one module per arch) + registry.
 
 The port's own copies of ``repro.configs``: all ten of the reference's
-architectures (dense, MoE, VLM, hybrid, ssm and audio families).
+architectures (dense, MoE, VLM, hybrid, ssm and audio families), and the
+production shape cells (``SHAPE_CELLS``).
 """
-from .base import ModelConfig
+from .base import SHAPE_CELLS, ModelConfig, ShapeCell
 
 from .stablelm_12b import CONFIG as STABLELM_12B
 from .llama3_405b import CONFIG as LLAMA3_405B
@@ -22,4 +23,4 @@ ARCHS = {
                         QWEN2_VL, HYMBA, XLSTM, WHISPER)
 }
 
-__all__ = ["ARCHS", "ModelConfig"]
+__all__ = ["ARCHS", "ModelConfig", "SHAPE_CELLS", "ShapeCell"]

@@ -77,3 +77,22 @@ class ModelConfig:
             slstm_every=self.slstm_every,
             patch_len=8 if self.patch_len and self.family == "vlm" else self.patch_len,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """A production shape: sequence length and global batch of a train,
+    prefill or decode run (the reference's cells, entry for entry)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeCell("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeCell("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeCell("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeCell("long_500k", 524288, 1, "decode")
+
+SHAPE_CELLS = {c.name: c for c in
+               (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

@@ -27,8 +27,17 @@ manifest, read leaf by leaf so only one host copy of a leaf is resident.
 ``save_async`` snapshots the tree to host memory before it returns (the
 training loop may then overwrite its tensors) and writes on a background
 thread; ``wait_pending`` joins every writer and re-raises the first
-failure.  One process writes: the multi-process gather of the reference
-(process 0 writes after an allgather) arrives with the distributed slice.
+failure.
+
+On a mesh (``mesh=``, ``specs=``: the ``{key: spec}`` of the leaves the
+mesh cuts, :func:`repro_torch.dist.sharding.tree_specs`) every rank calls
+``save`` / ``save_async``: each cut leaf is all-gathered to its logical
+shape first, a collective run in the caller's thread (a background thread's
+collective would race the training step's), and then rank 0 alone writes,
+the bytes a single-device save of the gathered tree writes; the other ranks
+touch no file.  ``restore(..., mesh=, specs=)`` reads each logical leaf and
+keeps this rank's block of it, so a checkpoint written on one mesh resumes
+on another or on one device.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from . import _tree
+from .collectives import all_gather
+from .sharding import axis_rules, cut_tensor
 
 _STEP_RE = re.compile(r"^step_(\d{8,})$")   # 8+: steps >= 1e8 grow digits
 # writer tmps are step_XXXXXXXX.<host>-<pid>-<n>.tmp; <host> is sanitized
@@ -83,15 +94,36 @@ def _check_keep(keep: Optional[int]):
                          f"just written always survives GC")
 
 
-def _host_tree(tree):
+def gather_to_host(tree, mesh=None, specs: Optional[dict] = None):
     """A host copy of every leaf (tensors detached and copied; numpy
     arrays and Python scalars as arrays), so the caller may overwrite its
-    tensors as soon as this returns."""
-    def get(x):
+    tensors as soon as this returns.  On a mesh each leaf ``specs`` names
+    is gathered to its logical shape first (every rank calls this); ranks
+    other than 0 keep no copy and get None."""
+    def get(key, x):
         if isinstance(x, torch.Tensor):
+            if mesh is not None and key in specs:
+                x = _gather_leaf(x, specs[key], mesh)
+            if mesh is not None and mesh.rank != 0:
+                return None
             return x.detach().to("cpu", copy=True)
         return torch.from_numpy(np.array(x))
-    return _tree.tree_map(get, tree)
+    host = _tree.map_with_keys(get, tree)
+    return host if mesh is None or mesh.rank == 0 else None
+
+
+@torch.no_grad()
+def _gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The logical tensor of this rank's block ``x`` under ``spec``: each
+    cut dimension all-gathered over its axes, the minor axis first (blocks
+    are numbered row-major over an entry's axes)."""
+    with axis_rules(mesh):
+        for dim, entry in enumerate(spec):
+            for axis in reversed((entry,) if isinstance(entry, str)
+                                 else entry or ()):
+                if mesh.size(axis) > 1:
+                    x = all_gather(x, axis, dim)
+    return x
 
 
 def _leaf_bytes(t: torch.Tensor) -> bytes:
@@ -260,25 +292,31 @@ def _write_dir(ckpt_dir: str, step: int, host_tree, keep: Optional[int],
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: Optional[int] = None,
-         fault_hook=None) -> str:
+         fault_hook=None, mesh=None, specs: Optional[dict] = None) -> str:
     """Atomically write ``tree`` as ``<ckpt_dir>/step_XXXXXXXX``; returns
     its path.  ``keep`` retains only the newest ``keep`` complete
     checkpoints after a successful write.  ``fault_hook`` runs between the
     data write and manifest promotion; whatever it raises must leave no
-    half-written step."""
+    half-written step.  On a ``mesh`` every rank calls it with its shards
+    and rank 0 writes the gathered tree (see the module docstring)."""
     _check_keep(keep)
-    return _write_dir(ckpt_dir, step, _host_tree(tree), keep,
-                      fault_hook=fault_hook)
+    host_tree = gather_to_host(tree, mesh, specs)
+    if host_tree is None:
+        return os.path.join(ckpt_dir, _step_name(step))
+    return _write_dir(ckpt_dir, step, host_tree, keep, fault_hook=fault_hook)
 
 
 def save_async(ckpt_dir: str, step: int, tree, *,
-               keep: Optional[int] = None,
-               fault_hook=None) -> threading.Thread:
+               keep: Optional[int] = None, fault_hook=None, mesh=None,
+               specs: Optional[dict] = None) -> Optional[threading.Thread]:
     """Like :func:`save` but the file I/O runs on a background thread.
-    The host snapshot is taken before returning; join with
-    :func:`wait_pending`."""
+    The host snapshot (on a mesh: the gather) is taken before returning;
+    join with :func:`wait_pending`.  Ranks other than 0 start no thread and
+    get None."""
     _check_keep(keep)
-    host_tree = _host_tree(tree)
+    host_tree = gather_to_host(tree, mesh, specs)
+    if host_tree is None:
+        return None
     record = {"exc": None}
 
     def work():
@@ -338,19 +376,22 @@ def _gc(ckpt_dir: str, keep: int, written_step: int):
                       ignore_errors=True)
 
 
-def restore(ckpt_dir: str, step: int, target, *, device=None):
+def restore(ckpt_dir: str, step: int, target, *, device=None, mesh=None,
+            specs: Optional[dict] = None):
     """Read ``step`` back in the shape of ``target`` (a tree whose
     structure, NamedTuples and QuantizedTensors included, defines the
     result's).  Dtypes and shapes come from the manifest, not the target.
     Leaves land on ``device`` (default: each target leaf's own device; a
-    non-tensor leaf's is the CPU)."""
+    non-tensor leaf's is the CPU).  On a ``mesh`` each leaf ``specs``
+    names (for this mesh) is cut to this rank's block; ranks other than 0
+    only read."""
     dev = None if device is None else resolve_device(device)
     path = os.path.join(ckpt_dir, _step_name(step))
     man_path = os.path.join(path, "manifest.json")
     for _ in range(40):                 # ~2s bound on the promote window
         if os.path.isfile(man_path):
             break
-        if os.path.isdir(ckpt_dir):
+        if os.path.isdir(ckpt_dir) and (mesh is None or mesh.rank == 0):
             _reclaim_stale_tmps(ckpt_dir)   # may recover a retired ckpt
         if os.path.isfile(man_path):
             break
@@ -381,6 +422,8 @@ def restore(ckpt_dir: str, step: int, target, *, device=None):
             t = torch.frombuffer(buf, dtype=raw) if buf else \
                 torch.empty(0, dtype=raw)
             t = t.view(dtype).reshape(entry["shape"])
+            if mesh is not None:
+                t = cut_tensor(t, specs.get(key), mesh)
             to = dev if dev is not None else (
                 leaf.device if isinstance(leaf, torch.Tensor) else None)
             return t if to is None or to.type == "cpu" else t.to(to)

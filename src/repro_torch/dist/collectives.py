@@ -1,21 +1,38 @@
-"""The collectives of tensor-parallel serving, over one mesh axis.
+"""The collectives of the port's meshes, over one mesh axis.
 
 The port's counterparts of what GSPMD and ``shard_map`` insert in the
 reference: :func:`all_reduce` (row-parallel partial sums, the vocab-sharded
-embedding lookup), :func:`all_gather` (the logits' vocab columns, a step's
-rows over ``data``), :func:`all_to_all` (the MoE expert exchange) and
-:func:`broadcast` (rank 0's clock).  Each runs over the process group of
-one axis of the active mesh (:func:`repro_torch.dist.sharding.axis_rules`)
-and returns a new tensor.
+embedding lookup, a training step's norms and metrics), :func:`all_gather`
+(the logits' vocab columns, a step's rows over ``data``, a layer's FSDP
+weights), :func:`reduce_scatter` (the FSDP gradients), :func:`all_to_all`
+(the MoE expert exchange) and :func:`broadcast` (rank 0's clock).  Each runs
+over the process group of one axis of the active mesh
+(:func:`repro_torch.dist.sharding.axis_rules`; ``axis=None`` is the whole
+mesh) and returns a new tensor.
+
+Under autograd (grad enabled and an input that requires it) three of them
+carry gradients, each backward the adjoint collective over the same group:
+:func:`all_reduce` (sum) passes its output gradient through;
+:func:`all_gather` hands each rank its own block of the gradient, or, with
+``reduce_grad`` (a weight shard gathered for ranks that see different
+rows), sums the gradient over the axis first (a reduce_scatter);
+:func:`copy_to` (the identity, placed where a column-parallel product reads
+a replicated input) sums its gradient over the axis.  The backward takes
+the mesh it saw in the forward: autograd may run it in another thread,
+which has no active mesh.  Without grad every collective is the same call
+as ever.
 
 Gloo carries CUDA tensors through host memory: on a ``gloo`` mesh a CUDA
 tensor is copied to the host, reduced or exchanged there, and copied back,
-for every kind, by rule.  NCCL takes CUDA tensors as they are.
+for every kind and in both directions, by rule.  NCCL takes CUDA tensors as
+they are.
 
 :data:`COUNTS` keeps, per kind, the calls and the elements moved (the
-input's for all_reduce / all_to_all / broadcast, the gathered output's for
-all_gather), the most one call moved, and the last call's output shape:
-the decode-step collective invariant and ``chip_smoke.py`` read it.
+input's for all_reduce / reduce_scatter / all_to_all / broadcast, the
+gathered output's for all_gather), the most one call moved, and the last
+call's output shape: the decode-step collective invariant, the training
+step's per-step counts and ``chip_smoke.py`` read it.  A backward's
+collectives count like any other.
 """
 from __future__ import annotations
 
@@ -26,9 +43,11 @@ import torch.distributed as dist
 
 from .sharding import active_mesh
 
-KINDS = ("all_reduce", "all_gather", "all_to_all", "broadcast")
+KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+         "broadcast")
 COUNTS = {k: {"calls": 0, "elements": 0, "max_elements": 0,
              "last_shape": None} for k in KINDS}
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def reset_counts():
@@ -65,26 +84,139 @@ def _staged(x: torch.Tensor, mesh) -> torch.Tensor:
     return x.detach().clone(memory_format=torch.contiguous_format)
 
 
-def all_reduce(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axis``."""
-    mesh = _mesh()
+def _size(mesh, axis: Optional[str]) -> int:
+    return mesh.n_ranks if axis is None else mesh.size(axis)
+
+
+def _grad_wanted(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+# -- the calls themselves (no autograd) ---------------------------------------
+
+def _all_reduce(x, mesh, axis, op="sum"):
     buf = _staged(x, mesh)
-    dist.all_reduce(buf, group=mesh.group(axis))
+    dist.all_reduce(buf, op=_OPS[op], group=mesh.group(axis))
     _count("all_reduce", x.numel(), x.shape)
     return buf.to(x.device)
 
 
-def all_gather(x: torch.Tensor, axis: str = "model",
-               dim: int = -1) -> torch.Tensor:
-    """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in rank
-    order."""
-    mesh = _mesh()
+def _all_gather(x, mesh, axis, dim):
     buf = _staged(x, mesh)
-    parts = [torch.empty_like(buf) for _ in range(mesh.size(axis))]
+    parts = [torch.empty_like(buf) for _ in range(_size(mesh, axis))]
     dist.all_gather(parts, buf, group=mesh.group(axis))
     out = torch.cat(parts, dim=dim).to(x.device)
     _count("all_gather", out.numel(), out.shape)
     return out
+
+
+def _reduce_scatter(x, mesh, axis, dim):
+    n = _size(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split in {n}")
+    buf = _staged(x.movedim(dim, 0), mesh)
+    out = buf.new_empty((buf.shape[0] // n,) + tuple(buf.shape[1:]))
+    dist.reduce_scatter_tensor(out, buf, group=mesh.group(axis))
+    _count("reduce_scatter", x.numel(), x.shape)
+    return out.movedim(0, dim).contiguous().to(x.device)
+
+
+def _block(x, mesh, axis, dim):
+    """This rank's block of ``x`` cut in equal parts along ``dim``."""
+    n = x.shape[dim] // _size(mesh, axis)
+    return x.narrow(dim, mesh.index(axis) * n, n).contiguous()
+
+
+# -- autograd -----------------------------------------------------------------
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the axis; the gradient of every rank's partial is the
+    output's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Concatenation over the axis; backward: this rank's block of the
+    gradient, summed over the axis first with ``reduce_grad``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, reduce_grad):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.reduce_grad = (mesh, axis, dim,
+                                                       reduce_grad)
+        return _all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.reduce_grad:
+            g = _reduce_scatter(grad, ctx.mesh, ctx.axis, ctx.dim)
+        else:
+            g = _block(grad, ctx.mesh, ctx.axis, ctx.dim)
+        return g, None, None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity; backward: the gradient summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+# -- the public calls ---------------------------------------------------------
+
+def all_reduce(x: torch.Tensor, axis: Optional[str] = "model",
+               op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``x`` over the ranks of
+    ``axis`` (``None``: every rank of the mesh).  A sum under autograd
+    passes its output's gradient to ``x``."""
+    mesh = _mesh()
+    if op == "sum" and _grad_wanted(x):
+        return _AllReduce.apply(x, mesh, axis)
+    return _all_reduce(x, mesh, axis, op)
+
+
+def all_gather(x: torch.Tensor, axis: str = "model", dim: int = -1,
+               reduce_grad: bool = False) -> torch.Tensor:
+    """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in rank
+    order.  Under autograd the gradient of ``x`` is this rank's block of
+    the output's gradient; with ``reduce_grad`` that gradient is summed
+    over ``axis`` first (a reduce_scatter): the FSDP gather of a weight
+    shard, whose consumers on the axis's ranks see different rows."""
+    mesh = _mesh()
+    dim = dim % x.dim()
+    if _grad_wanted(x):
+        return _AllGather.apply(x, mesh, axis, dim, reduce_grad)
+    return _all_gather(x, mesh, axis, dim)
+
+
+def reduce_scatter(x: torch.Tensor, axis: str = "data",
+                   dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, cut in equal blocks
+    along ``dim``: this rank's block (block i on the axis's rank i)."""
+    mesh = _mesh()
+    return _reduce_scatter(x, mesh, axis, dim % x.dim())
+
+
+def copy_to(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """``x`` (a replicated input about to meet this rank's columns of a
+    weight): the identity, whose gradient under autograd is summed over
+    ``axis`` (one all_reduce in the backward)."""
+    if not _grad_wanted(x):
+        return x
+    return _CopyTo.apply(x, _mesh(), axis)
 
 
 def all_to_all(x: torch.Tensor, axis: str = "model") -> torch.Tensor:

@@ -31,6 +31,15 @@ packed rows, ``scale`` / ``zero`` on groups and ``act_scale`` on
 whose scale and zero row each of its shards then copies (a sub-group:
 the same dequantized weights).
 
+Serving places weights with :func:`serving_rules` (whole across
+``data``), training with :func:`training_rules` (:data:`DEFAULT_RULES`:
+weights, AdamW moments and the EF buffer FSDP-cut over ``data``).  A shard
+alone does not say which of its dimensions were cut (a dimension the mesh
+does not divide stays whole), so :func:`tree_specs` records, from the
+logical shapes, each cut leaf's spec under its checkpoint key: the
+trainer's gradient reduction and clip norm, and the checkpoints' gather
+and restore, read it.
+
 The active ``(mesh, rules)`` context (:func:`axis_rules`) is what the
 models read to run their collectives (:mod:`.collectives`).
 """
@@ -316,6 +325,64 @@ def shard_tree(tree, axes_tree, mesh, rules: Optional[dict] = None):
         return {k: shard_tree(v, axes_tree.get(k), mesh, rules)
                 for k, v in tree.items()}
     return tree
+
+
+def tree_specs(tree, axes_tree, mesh, rules: Optional[dict] = None,
+               prefix: str = "") -> dict:
+    """``{key: spec}`` for every tensor leaf of ``tree`` (nested dicts of
+    logical-shape tensors; meta tensors will do) that :func:`shard_tree`
+    cuts, with ``axes_tree`` read as :func:`shard_tree` reads it: ``key``
+    the leaf's key string in a checkpoint manifest (``['blocks']['wq']``),
+    ``spec`` its per-dimension mesh axes (:func:`logical_to_spec`).  A
+    leaf the table leaves whole has no entry."""
+    if isinstance(axes_tree, (tuple, list)) or axes_tree is None:
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                out.update(tree_specs(v, axes_tree, mesh, rules,
+                                      f"{prefix}[{k!r}]"))
+            return out
+        if axes_tree is None or not isinstance(tree, torch.Tensor):
+            return {}
+        spec = logical_to_spec(_annotation(axes_tree, tree.dim()),
+                               shape=tree.shape, mesh=mesh, rules=rules)
+        return {prefix: spec} if spec_axes(spec, mesh) else {}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(tree_specs(v, axes_tree.get(k), mesh, rules,
+                                  f"{prefix}[{k!r}]"))
+        return out
+    return {}
+
+
+def spec_axes(spec, mesh) -> tuple:
+    """The mesh axes of more than one rank that cut a leaf of ``spec``
+    (None: a whole leaf), in dimension order."""
+    out = []
+    for entry in spec or ():
+        for a in (entry,) if isinstance(entry, str) else (entry or ()):
+            if mesh.size(a) > 1:
+                out.append(a)
+    return tuple(out)
+
+
+def cut_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the logical-shape ``x`` under ``spec`` (None:
+    ``x`` itself)."""
+    return x if spec is None else _cut_tensor(x, spec, mesh)
+
+
+def training_rules(cfg, mesh) -> dict:
+    """The table training places weights, AdamW moments and the EF buffer
+    with: :data:`DEFAULT_RULES` (FSDP over ``data``, heads / ff / vocab over
+    ``model``), with attention replicated where the head counts do not
+    divide ``model`` (every rank then runs every head, as
+    :func:`serving_rules` does)."""
+    rules = dict(DEFAULT_RULES)
+    if not attention_splits(cfg, mesh.size("model")):
+        rules.update(heads=None, kv_heads=None)
+    return rules
 
 
 def serving_rules(cfg, mesh, base: Optional[dict] = None) -> dict:

@@ -136,13 +136,17 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...], what: str,
     return Mesh(sizes, rank, backend, groups, device)
 
 
-def make_local_mesh(data: int = 1, model: int = 1) -> Mesh:
+def make_local_mesh(data: int = 1, model: int = 1,
+                    device: Optional[torch.device] = None) -> Mesh:
     """A ``data x model`` mesh over the first ``data * model`` ranks of the
     default process group (a single process on the CPU without one, for
     1 x 1); every rank of the group calls it, and a rank past the mesh
     gets None.  Refuses, naming both counts, when there are fewer ranks.
-    (Ranks that :func:`spawn` starts get their mesh from it.)"""
-    return _build((data, model), AXES, "make_local_mesh")
+    ``device`` is this rank's (default: its current card on nccl, the CPU
+    on gloo).  (Ranks that :func:`spawn` starts get their mesh from it;
+    they may build another shape over the same ranks, passing
+    ``mesh.device``.)"""
+    return _build((data, model), AXES, "make_local_mesh", device)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -9,6 +9,7 @@ leaves route through the dequant-matmul kernel (serving path).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -16,8 +17,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantizer import QuantizedTensor
-from repro_torch.dist.collectives import all_gather, all_reduce
-from repro_torch.dist.sharding import axis_index, axis_size
+from repro_torch.dist.collectives import all_gather, all_reduce, copy_to
+from repro_torch.dist.sharding import (active_mesh, active_rules, axis_index,
+                                       axis_rules, axis_size,
+                                       logical_to_spec, spec_axes)
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
 from repro_torch.kernels.ops import quant_matmul
 # the row kernel on a CUDA tensor (a row's bits do not depend on how many
@@ -45,10 +48,13 @@ def dense_init(gen: torch.Generator, n_in: int, n_out: int, dtype, device,
 def normal_init(gen: torch.Generator, shape: tuple, scale: float, dtype,
                 device, stack: Optional[int] = None) -> torch.Tensor:
     """``shape``, or (stack, *shape), of normal draws from ``gen`` times
-    ``scale``, one ``shape`` at a time in f32, cast to ``dtype``."""
+    ``scale``, one ``shape`` at a time in f32, cast to ``dtype``.  On the
+    meta device the shape alone (nothing drawn; ``gen`` may be None)."""
     shape = tuple(shape)
     out = torch.empty(shape if stack is None else (stack,) + shape,
                       dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for view in (out,) if stack is None else out:
         view.copy_(torch.randn(shape, generator=gen, device=device) * scale)
     return out
@@ -57,9 +63,17 @@ def normal_init(gen: torch.Generator, shape: tuple, scale: float, dtype,
 def run_block(remat: bool, block, *args):
     """``block(*args)``; with ``remat`` and grad enabled its activations are
     recomputed in the backward (``torch.utils.checkpoint``, the
-    reference's ``jax.checkpoint``)."""
+    reference's ``jax.checkpoint``).  Under a mesh the recompute runs in
+    the forward's ``(mesh, rules)`` context (autograd may run it in a
+    thread that has none), so it re-runs the block's collectives."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(block, *args, use_reentrant=False)
+        mesh = active_mesh()
+        if mesh is None:
+            return checkpoint(block, *args, use_reentrant=False)
+        rules = active_rules()
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              axis_rules(mesh, rules)))
     return block(*args)
 
 
@@ -82,6 +96,39 @@ def qlinear(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         return quant_matmul(x, w)
     return x @ w.to(x.dtype)
+
+
+def out_width(w) -> int:
+    """The output columns of ``w`` (a tensor or a QuantizedTensor)."""
+    return (w.codes if isinstance(w, QuantizedTensor) else w).shape[-1]
+
+
+def column_input(x: torch.Tensor, w, full: int) -> torch.Tensor:
+    """``x`` as the input of a product with ``w``: a ``w`` of fewer than
+    ``full`` output columns is this rank's column shard over ``model``, and
+    ``x`` (the same on every rank) then passes :func:`copy_to`, whose
+    gradient sums the ranks' parts over ``model``."""
+    return copy_to(x, "model") if out_width(w) < full else x
+
+
+def fsdp_gather(w, dim: int, full: int):
+    """The FSDP gather of a float ``w`` whose ``dim`` is its ``fsdp`` axis,
+    of logical size ``full``: where the active rules cut that axis over
+    ``data`` (:func:`~repro_torch.dist.sharding.logical_to_spec`, as
+    ``shard_tree`` and ``tree_specs`` read them), ``w`` is this rank's
+    shard, gathered whole (the gradient summed over ``data`` and cut back
+    to the shard: a reduce_scatter); else (no mesh, serving's rules,
+    ``data`` 1 or not dividing ``full``) ``w`` itself.  The gathered weight
+    lives as long as autograd keeps it: without ``remat`` a product saves
+    it for the backward, so every layer's stays until its backward."""
+    mesh = active_mesh()
+    if isinstance(w, QuantizedTensor) or mesh is None:
+        return w
+    cut = spec_axes(logical_to_spec(("fsdp",), shape=(full,), mesh=mesh),
+                    mesh)
+    if not cut:
+        return w
+    return all_gather(w, "data", dim=dim, reduce_grad=True)
 
 
 # ---------------------------------------------------------------------------
@@ -324,13 +371,17 @@ def logits_from_hidden(x: torch.Tensor, lm_head, vocab_size: int) -> torch.Tenso
     batch (:func:`_fixed_rows_matmul`).  A head of fewer columns than the
     padded vocabulary is this rank's vocab shard (columns ``rank * cols
     ...``): the rank's columns, masked by their global index, then one
-    all_gather over ``model`` to the padded width."""
+    all_gather over ``model`` to the padded width (under autograd the
+    hidden state passes :func:`copy_to` first, and each rank's gradient is
+    its columns' block)."""
+    cols = out_width(lm_head)
+    sharded = axis_size("model") > 1 and cols < padded_vocab(vocab_size)
+    if sharded:
+        x = copy_to(x, "model")
     if isinstance(lm_head, QuantizedTensor):
         out = qlinear(x, lm_head)
     else:
         out = _fixed_rows_matmul(x, lm_head)
-    cols = out.shape[-1]
-    sharded = axis_size("model") > 1 and cols < padded_vocab(vocab_size)
     v_pad = padded_vocab(vocab_size) if sharded else cols
     if v_pad != vocab_size:
         first = axis_index("model") * cols if sharded else 0

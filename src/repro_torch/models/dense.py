@@ -25,6 +25,17 @@ are vocab-sharded.  The head counts are read from the shards' widths, so
 the same code runs whole weights, and attention whose heads do not divide
 ``model`` (replicated on every rank).  Nothing in a decode step moves a
 cache between ranks.
+
+Training on a mesh (``train.trainer.make_train_step(mesh=)``) runs
+:meth:`DenseLM.forward` on shards cut by ``training_rules``: each weight
+whose ``fsdp`` axis the rules cut over ``data`` is this rank's FSDP shard,
+gathered as its layer starts (:func:`fsdp_gather`, whose backward is a
+reduce_scatter); a column-parallel product's replicated input passes
+``copy_to`` (its gradient summed over ``model``).  Without ``cfg.remat``
+the products save the gathered weights for the backward, so every layer's
+stay on the device until its backward; with it only the running layer's.
+Serving's rules cut no ``fsdp`` axis and without grad ``copy_to`` is the
+identity, so serving runs as before.
 """
 from __future__ import annotations
 
@@ -40,10 +51,10 @@ from repro_torch.kernels.ops import (decode_attention, decode_attention_q8,
                                     paged_verify_attention,
                                     paged_verify_attention_q8,
                                     verify_attention, verify_attention_q8)
-from .common import (apply_rope, chunked_attention, dense_init,
-                     embed_tokens, last_valid_hidden, logits_from_hidden,
-                     padded_vocab, qlinear, quantize_kv, reduce_row_parallel,
-                     rms_norm, run_block,
+from .common import (apply_rope, chunked_attention, column_input, dense_init,
+                     embed_tokens, fsdp_gather, last_valid_hidden,
+                     logits_from_hidden, padded_vocab, qlinear, quantize_kv,
+                     reduce_row_parallel, rms_norm, run_block,
                      stack_layer_stats, update_cache_at, update_pages_at)
 
 
@@ -55,6 +66,9 @@ def _layer(blocks: dict, l: int) -> dict:
 
 
 class DenseLM:
+    # make_train_step(mesh=) runs this forward on a training mesh
+    mesh_training = True
+
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
@@ -66,10 +80,12 @@ class DenseLM:
         in the config's dtype (bf16 at full width): normal with std
         ``1/sqrt(n_in)`` for linears, 0.02 for the embedding, norms at 1.
         Each layer is drawn in f32 and cast, so the f32 temporary is one
-        layer's matrix."""
+        layer's matrix.  ``device="meta"`` gives the shapes alone."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # the meta device gives the tree's shapes alone (no draws)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         hd = cfg.head_dim_
         v_pad = padded_vocab(cfg.vocab_size)
         n_layers = cfg.n_layers
@@ -146,6 +162,7 @@ class DenseLM:
         hd = cfg.head_dim_
         b, t, _ = x.shape
         # this rank's heads: all of them, or H/m and KH/m under TP
+        x = column_input(x, p["wq"], cfg.n_heads * hd)
         q = qlinear(x, p["wq"])
         n_h = q.shape[-1] // hd
         q = q.reshape(b, t, n_h, hd)
@@ -215,6 +232,7 @@ class DenseLM:
         h = rms_norm(x, p["mlp_norm"], self.cfg.norm_eps)
         if collect:
             stats["mlp_in"] = site_stat(h)
+        h = column_input(h, p["w_gate"], self.cfg.d_ff)
         hidden = F.silu(qlinear(h, p["w_gate"])) * qlinear(h, p["w_up"])
         if collect:
             stats["mlp_down"] = site_stat(hidden)
@@ -240,12 +258,25 @@ class DenseLM:
         if positions is None:
             positions = self._maybe_mrope(
                 torch.arange(t, device=tokens.device).expand(b, t))
-        x = embed_tokens(params["embed"], tokens,
+        axes = self.param_axes()
+        x = embed_tokens(self._fsdp(params["embed"], axes["embed"]), tokens,
                          self.cfg.vocab_size).to(self.dtype)
         x, stacked, moe_aux = self._forward_layers(params, x, positions,
                                                    collect_stats)
-        logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
+        logits = logits_from_hidden(
+            x, self._fsdp(params["lm_head"], axes["lm_head"]),
+            self.cfg.vocab_size)
         return logits, {"stats": stacked, "moe_aux": moe_aux}
+
+    def _fsdp(self, w, axes):
+        """``w`` annotated ``axes`` (:meth:`param_axes`; a layer's view of a
+        stacked leaf lacks the leading layer axis, so dims count from the
+        end), gathered over ``data`` where the rules cut its ``fsdp`` dim
+        (:func:`fsdp_gather`; that dim's logical size is d_model)."""
+        if not isinstance(axes, tuple) or "fsdp" not in axes:
+            return w
+        return fsdp_gather(w, axes.index("fsdp") - len(axes),
+                           self.cfg.d_model)
 
     def _forward_layers(self, params, x, positions, collect_stats):
         """The layer stack of :meth:`forward` over the embedded input ``x``
@@ -266,7 +297,12 @@ class DenseLM:
 
     def _forward_block(self, p, x, positions, collect):
         """One layer of :meth:`forward`: (x, stats, aux), aux the layer's
-        load-balance loss (None for a dense block)."""
+        load-balance loss (None for a dense block).  The layer's FSDP
+        shards are gathered here as it starts (the products keep them for
+        the backward; under ``cfg.remat`` they are dropped and gathered
+        again in the backward's recompute)."""
+        axes = self.param_axes()["blocks"]
+        p = {k: self._fsdp(w, axes.get(k)) for k, w in p.items()}
         x, _, stats = self._block(p, x, positions, collect)
         return x, stats, None
 

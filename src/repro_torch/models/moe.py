@@ -238,6 +238,10 @@ class MoELM(DenseLM):
     pair: :meth:`supports_paged` is False and the engine's ``paged=True``
     serves from the dense cache.  Speculative decoding is supported."""
 
+    # this family's own layers take no FSDP gather or copy_to: no training
+    # on a mesh yet (ROADMAP: mesh training of the non-dense families)
+    mesh_training = False
+
     def __init__(self, cfg: ModelConfig):
         if cfg.kv_cache_bits == 8:
             raise NotImplementedError("the MoE family keeps a bf16 KV cache "

@@ -23,6 +23,10 @@ from .dense import DenseLM, _layer
 
 
 class VLM(DenseLM):
+    # this family's own layers take no FSDP gather or copy_to: no training
+    # on a mesh yet (ROADMAP: mesh training of the non-dense families)
+    mesh_training = False
+
     def __init__(self, cfg: ModelConfig):
         if cfg.kv_cache_bits == 8:
             raise NotImplementedError("the VLM family keeps its KV cache in "

@@ -32,6 +32,10 @@ from .dense import DenseLM, _layer
 
 
 class XLSTMLM(DenseLM):
+    # this family's own layers take no FSDP gather or copy_to: no training
+    # on a mesh yet (ROADMAP: mesh training of the non-dense families)
+    mesh_training = False
+
     @property
     def _d_inner(self) -> int:
         return self.cfg.ssm_expand * self.cfg.d_model

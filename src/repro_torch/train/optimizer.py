@@ -8,6 +8,11 @@ global f32 norm; the update is computed in f32 and cast back to the
 parameter's dtype; the moments are kept in ``moment_dtype`` (f32 by
 default).  State and update are functional: ``update`` returns new
 parameter tensors and a new :class:`AdamWState`.
+
+On a mesh every leaf of the parameters, gradients and moments is this
+rank's shard: the update is elementwise on the shards, and weight decay
+keys on ``ndim`` as before (a shard keeps its rank's ``ndim``).  The clip
+norm is the logical gradient's (:func:`global_norm` with ``mesh=``).
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import torch
 
 from repro_torch.dist._tree import (leaves, leaves_with_keys, map_with_keys,
                                     tree_map)
+from repro_torch.dist.collectives import all_reduce
+from repro_torch.dist.sharding import axis_rules, spec_axes
 
 
 class AdamWState(NamedTuple):
@@ -47,13 +54,15 @@ class AdamW:
                                              device=p.device), params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, lr: torch.Tensor):
+    def update(self, grads, state: AdamWState, params, lr: torch.Tensor, *,
+               mesh=None, specs: Optional[dict] = None):
         """(new_params, new_state, grad_norm): one AdamW step on trees of
         the same structure.  The clipped f32 gradients are held for every
         leaf (as the reference's are); the update's other f32 temporaries
-        for one leaf at a time."""
+        for one leaf at a time.  On a ``mesh`` the trees hold this rank's
+        shards, cut as ``specs`` says (:func:`global_norm`)."""
         g_leaves = [g.float() for g in leaves(grads)]
-        gnorm = global_norm(g_leaves)
+        gnorm = global_norm(grads, mesh=mesh, specs=specs)
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
@@ -86,12 +95,28 @@ class AdamW:
         return new_params, AdamWState(step=step, m=new_m, v=new_v), gnorm
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(leaf^2), in f32."""
-    total = 0
-    for leaf in leaves(tree):
+def global_norm(tree, *, mesh=None, specs: Optional[dict] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(leaf^2), in f32.
+
+    On a ``mesh`` the leaves are this rank's shards and the result is the
+    norm of the logical tree: a leaf's squares are summed on its shard, and
+    a leaf whole across an axis (``specs``: ``{key: spec}`` of the cut
+    leaves, :func:`repro_torch.dist.sharding.tree_specs`) counts once, on
+    the ranks at coordinate 0 of each axis that does not cut it; then one
+    all_reduce over the mesh."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves(tree)[0].device)
+    for key, leaf in leaves_with_keys(tree):
+        if mesh is not None:
+            cut = spec_axes((specs or {}).get(key), mesh)
+            if any(mesh.index(a) for a in mesh.shape if a not in cut):
+                continue
         total = total + torch.sum(torch.square(leaf.float()))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    if mesh is not None:
+        with axis_rules(mesh):
+            total = all_reduce(total, None)
+    return torch.sqrt(total)
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,

@@ -263,8 +263,60 @@ def test_launch_train_resumes_bit_for_bit(tmp_path, capsys):
     for a, b in ((whole[0], resumed[0]), (whole[1], resumed[1])):
         for (ka, x), (kb, y) in zip(leaves_with_keys(a), leaves_with_keys(b)):
             assert ka == kb and torch.equal(x, y), ka
-    with pytest.raises(NotImplementedError, match="mesh"):
-        launch_train.main(argv + ["--shape", "train_4k"])
+    # --shape takes batch and seq from the cell (no step at --steps 0)
+    capsys.readouterr()
+    out = launch_train.main(argv + ["--shape", "train_4k", "--steps", "0",
+                                    "--ckpt-dir", str(tmp_path / "c")])
+    assert "global batch 256 x seq 4096" in capsys.readouterr().out
+    assert out[3] == []
+
+
+# -- launch.train on a mesh (CPU ranks over gloo) -----------------------------
+
+MESH_ARGV = ["--tiny", "--device", "cpu", "--steps", "6", "--batch", "4",
+             "--seq", "16", "--ckpt-every", "2"]
+
+
+def test_launch_train_mesh_resumes_on_another_mesh(tmp_path, capfd):
+    """launch.train --mesh 2,2 (--batch global) gives the single-device
+    run's losses; its step-4 checkpoint, resumed by --mesh 1,2, gives the
+    uninterrupted run's losses for steps 5 and 6 (rel 1e-5): the sample
+    stream does not depend on the mesh."""
+    from repro_torch.launch import train as launch_train
+
+    gloo = ["--backend", "gloo"]
+    single = launch_train.main(MESH_ARGV + ["--ckpt-dir",
+                                            str(tmp_path / "s")])[3]
+    meshed = launch_train.main(MESH_ARGV + gloo + [
+        "--mesh", "2,2", "--ckpt-dir", str(tmp_path / "a")])[3]
+    assert sorted(os.listdir(tmp_path / "a")) == [
+        "step_00000002", "step_00000004", "step_00000006"]
+    (tmp_path / "b").mkdir()
+    os.rename(tmp_path / "a" / "step_00000004",
+              tmp_path / "b" / "step_00000004")
+    capfd.readouterr()
+    resumed = launch_train.main(MESH_ARGV + gloo + [
+        "--mesh", "1,2", "--ckpt-dir", str(tmp_path / "b")])[3]
+    out = capfd.readouterr().out
+    assert "resumed from step 4 (mesh 1x2)" in out
+    assert out.count("done 2 steps") == 1            # rank 0 prints
+    assert len(single) == len(meshed) == 6 and len(resumed) == 2
+    for got, want in zip(meshed + resumed, single + single[4:]):
+        assert abs(got - want) <= 1e-5 * abs(want)
+
+
+def test_launch_train_mesh_refusals(tmp_path):
+    """A global batch the data ranks do not split, and a family the mesh
+    path does not train, are refused before any rank starts."""
+    from repro_torch.launch import train as launch_train
+
+    argv = MESH_ARGV + ["--ckpt-dir", str(tmp_path)]
+    with pytest.raises(ValueError, match="does not split over 4 data"):
+        launch_train.main(argv + ["--mesh", "4,1", "--batch", "6"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch_train.main(argv + ["--mesh", "1,2", "--arch",
+                                  "qwen2-moe-a2.7b"])
+    assert not os.listdir(tmp_path)
 
 
 # -- the backward kernels' plain versions against the reference's gradients ----
