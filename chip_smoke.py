@@ -68,13 +68,13 @@ Phases (any failure exits non-zero; nothing is caught):
               rank's 4 of 8 KV heads, rms_norm_bwd on a data rank's 1024
               rows) are held and timed in phase 3;
 5. main path — llama3-8b at full width (d_model 4096, 32 heads, 8 KV
-              heads, d_ff 14336, vocab 128256), 16 of its 32 layers, random
+              heads, d_ff 14336, vocab 128256), 14 of its 32 layers, random
               bf16 weights from a seed: calibrate on 16 x 512 tokens (the
               flash-attention path), FAQ alpha search, int4 pack (g = 64),
               then a 4-slot engine serves 8 greedy requests of 12..700
               prompt tokens (bucketed and chunked prefill) for 32 tokens
               each; between FAQ and serving, full_search_faq (paper Eq.
-              8) over the 16 layers' 7 sites through quant_error, its
+              8) over the 14 layers' 7 sites through quant_error, its
               choices held against the plain search's.  After serving,
               the packed tree is saved by launch/quantize, restored, and
               must serve the same tokens bit for bit.  Then tensor
@@ -91,7 +91,12 @@ Phases (any failure exits non-zero; nothing is caught):
               all_reduces, no all_to_all; MoE expert parallelism on
               qwen2-moe's 2-layer cut (capacity factor 16) against the
               local path; a 1 x 1 NCCL mesh against ``mesh=None`` bit
-              for bit.  Its tok/s is 2 ranks on one card, not a TP
+              for bit; an open-loop run of the 4 requests through the
+              paged engine with ``slo=`` and the fault schedule of the
+              faults run below (both ranks must report the same outcomes,
+              counters and fault counts; every request == the fault-free
+              single-device tokens or parting at a tie).  Its tok/s is 2
+              ranks on one card, not a TP
               speed; its routes are the ``*_tp2`` / ``*_ep2`` rows of
               phase 3, whose launches are rank 0's.  Request 0 is
               served again alone through the same
@@ -171,12 +176,34 @@ Phases (any failure exits non-zero; nothing is caught):
               cache, quant_matmul at the seven new widths) are held and
               timed in phase 3; each route row's launches are those of
               its own route (the wrappers count launches by route).
+              Each of the four packed trees is saved as its phase ends;
+10. families TP — (``family_tp_paths``) 2 ranks sharing the card over
+              gloo restore the four trees in one spawn: qwen2-vl-2b,
+              hymba-1.5b (attention whole on each rank: 25 / 5 heads do
+              not divide 2; MLP and Mamba cut) and xlstm-350m (2 of 4
+              mLSTM heads a rank) serve the dense run's first 4 requests
+              on 2 slots with ``ServeEngine(mesh=)``; whisper-small's
+              4 x 100-token prefill(frames=) over 1536 frames + 31
+              decode steps run on an engine's shards under its mesh.
+              Every request == single-device or parting first at a tie
+              (the single-device top-2 gap there <= ``TIE_TOL``), both
+              ranks agree, and each engine step runs one logits
+              all_gather and the model's ``tp_all_reduces``
+              all_reduces (qwen2-vl 57, hymba 97, xlstm 19; whisper 37 a
+              decode step, 61 in its prefill).  Its
+              routes are the ``*_families_*`` / ``*_vlm_tp2`` /
+              ``*_whisper_tp2`` / ``*_cross_tp2`` rows of phase 3.
    The tensor-parallel routes (phase 3, after the families'): each
               rank's column and row shards of quant_matmul, decode and
               prefill attention on its 16 / 4 heads (all four decode
               variants), quant_matmul_experts on its 32 experts over both
-              ranks' rows, held against the plain versions and bit for
-              bit against their part of the single-device launch.
+              ranks' rows; for the families, quant_matmul on their column
+              shards (two-part projections among them) and row shards,
+              flash_attention at G 6 on 1 of 2 KV heads and not causal on
+              6 of whisper's 12 heads, flash_decode at H 6 / KH 1 and over
+              whisper's cross cache on 6 heads; each held against the
+              plain versions and bit for bit against its part of the
+              single-device launch.
 
 The one reduction of the main path: prompt and calibration token ids
 come from a synthetic vocabulary capped at 4096 ids (the generator's
@@ -229,10 +256,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores
-# llama3-8b's main path: 24 of its 32 layers (cut so that the script,
-# with every family, stays inside its time limit; every layer has the same
-# shapes)
-LAYERS = 24
+# llama3-8b's main path: 14 of its 32 layers (cut so that the script,
+# with every family and their tensor-parallel phase, stays inside its time
+# limit; every layer has the same shapes).  24 layers read 1,094.5 s of
+# script before the families' TP phase (16: 812.0-879.8 s); with it, 16
+# layers read 1,145.8 s up to the phase's last check, 4% under the limit,
+# and 12 layers 773.8 s on a host that ran the other phases 15-30% faster
+LAYERS = 14
 PROMPT_LENS = (12, 40, 100, 200, 300, 450, 600, 700)
 NEW_TOKENS = 32
 # bf16 logits of magnitude < 8 are spaced 2**-5 apart; a token within four
@@ -630,6 +660,7 @@ def kernel_phase(dev):
     rows += family_route_rows(dev, gen, randn)
     rows += ssm_audio_route_rows(dev, gen, randn)
     rows += tp_route_rows(dev, gen, randn)
+    rows += family_tp_route_rows(dev, gen, randn)
     rows += mesh_train_route_rows(dev, gen, randn)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -1113,6 +1144,269 @@ def tp_route_rows(dev, gen, randn):
                      bound_by=b_by, library_ms=None,
                      library_note="none: no single PyTorch call takes this "
                                   "int4 layout"))
+    return rows
+
+
+# one rank's shards of the vlm / hybrid / ssm / audio families at model 2:
+# (k, n) of the column shards -- Mamba in_proj (its u and z halves'
+# blocks), mLSTM wq / wk / wv, whisper w1 -- and of the row shards: whisper
+# w2 (bf16 partials, as the dense family's), and hymba's Mamba x_proj and
+# out_proj and its w_down, whose partials are the tensor-core route's f32
+# sums before their rounding (quant_matmul's out_dtype float32), summed in
+# f32 and rounded once (models.common.row_parallel_f32).  The whole
+# product of a column shard has TP_RANKS x n columns (in_proj: 2 x 2
+# blocks)
+FAMILY_TP_COLUMN = ((1600, 3200), (2048, 1024), (768, 1536))
+FAMILY_TP_ROW = ((1536, 768),)
+FAMILY_TP_ROW_F32 = ((1600, 132), (1600, 1600), (2752, 1600))
+# the shapes the launch counts take, per family run of the TP phase and
+# row: the bf16 ones no whole product there shares (quant_matmul's route
+# "k.. n.."), and hymba's f32-output row shards (route "f32out k.. n..")
+FAMILY_TP_COUNTED = {
+    "qwen2-vl-2b": {"column": ((1536, 768), (1536, 128), (1536, 4480)),
+                    "row": ((768, 1536), (4480, 1536)), "row_f32": ()},
+    "hymba-1.5b": {"column": ((1600, 3200), (1600, 2752)), "row": (),
+                   "row_f32": FAMILY_TP_ROW_F32},
+    "xlstm-350m": {"column": ((2048, 1024),), "row": (), "row_f32": ()},
+    "whisper-small": {"column": ((768, 1536), (768, 384)),
+                      "row": ((1536, 768), (384, 768)), "row_f32": ()}}
+
+
+def family_tp_route_rows(dev, gen, randn):
+    """The routes a rank of the families' tensor-parallel serving launches
+    at model 2 (:func:`family_tp_paths`): quant_matmul on the new column
+    shards (each == its columns of the whole product, bit for bit; Mamba
+    in_proj's columns are its two halves' blocks), on the bf16 row shards
+    (the two partial products, summed, against the whole product) and on
+    hymba's row shards with f32 output (each f32 partial against the
+    plain version and, rounded, bit for bit the bf16 launch; their f32
+    sum, rounded once, against the single-device bf16 product);
+    flash_attention at qwen2-vl's G 6 on 1 of 2 KV heads
+    and not causal on whisper's 6 of 12 heads at T 1536; flash_decode at
+    qwen2-vl's H 6 / KH 1 and over whisper's cross cache on 6 heads, each
+    bit for bit with its heads of the whole launch; timed beside the plain
+    version and SDPA."""
+    from repro_torch.core import QuantSpec, quantize_groupwise
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qm
+
+    phase("kernel routes of the families' tensor-parallel serving (model 2: "
+          "two-part column shards, bf16 and f32-output row shards, G 6 on 1 "
+          "KV head, 6 of 12 whisper heads)")
+    g, m, rows = 64, 4, []
+
+    def packed(k, n):
+        qt = quantize_groupwise(randn(k, n, dtype=torch.float32),
+                                QuantSpec(4, g), pack=True)
+        return qt.codes, qt.scale, qt.zero
+
+    def column_ids(k, n, r):
+        """The whole product's columns that rank r's shard of width n
+        holds, and the whole width."""
+        if (k, n) == (1600, 3200):          # in_proj: u and z blocks
+            half = n // 2
+            return (list(range(r * half, (r + 1) * half))
+                    + list(range(2 * half + r * half,
+                                 2 * half + (r + 1) * half))), 4 * half
+        return list(range(r * n, (r + 1) * n)), TP_RANKS * n
+
+    def row_args(x, codes, scale, zero, k, r):
+        return (x[:, r * k:(r + 1) * k].contiguous(),
+                codes[r * k // 2:(r + 1) * k // 2].contiguous(),
+                scale[r * k // g:(r + 1) * k // g].contiguous(),
+                zero[r * k // g:(r + 1) * k // g].contiguous())
+
+    errs = {"column": 0.0, "row": 0.0, "row_f32": 0.0}
+    for k, n in FAMILY_TP_COLUMN:
+        x = randn(m, k)
+        ids, width = column_ids(k, n, 0)
+        whole_c = packed(k, width)
+        whole = qm.quant_matmul(x, *whole_c)
+        for r in range(TP_RANKS):
+            ids, _ = column_ids(k, n, r)
+            sel = torch.tensor(ids, device=dev)
+            args = (x, *(t[:, sel].contiguous() for t in whole_c))
+            got = qm.quant_matmul(*args)
+            errs["column"] = max(errs["column"], held(
+                f"quant_matmul family column shard rank {r} m={m} {k}->{n} "
+                f"of {width}", got, qm.quant_matmul_ref(*args),
+                rel_tol=EXACT_REL_TOL))
+            same_bits(f"quant_matmul family column shard rank {r} {k}->{n}: "
+                      f"== its columns of the whole launch", got,
+                      whole[:, sel])
+    for k, n in FAMILY_TP_ROW:
+        (codes, scale, zero), x = packed(TP_RANKS * k, n), randn(
+            m, TP_RANKS * k)
+        parts = []
+        for r in range(TP_RANKS):
+            args = row_args(x, codes, scale, zero, k, r)
+            got = qm.quant_matmul(*args)
+            errs["row"] = max(errs["row"], held(
+                f"quant_matmul family row shard rank {r} m={m} {k}->{n} of "
+                f"{TP_RANKS * k}", got, qm.quant_matmul_ref(*args),
+                rel_tol=EXACT_REL_TOL))
+            parts.append(got.float())
+        held(f"quant_matmul family row shards summed {TP_RANKS * k}->{n}",
+             (parts[0] + parts[1]).to(torch.bfloat16),
+             qm.quant_matmul_ref(x, codes, scale, zero),
+             rel_tol=BF16_REL_TOL)
+    for k, n in FAMILY_TP_ROW_F32:
+        (codes, scale, zero), x = packed(TP_RANKS * k, n), randn(
+            m, TP_RANKS * k)
+        total = 0
+        for r in range(TP_RANKS):
+            args = row_args(x, codes, scale, zero, k, r)
+            got = qm.quant_matmul(*args, out_dtype=torch.float32)
+            errs["row_f32"] = max(errs["row_f32"], held(
+                f"quant_matmul family f32-output row shard rank {r} m={m} "
+                f"{k}->{n} of {TP_RANKS * k}", got,
+                qm.quant_matmul_ref(*args, out_dtype=torch.float32),
+                rel_tol=EXACT_REL_TOL))
+            same_bits(f"quant_matmul family f32-output row shard rank {r} "
+                      f"{k}->{n}: rounded == the bf16 launch",
+                      got.to(torch.bfloat16), qm.quant_matmul(*args))
+            total = total + got
+        held(f"quant_matmul family f32-output row shards summed "
+             f"{TP_RANKS * k}->{n}", total,
+             qm.quant_matmul_ref(x, codes, scale, zero,
+                                 out_dtype=torch.float32),
+             rel_tol=EXACT_REL_TOL)
+        single = qm.quant_matmul(x, codes, scale, zero)
+        rounded = total.to(torch.bfloat16)
+        held(f"quant_matmul family f32 row shards summed and rounded once "
+             f"{TP_RANKS * k}->{n}: the single-device bf16 product", rounded,
+             single, rel_tol=EXACT_REL_TOL)
+        print(f"  {TP_RANKS * k}->{n}: rounded f32 sum == the single-device "
+              f"bf16 product in {float((rounded == single).float().mean()):.6f}"
+              f" of its elements", flush=True)
+    for kind, (k, n), shapes in (
+            ("column", FAMILY_TP_COLUMN[0], FAMILY_TP_COLUMN),
+            ("row", FAMILY_TP_ROW[0], FAMILY_TP_ROW),
+            ("row_f32", FAMILY_TP_ROW_F32[1], FAMILY_TP_ROW_F32)):
+        sets = [packed(k, n) for _ in range(4)]
+        x = randn(m, k)
+        out = torch.float32 if kind == "row_f32" else torch.bfloat16
+        ms = time_ms(lambda i: qm.quant_matmul(x, *sets[i % 4],
+                                               out_dtype=out))
+        plain = time_ms(lambda i: qm.quant_matmul_ref(x, *sets[i % 4],
+                                                      out_dtype=out),
+                        reps=5)
+        b_ms, b_by = bound(m * k * 2 + k * n // 2 + 2 * (k // g) * n * 4
+                           + m * n * (4 if kind == "row_f32" else 2),
+                           2 * m * k * n)
+        rows.append(dict(
+            name=f"quant_matmul_tp2_families_{kind}", route="cuda",
+            source="src/repro_torch/csrc/quant_matmul.cu",
+            replaces="src/repro/kernels/quant_matmul.py:56",
+            shape=f"x ({m},{k}) bf16, codes ({k // 2},{n}), g={g}"
+                  + (", f32 output" if kind == "row_f32" else "")
+                  + f"; one rank's {kind.replace('_f32', '')} shards of the "
+                  f"families at model 2: "
+                  + ", ".join(f"{kk}->{nn}" for kk, nn in shapes),
+            max_abs_err=errs[kind], ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            library_note="none: no single PyTorch call takes this int4 "
+                         "layout"))
+        del sets
+
+    # prefill attention on a rank's heads: qwen2-vl's 1 of 2 KV heads (G 6,
+    # causal) and whisper's encoder, 6 of 12 heads (G 1, not causal)
+    for name, b, kh_all, gq, t, hd, causal, what in [
+            ("flash_attention_vlm_tp2", 4, 2, 6, 512, 128, True,
+             "4 slots x one rank's 1 of 2 KV heads (qwen2-vl), causal"),
+            ("flash_attention_whisper_tp2", 4, WHISPER_HEADS, 1,
+             WHISPER_FRAMES, 64, False,
+             f"4 requests x one rank's {WHISPER_HEADS // TP_RANKS} of "
+             f"{WHISPER_HEADS} heads (whisper's encoder), not causal")]:
+        kh = kh_all // TP_RANKS
+        bkh = b * kh
+        qf = randn(b * kh_all, gq, t, hd)
+        kf, vf = (randn(b * kh_all, t, hd) for _ in range(2))
+        whole = fa.flash_attention(qf, kf, vf, causal=causal)
+
+        def kv_heads(w, r, kh=kh, kh_all=kh_all, b=b):
+            return w.reshape(b, kh_all, *w.shape[1:])[
+                :, r * kh:(r + 1) * kh].reshape(b * kh, *w.shape[1:])
+
+        err = _shard_rows(f"{name} BKH={bkh} G={gq} T={t} hd={hd}",
+                          lambda *a, c=causal: fa.flash_attention(*a,
+                                                                  causal=c),
+                          lambda *a, c=causal: fa.flash_attention_ref(
+                              *a, causal=c),
+                          whole, lambda r: tuple(kv_heads(w, r).contiguous()
+                                                 for w in (qf, kf, vf)),
+                          kv_heads, rel_tol=BF16_REL_TOL)
+        q, k, v = (kv_heads(w, 0).contiguous() for w in (qf, kf, vf))
+        ms = time_ms(lambda i: fa.flash_attention(q, k, v, causal=causal))
+        plain = time_ms(lambda i: fa.flash_attention_ref(q, k, v,
+                                                         causal=causal),
+                        reps=5)
+
+        def sdpa(i, q=q, k=k, v=v, b=b, kh=kh, gq=gq, t=t, hd=hd,
+                 causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(b, kh * gq, t, hd), k.reshape(b, kh, t, hd),
+                v.reshape(b, kh, t, hd), is_causal=causal,
+                enable_gqa=gq > 1)
+
+        held(f"{name}: library call (sdpa)",
+             sdpa(0).reshape(bkh, gq, t, hd),
+             fa.flash_attention_ref(q, k, v, causal=causal))
+        lib = time_ms(sdpa)
+        pairs = t * (t + 1) / 2 if causal else t * t
+        b_ms, b_by = bound((2 * bkh * gq * t * hd + 2 * bkh * t * hd) * 2,
+                           4 * bkh * gq * hd * pairs)
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention.py:92",
+                         shape=f"q ({bkh},{gq},{t},{hd}) bf16: {what}",
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del qf, kf, vf, whole, q, k, v
+
+    # decode attention on a rank's heads: qwen2-vl's 6 query heads on 1 KV
+    # head, whisper's cross attention on 6 of 12 heads over 1536 keys
+    for name, h_all, kh_all, s_len, hd, lens, what in [
+            ("flash_decode_vlm_tp2", 12, 2, 1024, 128, [44, 140, 332, 732],
+             "qwen2-vl decode, one rank's 6 / 1 of 12 / 2 heads"),
+            ("flash_decode_cross_tp2", WHISPER_HEADS, WHISPER_HEADS,
+             WHISPER_FRAMES, 64, [WHISPER_FRAMES] * 4,
+             "whisper cross-attention, one rank's 6 of 12 heads")]:
+        b = 4
+        h, kh = h_all // TP_RANKS, kh_all // TP_RANKS
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qw = randn(b, 1, h_all, hd)
+        kw, vw = (randn(b, kh_all, s_len, hd) for _ in range(2))
+
+        def args_of(r, qw=qw, kw=kw, vw=vw, h=h, kh=kh, cl=cl):
+            return (qw[:, :, r * h:(r + 1) * h].contiguous(),
+                    kw[:, r * kh:(r + 1) * kh].contiguous(),
+                    vw[:, r * kh:(r + 1) * kh].contiguous(), cl)
+
+        err = _shard_rows(f"{name} B={b} H={h} KH={kh} S={s_len}",
+                          fd.flash_decode, fd.decode_attention_ref,
+                          fd.flash_decode(qw, kw, vw, cl), args_of,
+                          lambda w, r, h=h: w[:, :, r * h:(r + 1) * h])
+        sets = [args_of(0)] + [
+            (args_of(0)[0], randn(b, kh, s_len, hd), randn(b, kh, s_len, hd),
+             cl) for _ in range(7)]
+        ms = time_ms(lambda i: fd.flash_decode(*sets[i % 8]))
+        plain = time_ms(lambda i: fd.decode_attention_ref(*sets[i % 8]))
+        held(f"{name}: library call (sdpa)", _sdpa_decode(*sets[0]),
+             fd.decode_attention_ref(*sets[0]))
+        lib = time_ms(lambda i: _sdpa_decode(*sets[i % 8]))
+        live = sum(lens)
+        b_ms, b_by = bound(2 * b * h * hd * 2 + b * 4 + live * kh * hd * 2 * 2,
+                           4 * live * h * hd)
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/flash_decode.cu",
+                         replaces="src/repro/kernels/flash_decode.py:216",
+                         shape=f"q ({b},1,{h},{hd}) bf16, cache ({b},{kh},"
+                               f"{s_len},{hd}), lens {lens} ({what})",
+                         max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del sets, qw, kw, vw
     return rows
 
 
@@ -3210,7 +3504,7 @@ def serve_exact(dev, kernels, counts, name, model, qparams, data,
     return eng, reqs, out
 
 
-def families_paths(dev, kernels):
+def families_paths(dev, kernels, held):
     """qwen2-vl-2b (28 layers, d 1536, 12/2 heads of 128, d_ff 8960,
     vocab 151936, M-RoPE) and hymba-1.5b (32 layers, d 1600, 25/5 heads of
     64, d_ff 5504, Mamba state 16, window 1024, vocab 32001) at full width
@@ -3220,8 +3514,10 @@ def families_paths(dev, kernels):
     also with patches (prefill + 16 decode steps against a teacher-forced
     forward) and with ``spec=`` declined; hymba also a 2,200-token request
     whose ring wraps (against a teacher-forced forward through the
-    block-local attention) and ``paged=True`` declined.  Returns {path:
-    launch counts} (paths prefixed "VLM" / "hymba")."""
+    block-local attention) and ``paged=True`` declined.  Each packed tree
+    is saved for the families' TP phase (:func:`hold_for_tp`) with the
+    dense run's first 4 requests and their single-device tokens.  Returns
+    {path: launch counts} (paths prefixed "VLM" / "hymba")."""
     import gc
 
     from repro_torch.configs import ARCHS
@@ -3260,6 +3556,7 @@ def families_paths(dev, kernels):
         kernels, lambda: quantize_family(model, dev, batches, vt, spec))
     del batches
     gc.collect()
+    hold_for_tp(held, cfg.name, qparams)
 
     phase("families: qwen2-vl-2b prefill(patches) + 16 decode steps against "
           "a teacher-forced forward")
@@ -3290,6 +3587,7 @@ def families_paths(dev, kernels):
     phase("families: qwen2-vl-2b serve, 4 slots, the dense run's 8 requests")
     _, reqs, out = serve_exact(dev, kernels, counts, "VLM", model, qparams,
                                data, vt)
+    hold_requests(held[cfg.name], reqs, out)
     draft = self_int8_draft(model, qparams)
     eng = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
                       spec=SpecConfig(k=3, draft=draft))
@@ -3331,10 +3629,12 @@ def families_paths(dev, kernels):
                                     "blocks/mamba/out_proj")),
           "hymba: the Mamba sites were not quantized")
     gc.collect()
+    hold_for_tp(held, cfg.name, qparams)
 
     phase("families: hymba-1.5b serve, 4 slots, the dense run's 8 requests")
-    eng, _, _ = serve_exact(dev, kernels, counts, "hymba", model, qparams,
-                            data, ht)
+    eng, reqs, out = serve_exact(dev, kernels, counts, "hymba", model,
+                                 qparams, data, ht)
+    hold_requests(held[cfg.name], reqs, out)
     paged = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
                         paged=True)
     print(f"  paged=True: engine.paged {paged.paged} (serves from the dense "
@@ -3408,7 +3708,7 @@ def layer0_alpha_search(name, model, params, stats, spec, kernels):
     return counts
 
 
-def ssm_audio_paths(dev, kernels):
+def ssm_audio_paths(dev, kernels, held):
     """xlstm-350m (24 layers, d 1024, 4 heads, d_inner 2048: mLSTM heads of
     512, sLSTM heads of 256, an sLSTM block every 4th layer, vocab 50304)
     and whisper-small (12 encoder + 12 decoder layers, d 768, 12 heads of
@@ -3426,8 +3726,10 @@ def ssm_audio_paths(dev, kernels):
     whisper prefills 4 requests with their
     frames together and decodes 32 greedy steps, each request against a
     teacher-forced forward over the same frames (no engine run: the
-    engine passes no frames, neither does the reference's).  Returns
-    {path: launch counts} (paths prefixed "xlstm" / "whisper")."""
+    engine passes no frames, neither does the reference's).  Each packed
+    tree is saved for the families' TP phase (:func:`hold_for_tp`) with
+    its single-device tokens.  Returns {path: launch counts} (paths
+    prefixed "xlstm" / "whisper")."""
     import gc
 
     from repro_torch.configs import ARCHS
@@ -3467,11 +3769,13 @@ def ssm_audio_paths(dev, kernels):
         "xlstm", model, params, stats, spec, kernels)
     del params, stats
     gc.collect()
+    hold_for_tp(held, cfg.name, qparams)
 
     phase("ssm/audio: xlstm-350m serve, 4 slots, the dense run's 8 requests; "
           "spec= and paged=True declined")
     _, reqs, out = serve_exact(dev, kernels, counts, "xlstm", model, qparams,
                                data, xt)
+    hold_requests(held[cfg.name], reqs, out)
     eng = ServeEngine(model, qparams, n_slots=4, max_len=1024, device=dev,
                       paged=True, spec=SpecConfig(
                           k=3, draft=self_int8_draft(model, qparams)))
@@ -3638,6 +3942,8 @@ def ssm_audio_paths(dev, kernels):
           f"forward over its frames: worst margin {worst:.4f} (tol "
           f"{TIE_TOL})", flush=True)
     check(worst <= TIE_TOL, "whisper decode off the teacher-forced argmax")
+    hold_for_tp(held, cfg.name, qparams, prompts=prompts,
+                frames=frames.cpu().numpy(), tokens=toks)
     print(f"  whisper seconds: " + ", ".join(f"{k} {v:.2f}"
                                              for k, v in wt.items()),
           flush=True)
@@ -3860,12 +4166,12 @@ def _rank_counted(fn):
             collectives.counts())
 
 
-def tp_rank_serve(mesh, ckpt_dir, skeleton, cfg, reqs, moe_cfg):
+def tp_rank_serve(mesh, ckpt_dir, skeleton, cfg, reqs, moe_cfg, late_s):
     """One rank of the TP phase: restore the packed tree saved by the phase
     before (on the host), serve the requests dense and paged with the bf16
-    and the int8 KV cache, each engine cutting its own shards; then MoE
-    expert parallelism on the 2-layer cut.  Rank 0's numbers are the
-    phase's."""
+    and the int8 KV cache, each engine cutting its own shards, then open
+    loop (:func:`_tp_rank_open_loop`); then MoE expert parallelism on the
+    2-layer cut.  Rank 0's numbers are the phase's."""
     import gc
 
     from repro_torch.dist import checkpoint as ckpt
@@ -3906,10 +4212,56 @@ def tp_rank_serve(mesh, ckpt_dir, skeleton, cfg, reqs, moe_cfg):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    out["open loop"] = _tp_rank_open_loop(mesh, model, whole, reqs, late_s)
     del whole
     gc.collect()
     out["moe"] = _tp_rank_moe(mesh, moe_cfg)
     out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+# the TP open-loop run: loose deadlines (nothing sheds; the SLO layer
+# observes, charges and releases), the main path's fault schedule
+TP_DEADLINE_S = 600.0
+TP_FAULTS = dict(alloc_fail_at=(3, 30, 90), preempt_at=(40,), stall_at=(20,),
+                 stall_s=0.05)
+
+
+def _tp_rank_open_loop(mesh, model, whole, reqs, late_s):
+    """An open-loop run of the TP requests through the paged engine on the
+    mesh with ``slo=`` and ``faults=`` (the main path's fault schedule):
+    the first two arrive at once, the other two ``late_s`` later.  Every
+    rank runs the same loop on rank 0's clock; each reports its outcomes,
+    counters and fault counts, whose digests are gathered."""
+    from repro_torch.serve import (FaultConfig, FaultInjector, Request,
+                                   Scheduler, ServeEngine, SLOConfig)
+
+    eng = ServeEngine(model, whole, n_slots=TP_SLOTS, max_len=1024,
+                      paged=True, page_size=16, mesh=mesh,
+                      device=mesh.device, slo=SLOConfig(seed=0),
+                      faults=FaultInjector(FaultConfig(**TP_FAULTS)))
+    trace = [(0.0 if i < 2 else late_s,
+              Request(rid=r, prompt=np.asarray(p, np.int32), max_new_tokens=n,
+                      rel_deadline=TP_DEADLINE_S))
+             for i, (r, p, n) in enumerate(reqs)]
+    t0 = time.perf_counter()
+    res, launches, routes, coll = _rank_counted(
+        lambda: Scheduler(eng).run_traffic(trace))
+    seconds = time.perf_counter() - t0
+    m = eng.metrics()
+    decided = dict(
+        tokens={r: res[r].tolist() for r in res},
+        outcomes={r.rid: r.outcome for _, r in trace},
+        summary={k: v for k, v in res.summary.items()
+                 if k not in ("tokens_per_s", "spec")},
+        faults=m["faults"],
+        counters={k: m[k] for k in ("decode_steps", "prefill_batches",
+                                    "preempted", "resumed", "shed",
+                                    "shed_retried", "pressure_events")})
+    out = dict(decided, seconds=seconds, traffic=res.traffic,
+               launches=launches, collectives=coll,
+               agree=_agree(mesh, decided))
+    del eng
     return out
 
 
@@ -4062,7 +4414,10 @@ def tp_paths(dev, model, qparams, reqs, results, ckpt_dir):
     # single-device references on the TP runs' schedule: TP_SLOTS slots
     eng2 = ServeEngine(model, qparams, n_slots=TP_SLOTS, max_len=1024,
                        device=dev)
+    t0 = time.perf_counter()
     res2 = eng2.serve(fresh(tp_reqs))
+    torch.cuda.synchronize()
+    serve2_s = time.perf_counter() - t0
     same = sum(np.array_equal(res2[r.rid], results[r.rid]) for r in tp_reqs)
     print(f"  single-device on {TP_SLOTS} slots: {same}/{len(tp_reqs)} "
           f"requests bit for bit with the 4-slot dense run", flush=True)
@@ -4083,7 +4438,7 @@ def tp_paths(dev, model, qparams, reqs, results, ckpt_dir):
         tp = spawn(tp_rank_serve, (1, TP_RANKS), "gloo", store, ckpt_dir,
                    _skeleton(qparams), cfg,
                    [(r.rid, np.asarray(r.prompt).tolist(), r.max_new_tokens)
-                    for r in tp_reqs], moe_cfg,
+                    for r in tp_reqs], moe_cfg, serve2_s,
                    device="cuda", timeout=TP_TIMEOUT)
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -4132,6 +4487,34 @@ def tp_paths(dev, model, qparams, reqs, results, ckpt_dir):
         check(coll["all_reduce"]["max_elements"] <= 4 * 512 * cfg.d_model,
               f"{name}: an all_reduce beyond the activations")
         print(f"    launches on rank 0: {run['launches']}", flush=True)
+    ol = tp["open loop"]
+    s_ = ol["summary"]
+    f = ol["faults"]
+    print(f"  TP open loop (paged, slo=, faults=; requests 0 and 1 at once, "
+          f"2 and 3 {serve2_s:.2f} s later): outcomes {ol['outcomes']}; {f}; "
+          f"preempted {ol['counters']['preempted']}, resumed "
+          f"{ol['counters']['resumed']}; {ol['counters']['decode_steps']} "
+          f"decode steps + {ol['counters']['prefill_batches']} prefills in "
+          f"{f['loop_iters']} loop iterations; {ol['seconds']:.2f} s; TTFT "
+          f"ms p50/p95 {ol['traffic']['ttft_ms']['p50']:.1f}/"
+          f"{ol['traffic']['ttft_ms']['p95']:.1f}; the ranks' digests "
+          f"{ol['agree']}", flush=True)
+    check(len(set(ol["agree"])) == 1, "TP open loop: the ranks decided "
+          "differently")
+    check(s_["completed"] == len(tp_reqs), f"TP open loop: {s_}")
+    check(f["forced_preempts"] == 1 and f["stalls"] == 1
+          and f["alloc_failures"] >= 1, f"TP open loop: faults {f}")
+    check(ol["counters"]["preempted"] >= 1 and ol["counters"]["resumed"]
+          == ol["counters"]["preempted"], "TP open loop: preemptions not "
+          "all resumed")
+    check(ol["collectives"]["all_to_all"]["calls"] == 0,
+          "TP open loop: an all_to_all")
+    equal, ties = _tie_or_equal("TP open loop", model, qparams, tp_reqs, res2,
+                                {int(r): t for r, t in ol["tokens"].items()},
+                                dev)
+    print(f"  TP open loop: {equal}/{len(tp_reqs)} completed requests bit "
+          f"for bit with the fault-free single-device serve, {ties} parting "
+          f"at a tie", flush=True)
     for name in ("decode", "prefill"):
         moe = tp["moe"][name]
         print(f"  MoE EP ({tp['moe']['experts']} of {MOE_EXPERTS} experts "
@@ -4175,6 +4558,360 @@ def tp_paths(dev, model, qparams, reqs, results, ckpt_dir):
                                                   "int8 paged"),
             "quant_matmul_experts_ep2": sum(tp["moe"][n]["launches"]
                                             for n in ("decode", "prefill"))}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: tensor-parallel serving of the vlm, hybrid, ssm and audio
+# families, 2 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+FAMILY_TP_ENGINES = ("qwen2-vl-2b", "hymba-1.5b", "xlstm-350m")
+FAMILY_TP_TIMEOUT = 900
+
+
+def hold_for_tp(held, name, qparams, **extra):
+    """Save ``qparams`` (a family's packed tree) for the families' TP phase
+    under ``held["dir"]``, with its skeleton and ``extra``."""
+    from repro_torch.dist import checkpoint as ckpt
+    path = os.path.join(held["dir"], name)
+    t0 = time.perf_counter()
+    ckpt.save(path, 0, {"qparams": qparams})
+    print(f"  packed tree saved for the families' TP phase in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    held[name] = dict(extra, dir=path, skeleton=_skeleton(qparams))
+
+
+def hold_requests(job, reqs, out):
+    """The TP phase's requests (the dense run's first TP_REQUESTS) and
+    their single-device tokens: the 4-slot serve's, which are a 2-slot
+    engine's too (each == batch-1 ``generate`` bit for bit)."""
+    job["reqs"] = [(r.rid, np.asarray(r.prompt).tolist(), r.max_new_tokens)
+                   for r in reqs[:TP_REQUESTS]]
+    job["tokens"] = {r.rid: np.asarray(out[r.rid]).tolist()
+                     for r in reqs[:TP_REQUESTS]}
+
+
+def _agree(mesh, obj) -> list:
+    """Every rank's digest of ``obj`` (json), gathered: equal only where
+    the ranks hold the same ``obj``."""
+    import hashlib
+
+    import torch.distributed as tdist
+    text = json.dumps(obj, sort_keys=True, default=str)
+    mine = torch.tensor([float(int(hashlib.sha256(text.encode())
+                                   .hexdigest()[:12], 16))],
+                        dtype=torch.float64)
+    every = [torch.zeros_like(mine) for _ in range(mesh.n_ranks)]
+    tdist.all_gather(every, mine)
+    return [float(t) for t in every]
+
+
+def family_tp_rank(mesh, jobs, whisper):
+    """One rank of the families' TP phase: each engine family's packed tree
+    restored on the host and cut by a 2-slot ``ServeEngine(mesh=)``, which
+    serves the dense run's first 4 requests; whisper's tree placed by an
+    engine and driven through ``prefill(frames=)`` + decode steps under the
+    engine's mesh context.  Rank 0's numbers are the phase's; every run
+    carries the ranks' digests."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+
+    def restore(job):
+        t0 = time.perf_counter()
+        whole = ckpt.restore(job["dir"], 0, {"qparams": job["skeleton"]},
+                             device="cpu")["qparams"]
+        return whole, time.perf_counter() - t0
+
+    def placed(model, whole, **kw):
+        t0 = time.perf_counter()
+        eng = ServeEngine(model, whole, mesh=mesh, device=mesh.device, **kw)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    for arch, job in jobs.items():
+        whole, restore_s = restore(job)
+        model = build_model(ARCHS[arch])
+        eng, place_s = placed(model, whole, n_slots=TP_SLOTS, max_len=1024)
+        del whole
+        t0 = time.perf_counter()
+        res, launches, routes, coll = _rank_counted(lambda: eng.serve([
+            Request(rid=r, prompt=np.asarray(p, np.int32), max_new_tokens=n)
+            for r, p, n in job["reqs"]]))
+        serve_s = time.perf_counter() - t0
+        m = eng.metrics()
+        tokens = {r: res[r].tolist() for r in res}
+        out[arch] = dict(
+            tokens=tokens, restore_s=restore_s, place_s=place_s,
+            serve_s=serve_s, launches=launches, routes=routes,
+            collectives=coll, mesh=m["mesh"], decode_steps=m["decode_steps"],
+            prefill_batches=m["prefill_batches"],
+            tokens_generated=m["tokens_generated"],
+            per_step=model.tp_all_reduces(mesh), agree=_agree(mesh, tokens))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    whole, restore_s = restore(whisper)
+    cfg = ARCHS["whisper-small"]
+    model = build_model(cfg)
+    b, steps = whisper["prompts"].shape[0], whisper["steps"]
+    eng, place_s = placed(model, whole, n_slots=b,
+                          max_len=WHISPER_PROMPT + NEW_TOKENS)
+    del whole
+    v = cfg.vocab_size
+    with eng._mesh_ctx():
+        cache = eng.new_cache(model, b, WHISPER_PROMPT + NEW_TOKENS)
+        prompts = torch.as_tensor(whisper["prompts"], device=mesh.device)
+        frames = torch.as_tensor(whisper["frames"], device=mesh.device)
+        t0 = time.perf_counter()
+        (logits, cache), pre_l, pre_r, pre_c = _rank_counted(
+            lambda: model.prefill(eng.params, prompts, cache, frames=frames))
+        toks = [logits[:, 0, :v].argmax(-1).int()]
+        prefill_s = time.perf_counter() - t0
+
+        def decode():
+            nonlocal cache
+            for _ in range(steps):
+                logits, cache = model.decode_step(eng.params, cache,
+                                                  toks[-1][:, None])
+                toks.append(logits[:, 0, :v].argmax(-1).int())
+
+        t0 = time.perf_counter()
+        _, dec_l, dec_r, dec_c = _rank_counted(decode)
+        decode_s = time.perf_counter() - t0
+    tokens = torch.stack(toks, 1).cpu().tolist()
+    out["whisper-small"] = dict(
+        tokens=tokens, restore_s=restore_s, place_s=place_s,
+        prefill_s=prefill_s, decode_s=decode_s, decode_steps=steps,
+        prefill=dict(launches=pre_l, routes=pre_r, collectives=pre_c),
+        decode=dict(launches=dec_l, routes=dec_r, collectives=dec_c),
+        per_step={"prefill": model.tp_all_reduces(mesh, prefill=True),
+                  "decode": model.tp_all_reduces(mesh)},
+        agree=_agree(mesh, tokens))
+    del eng, cache
+    gc.collect()
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _family_gaps(dev, arch, job, rows, toks):
+    """The single-device top-2 logit gap at every token of ``toks`` (the
+    single-device tokens of request ``rows``), the family's tree restored
+    on the card: an engine family's batch-1 prefill + decode steps fed
+    those tokens (its engine == ``generate`` bit for bit, so these are
+    the engine's logits); whisper's 4-row prefill(frames=) + decode steps,
+    as its single-device run.  Returns {row: gaps}."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.models.registry import build_model
+
+    cfg = ARCHS[arch]
+    model = build_model(cfg)
+    qp = ckpt.restore(job["dir"], 0, {"qparams": job["skeleton"]},
+                      device=dev)["qparams"]
+    v = cfg.vocab_size
+
+    def gap(logits):
+        top = logits[:, 0, :v].float().topk(2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+    out = {}
+    if arch == "whisper-small":
+        cache = model.init_cache(len(toks), WHISPER_PROMPT + NEW_TOKENS,
+                                 device=dev)
+        logits, cache = model.prefill(
+            qp, torch.as_tensor(job["prompts"], device=dev), cache,
+            frames=torch.as_tensor(job["frames"], device=dev))
+        g = [gap(logits)]
+        fed = torch.as_tensor(np.stack([np.asarray(toks[r])
+                                        for r in sorted(toks)]),
+                              dtype=torch.int32, device=dev)
+        for j in range(fed.shape[1] - 1):
+            logits, cache = model.decode_step(qp, cache, fed[:, j:j + 1])
+            g.append(gap(logits))
+        g = np.stack(g, 1)
+        return {r: g[r] for r in rows}
+    for r in rows:
+        prompt = job["reqs"][r][1]
+        seq = toks[r]
+        cache = model.init_cache(1, len(prompt) + len(seq), device=dev)
+        logits, cache = model.prefill(qp, torch.as_tensor(
+            np.asarray(prompt, np.int32), device=dev)[None], cache)
+        g = [gap(logits)[0]]
+        for t in seq[:-1]:
+            logits, cache = model.decode_step(qp, cache, torch.tensor(
+                [[t]], dtype=torch.int32, device=dev))
+            g.append(gap(logits)[0])
+        out[r] = np.asarray(g)
+    del qp
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_tp_paths(dev, held):
+    """Tensor-parallel serving of the vlm, hybrid, ssm and audio families
+    at full width and depth over 2 ranks that share the card over gloo, in
+    one spawn: qwen2-vl-2b (6 query heads on 1 KV head a rank), hymba-1.5b
+    (25 / 5 heads replicated, MLP and Mamba cut) and xlstm-350m (2 of 4
+    mLSTM heads a rank, the sLSTM whole) serve the dense run's first 4
+    requests on 2 slots, whisper-small prefills 4 x 100 tokens over 1536
+    frames and decodes 31 steps on 6 of 12 heads a rank; each request's
+    tokens equal single-device or part first at a tie (the single-device
+    top-2 gap there <= TIE_TOL), the ranks agree, and the collectives per
+    engine step are the model's ``tp_all_reduces`` (the tests' formula)
+    with one logits all_gather.  Returns {route row: rank 0's
+    launches}."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import spawn
+
+    phase("families: tensor-parallel serving (2 ranks sharing the card over "
+          "gloo): qwen2-vl-2b, hymba-1.5b, xlstm-350m 4 requests on 2 "
+          "slots; whisper-small prefill(frames) + decode")
+    jobs = {arch: dict(dir=held[arch]["dir"], skeleton=held[arch]["skeleton"],
+                       reqs=held[arch]["reqs"])
+            for arch in FAMILY_TP_ENGINES}
+    w = held["whisper-small"]
+    whisper = dict(dir=w["dir"], skeleton=w["skeleton"], prompts=w["prompts"],
+                   frames=w["frames"], steps=w["tokens"].shape[1] - 1)
+    store = tempfile.mkdtemp(prefix="chip_smoke_family_tp_")
+    try:
+        t0 = time.perf_counter()
+        tp = spawn(family_tp_rank, (1, TP_RANKS), "gloo", store, jobs,
+                   whisper, device="cuda", timeout=FAMILY_TP_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"  2 ranks on {torch.cuda.get_device_name(0)}: spawn to exit "
+          f"{ranks_s:.2f} s; max_memory_allocated on rank 0 "
+          f"{tp['max_memory_allocated_gib']:.2f} GiB", flush=True)
+
+    def held_to_single(name, arch, want, got, rows):
+        """Per request: equal, or parting first at a single-device tie."""
+        equal, parted = 0, {}
+        for r in rows:
+            a, b = np.asarray(want[r]), np.asarray(got[r])
+            check(len(b) == len(a), f"{name} request {r}: {len(b)} tokens")
+            diff = np.nonzero(a != b)[0]
+            if len(diff):
+                parted[r] = int(diff[0])
+            else:
+                equal += 1
+        if parted:
+            gaps = _family_gaps(dev, arch, held[arch], list(parted), want)
+            for r, j in parted.items():
+                print(f"  {name} request {r}: parts from single-device at "
+                      f"token {j}, where the single-device top-2 gap is "
+                      f"{gaps[r][j]:.4f}", flush=True)
+                check(gaps[r][j] <= TIE_TOL, f"{name} request {r}: parts "
+                      f"from single-device at token {j}, not a tie "
+                      f"({gaps[r][j]:.4f} > {TIE_TOL})")
+        return equal, len(parted)
+
+    launches = {f"quant_matmul_tp2_families_{kind}": 0
+                for kind in ("column", "row", "row_f32")}
+
+    def count_qmm(arch, routes):
+        for kind in ("column", "row", "row_f32"):
+            pre = "f32out " if kind == "row_f32" else ""
+            keys = {f"{pre}k{k} n{n}"
+                    for k, n in FAMILY_TP_COUNTED[arch][kind]}
+            launches[f"quant_matmul_tp2_families_{kind}"] += sum(
+                n for route, n in routes["quant_matmul"].items()
+                if route in keys)
+
+    for arch in FAMILY_TP_ENGINES:
+        run, cfg = tp[arch], ARCHS[arch]
+        check(len(set(run["agree"])) == 1, f"TP {arch}: the ranks differ")
+        check(run["mesh"] == {"data": 1, "model": TP_RANKS},
+              f"TP {arch}: mesh {run['mesh']}")
+        want = held[arch]["tokens"]
+        rows = [r for r, *_ in held[arch]["reqs"]]
+        equal, ties = held_to_single(f"TP {arch}", arch, want,
+                                     run["tokens"], rows)
+        steps = run["decode_steps"] + run["prefill_batches"]
+        coll = run["collectives"]
+        per = run["per_step"]
+        print(f"  TP {arch}: {equal}/{len(rows)} requests bit for bit with "
+              f"single-device, {ties} parting at a tie; "
+              f"{run['tokens_generated']} tokens in {run['serve_s']:.2f} s = "
+              f"{run['tokens_generated'] / run['serve_s']:.1f} tok/s (2 "
+              f"ranks on one card, not a TP speed); restored in "
+              f"{run['restore_s']:.2f} s, cut and placed in "
+              f"{run['place_s']:.2f} s", flush=True)
+        print(f"    collectives per engine step ({run['decode_steps']} decode "
+              f"steps + {run['prefill_batches']} prefills): all_reduce "
+              f"{coll['all_reduce']['calls'] / steps:.1f} (formula {per}; at "
+              f"most {coll['all_reduce']['max_elements']} elements), "
+              f"all_gather {coll['all_gather']['calls'] / steps:.2f} (the "
+              f"logits, {coll['all_gather']['last_shape']}), all_to_all "
+              f"{coll['all_to_all']['calls']}, broadcast (the clock) "
+              f"{coll['broadcast']['calls'] / steps:.2f}", flush=True)
+        check(coll["all_gather"]["calls"] == steps,
+              f"TP {arch}: {coll['all_gather']['calls']} all_gathers in "
+              f"{steps} steps")
+        check(coll["all_reduce"]["calls"] == steps * per,
+              f"TP {arch}: {coll['all_reduce']['calls']} all_reduces in "
+              f"{steps} steps, not {per} a step")
+        check(coll["all_to_all"]["calls"] == 0, f"TP {arch}: an all_to_all")
+        # activations only: the widest is the mLSTM's d_inner row
+        width = cfg.d_model * (cfg.ssm_expand if cfg.family == "ssm" else 1)
+        check(coll["all_reduce"]["max_elements"]
+              <= max(PROMPT_LENS[:TP_REQUESTS]) * width,
+              f"TP {arch}: an all_reduce beyond the activations")
+        print(f"    launches on rank 0: {run['launches']}", flush=True)
+        count_qmm(arch, run["routes"])
+
+    run, cfg = tp["whisper-small"], ARCHS["whisper-small"]
+    check(len(set(run["agree"])) == 1, "TP whisper: the ranks differ")
+    b = w["prompts"].shape[0]
+    equal, ties = held_to_single("TP whisper-small", "whisper-small",
+                                 {r: w["tokens"][r] for r in range(b)},
+                                 dict(enumerate(run["tokens"])), range(b))
+    pre, dec = run["prefill"]["collectives"], run["decode"]["collectives"]
+    print(f"  TP whisper-small: {equal}/{b} requests bit for bit with "
+          f"single-device, {ties} parting at a tie; prefill(frames) "
+          f"{run['prefill_s']:.2f} s, {run['decode_steps']} decode steps at B "
+          f"{b} in {run['decode_s']:.2f} s; restored in "
+          f"{run['restore_s']:.2f} s, placed in {run['place_s']:.2f} s",
+          flush=True)
+    per = run["per_step"]
+    print(f"    collectives: prefill all_reduce {pre['all_reduce']['calls']} "
+          f"(formula {per['prefill']}), all_gather "
+          f"{pre['all_gather']['calls']}; per decode step all_reduce "
+          f"{dec['all_reduce']['calls'] / run['decode_steps']:.1f} (formula "
+          f"{per['decode']}), all_gather "
+          f"{dec['all_gather']['calls'] / run['decode_steps']:.2f}",
+          flush=True)
+    check(pre["all_reduce"]["calls"] == per["prefill"]
+          and pre["all_gather"]["calls"] == 1, "TP whisper: prefill "
+          "collectives off the formula")
+    check(dec["all_reduce"]["calls"] == run["decode_steps"] * per["decode"]
+          and dec["all_gather"]["calls"] == run["decode_steps"],
+          "TP whisper: decode collectives off the formula")
+    check(pre["all_reduce"]["max_elements"]
+          <= b * WHISPER_FRAMES * cfg.d_model
+          and dec["all_reduce"]["max_elements"] <= b * cfg.d_model,
+          "TP whisper: an all_reduce beyond the activations")
+    for part in ("prefill", "decode"):
+        count_qmm("whisper-small", run[part]["routes"])
+
+    vlm = tp["qwen2-vl-2b"]
+    launches["flash_attention_vlm_tp2"] = vlm["launches"]["flash_attention"]
+    launches["flash_decode_vlm_tp2"] = vlm["launches"]["flash_decode"]
+    launches["flash_attention_whisper_tp2"] = run["prefill"]["routes"][
+        "flash_attention"].get("G1 hd64 not causal", 0)
+    launches["flash_decode_cross_tp2"] = run["decode"]["routes"][
+        "flash_decode"].get(f"G1 hd64 S{WHISPER_FRAMES}", 0)
+    print(f"  route launches on rank 0: {launches}", flush=True)
+    return launches
 
 
 def teacher_forced(model, qparams, prompt, toks, dev, extra=None):
@@ -4949,13 +5686,21 @@ def main():
                "quant_matmul_experts_ep2", "flash_decode_tp2",
                "flash_decode_q8_tp2", "flash_attention_tp2",
                "flash_decode_paged_tp2", "flash_decode_paged_q8_tp2"]
+    # the sharded routes of the families' tensor-parallel serving (rank 0's
+    # launches in the families' TP phase)
+    family_tp_rows = ["quant_matmul_tp2_families_column",
+                      "quant_matmul_tp2_families_row",
+                      "quant_matmul_tp2_families_row_f32",
+                      "flash_attention_vlm_tp2",
+                      "flash_attention_whisper_tp2", "flash_decode_vlm_tp2",
+                      "flash_decode_cross_tp2"]
     # the backward routes of mesh training (rank 0's launches in the mesh
     # phase)
     mesh_rows = ["flash_attention_bwd_tp2", "rms_norm_bwd_dp2"]
     kernels = tuple(by_name.values())
     rows = {r["name"]: r for r in kernel_phase(dev)}
     names = (list(by_name) + [name for name, *_ in routes] + tp_rows
-             + mesh_rows)
+             + family_tp_rows + mesh_rows)
     check(sorted(rows) == sorted(names), f"kernel rows {sorted(rows)}")
     rows = [rows[name] for name in names]
     phase("reference: tiny model, card against CPU")
@@ -4967,11 +5712,17 @@ def main():
     launches, row_keys = main_path_phase(dev, kernels)
     phase("main path: the MoE family (qwen2-moe-a2.7b)")
     train_counts.update(moe_paths(dev, kernels))
-    phase("main path: the VLM and hybrid families (qwen2-vl-2b, hymba-1.5b)")
-    family_counts = families_paths(dev, kernels)
-    phase("main path: the ssm and audio families (xlstm-350m, "
-          "whisper-small)")
-    family_counts.update(ssm_audio_paths(dev, kernels))
+    held = {"dir": tempfile.mkdtemp(prefix="chip_smoke_family_trees_")}
+    try:
+        phase("main path: the VLM and hybrid families (qwen2-vl-2b, "
+              "hymba-1.5b)")
+        family_counts = families_paths(dev, kernels, held)
+        phase("main path: the ssm and audio families (xlstm-350m, "
+              "whisper-small)")
+        family_counts.update(ssm_audio_paths(dev, kernels, held))
+        family_tp_launches = family_tp_paths(dev, held)
+    finally:
+        shutil.rmtree(held["dir"], ignore_errors=True)
     train_counts.update(family_counts)
     for path, counts in train_counts.items():
         print(f"  launches on the {path} path: {counts}", flush=True)
@@ -4982,9 +5733,8 @@ def main():
         row.update(row_keys.get(row["name"], {}))
         row["launches"] = launches[kern.symbol]
     for row in rows[len(kernels) + len(routes):]:
-        row["launches"] = (mesh_launches[row["name"]]
-                           if row["name"] in mesh_launches
-                           else row_keys["tp"][row["name"]])
+        row["launches"] = dict(row_keys["tp"], **family_tp_launches,
+                               **mesh_launches)[row["name"]]
     for row, (_, kern, family, takes) in zip(rows[len(kernels):], routes):
         row["launches"] = sum(
             n for path, counts in family_counts.items()

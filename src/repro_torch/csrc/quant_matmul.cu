@@ -4,7 +4,8 @@
 // _kernel).
 // x (m, k) bf16 or f32 (already divided by act_scale), codes (k/2, n)
 // uint8 with byte i holding code[2i] in the low nibble and code[2i+1] in
-// the high nibble, scale/zero (k/g, n) f32; out (m, n) in x's dtype.
+// the high nibble, scale/zero (k/g, n) f32; out (m, n) in x's dtype, or
+// f32 from bf16 x (the f32 sums unrounded: a row-parallel partial product).
 // Codes are dequantized in registers; they never reach device memory
 // dequantized.
 //
@@ -372,6 +373,16 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float
   *reinterpret_cast<uint2*>(p) = v;
 }
 
+// Four consecutive outputs at element i of out: rounded once to bf16, or
+// (out_f32) the f32 sums themselves, which a caller may add to other
+// partial products before it rounds.
+__device__ __forceinline__ void store_out(void* out, bool out_f32, size_t i, float4 v) {
+  if (out_f32)
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + i) = v;
+  else
+    store4(static_cast<bf16*>(out) + i, v.x, v.y, v.z, v.w);
+}
+
 // Block (n tile blockIdx.x, k chunk blockIdx.y when split, expert and m
 // tile blockIdx.z = expert * m tiles + m tile).  Expert e's operands lie at
 // e times one expert's size from the pointers (x (m, k), codes (k/2, n),
@@ -388,8 +399,8 @@ template <class C, bool GA>
 __global__ void __launch_bounds__(C::THREADS)
 qmm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
        const float* __restrict__ scale, const float* __restrict__ zero,
-       bf16* __restrict__ out, float* __restrict__ partial, int* __restrict__ counters, int m,
-       int k, int n, int g, int ng, int chunk, int cpb) {
+       void* __restrict__ out, float* __restrict__ partial, int* __restrict__ counters, int m,
+       int k, int n, int g, int ng, int chunk, int cpb, int out_f32) {
   constexpr int MT = C::MT, BN = C::BN, BM = C::BM, THREADS = C::THREADS, CS = C::CS;
   constexpr int SB = C::STAGE, STAGES = C::STAGES;
   static_assert((STAGES & (STAGES - 1)) == 0, "the ring slot is s & (STAGES - 1)");
@@ -405,7 +416,7 @@ qmm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
   codes += static_cast<size_t>(ex) * (k / 2) * n;
   scale += static_cast<size_t>(ex) * ng * n;
   zero += static_cast<size_t>(ex) * ng * n;
-  out += static_cast<size_t>(ex) * m * n;
+  const size_t out0 = static_cast<size_t>(ex) * m * n;   // expert ex's outputs
   if (cpb) partial += static_cast<size_t>(ex) * n_chunks * m * n;
   const int kb = cpb ? blockIdx.y * cpb * chunk : 0;   // cpb: chunks per block when split
   const int ke = cpb ? min(k, kb + cpb * chunk) : k;
@@ -674,7 +685,7 @@ qmm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
         const int row = m0 + 8 * j + 2 * cq + e;
         if (col_ok && row < m) {
           const float4 v = total4(j, e);
-          store4(out + static_cast<size_t>(row) * n + colq, v.x, v.y, v.z, v.w);
+          store_out(out, out_f32, out0 + static_cast<size_t>(row) * n + colq, v);
         }
       }
     return;
@@ -707,7 +718,7 @@ qmm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
         acc.w = __fadd_rn(acc.w, v[c2].w);
       }
     }
-    store4(out + static_cast<size_t>(row) * n + col, acc.x, acc.y, acc.z, acc.w);
+    store_out(out, out_f32, out0 + static_cast<size_t>(row) * n + col, acc);
   }
   if (tid == 0) counters[tile] = 0;
 }
@@ -732,7 +743,7 @@ cudaError_t prepare_tc() {
 template <class C, bool GA>
 int launch_tc(const void* x, const void* codes, const void* scale, const void* zero, void* out,
               void* partial, void* counters, int experts, int m, int k, int n, int g, int ng,
-              int chunk, int cpb, cudaStream_t stream) {
+              int chunk, int cpb, int out_f32, cudaStream_t stream) {
   const long z = static_cast<long>(experts) * ((m + C::BM - 1) / C::BM);
   if (z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaError_t e = prepare_tc<C, GA>();
@@ -743,22 +754,22 @@ int launch_tc(const void* x, const void* codes, const void* scale, const void* z
   qmm_tc<C, GA><<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
-      static_cast<bf16*>(out), static_cast<float*>(partial), static_cast<int*>(counters), m, k,
-      n, g, ng, chunk, cpb);
+      out, static_cast<float*>(partial), static_cast<int*>(counters), m, k, n, g, ng, chunk,
+      cpb, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool GA>
 int launch_cfg(int cfg, const void* x, const void* codes, const void* scale, const void* zero,
                void* out, void* partial, void* counters, int experts, int m, int k, int n, int g,
-               int ng, int chunk, int cpb, cudaStream_t s) {
+               int ng, int chunk, int cpb, int out_f32, cudaStream_t s) {
   switch (cfg) {
-    case 0: return launch_tc<Cfg0, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
-    case 1: return launch_tc<Cfg1, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
-    case 2: return launch_tc<Cfg2, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
-    case 3: return launch_tc<Cfg3, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
+    case 0: return launch_tc<Cfg0, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, out_f32, s);
+    case 1: return launch_tc<Cfg1, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, out_f32, s);
+    case 2: return launch_tc<Cfg2, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, out_f32, s);
+    case 3: return launch_tc<Cfg3, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, out_f32, s);
 #ifdef QMM_PROBE_MT
-    case 4: return launch_tc<CfgProbe, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, s);
+    case 4: return launch_tc<CfgProbe, GA>(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk, cpb, out_f32, s);
 #endif
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -776,9 +787,10 @@ int launch_cfg(int cfg, const void* x, const void* codes, const void* scale, con
 // tile, found by counters (one int per tile of every expert, zero, left
 // zero), folds them in order.  Each expert's rows are the bits of a
 // single-expert launch on its operands: the fold depends on k and g only.
+// out is bf16, or f32 with out_f32: the same sums before their rounding.
 int launch_bf16(const void* x, const void* codes, const void* scale, const void* zero, void* out,
                 void* partial, void* counters, int experts, int m, int k, int n, int g, int ng,
-                int chunk, int cfg, int cpb, cudaStream_t s) {
+                int chunk, int cfg, int cpb, int out_f32, cudaStream_t s) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(codes) |
                          reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(zero) |
                          reinterpret_cast<uintptr_t>(out);
@@ -790,9 +802,9 @@ int launch_bf16(const void* x, const void* codes, const void* scale, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   if (ga)
     return launch_cfg<true>(cfg, x, codes, scale, zero, out, partial, counters, experts, m, k, n,
-                            g, ng, chunk, cpb, s);
+                            g, ng, chunk, cpb, out_f32, s);
   return launch_cfg<false>(cfg, x, codes, scale, zero, out, partial, counters, experts, m, k, n,
-                           g, ng, chunk, cpb, s);
+                           g, ng, chunk, cpb, out_f32, s);
 }
 
 }  // namespace
@@ -808,17 +820,17 @@ extern "C" void quant_matmul_geometry(int* out) {
 }
 
 // x_is_bf16: the tensor-core kernel on one product (launch_bf16 with one
-// expert).  Otherwise f32 x on the CUDA cores: partial is f32 scratch of
-// ceil(k / KC) * m * n floats when m <= 8, and counters, ng, chunk, cfg and
-// cpb are not read.
+// expert; out f32 with out_f32, else bf16).  Otherwise f32 x on the CUDA
+// cores: partial is f32 scratch of ceil(k / KC) * m * n floats when m <= 8,
+// out is f32, and counters, ng, chunk, cfg, cpb and out_f32 are not read.
 extern "C" int quant_matmul_launch(const void* x, const void* codes, const void* scale,
                                    const void* zero, void* out, void* partial, void* counters,
                                    int m, int k, int n, int g, int ng, int chunk, int cfg,
-                                   int cpb, int x_is_bf16, void* stream) {
+                                   int cpb, int x_is_bf16, int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!x_is_bf16) return launch<float>(x, codes, scale, zero, out, partial, m, k, n, g, s);
   return launch_bf16(x, codes, scale, zero, out, partial, counters, 1, m, k, n, g, ng, chunk, cfg,
-                     cpb, s);
+                     cpb, out_f32, s);
 }
 
 // quant_matmul_experts: every expert's product in one launch of the
@@ -829,5 +841,5 @@ extern "C" int quant_matmul_experts_launch(const void* x, const void* codes, con
                                            int g, int ng, int chunk, int cfg, int cpb,
                                            void* stream) {
   return launch_bf16(x, codes, scale, zero, out, partial, counters, experts, m, k, n, g, ng, chunk,
-                     cfg, cpb, static_cast<cudaStream_t>(stream));
+                     cfg, cpb, 0, static_cast<cudaStream_t>(stream));
 }

@@ -31,6 +31,16 @@ packed rows, ``scale`` / ``zero`` on groups and ``act_scale`` on
 whose scale and zero row each of its shards then copies (a sub-group:
 the same dequantized weights).
 
+An annotation entry may also be a tuple of logical names: that dimension
+is ``len(entry)`` equal parts laid end to end, and part ``i`` is cut as if
+annotated ``entry[i]`` (the rank's shard is its block of every part,
+concatenated in order).  A projection whose output the model splits, such
+as Mamba's ``in_proj`` (``u | z``), is annotated ``("ff", "ff")``, so that
+each rank gets matching columns of both halves; ``(None, "ff")`` keeps the
+first part whole and cuts the second.  :func:`logical_to_spec` (one spec
+per leaf) refuses such an entry; :func:`shard_leaf` and :func:`local_shape`
+cut it part by part.
+
 Serving places weights with :func:`serving_rules` (whole across
 ``data``), training with :func:`training_rules` (:data:`DEFAULT_RULES`:
 weights, AdamW moments and the EF buffer FSDP-cut over ``data``).  A shard
@@ -46,6 +56,7 @@ models read to run their collectives (:mod:`.collectives`).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import threading
 from typing import Optional, Sequence
@@ -193,6 +204,10 @@ def logical_to_spec(axes: Sequence[Optional[str]], *, shape: Sequence[int],
     used: set = set()
     entries = []
     for dim, name in enumerate(axes):
+        if isinstance(name, tuple):
+            raise ValueError(f"dim {dim} is annotated as parts {name}: one "
+                             f"spec cannot describe it (shard_leaf and "
+                             f"local_shape cut it part by part)")
         rule = rules.get(name) if name is not None else None
         if rule is None:
             entries.append(None)
@@ -237,11 +252,33 @@ def _annotation(axes, ndim: int):
     return ax + [None] * (ndim - len(ax))
 
 
+def _parts_entry(ann):
+    """(dim, names) of the entry of ``ann`` that annotates parts (a tuple
+    of names), or None."""
+    for dim, name in enumerate(ann):
+        if isinstance(name, tuple):
+            return dim, name
+    return None
+
+
+def _part_annotations(ann, dim, names):
+    return [ann[:dim] + [name] + ann[dim + 1:] for name in names]
+
+
 def local_shape(shape, axes, mesh, rules: Optional[dict] = None) -> tuple:
     """This rank's block shape of a tensor of ``shape`` annotated ``axes``
     (padded / truncated with ``None`` to the rank)."""
-    spec = logical_to_spec(_annotation(axes, len(shape)), shape=shape,
-                           mesh=mesh, rules=rules)
+    shape = tuple(shape)
+    ann = _annotation(axes, len(shape))
+    found = _parts_entry(ann)
+    if found is not None:
+        dim, names = found
+        part = shape[:dim] + (shape[dim] // len(names),) + shape[dim + 1:]
+        blocks = [local_shape(part, a, mesh, rules)
+                  for a in _part_annotations(ann, dim, names)]
+        return blocks[0][:dim] + (sum(b[dim] for b in blocks),) \
+            + blocks[0][dim + 1:]
+    spec = logical_to_spec(ann, shape=shape, mesh=mesh, rules=rules)
     return tuple(s // _parts(e, mesh)[0] for s, e in zip(shape, spec))
 
 
@@ -275,8 +312,8 @@ def _cut_quantized(qt: QuantizedTensor, axes, mesh, rules) -> QuantizedTensor:
                          f"leaves {rows} rows, not whole packed bytes")
     if n_in_parts > 1 and rows % g and g % rows:
         raise ValueError(f"an input split of {qt.n_in} rows in {n_in_parts} "
-                         f"falls neither on whole groups of {g} nor inside "
-                         f"one group")
+                         f"leaves {rows} rows per rank, which fall neither "
+                         f"on whole groups of {g} nor inside one group")
     lead_spec = spec[:-2]
     out_spec = spec[-1]
     codes = _cut_tensor(qt.codes, lead_spec + (spec[-2], out_spec), mesh)
@@ -297,11 +334,43 @@ def _cut_quantized(qt: QuantizedTensor, axes, mesh, rules) -> QuantizedTensor:
                            act_scale=act)
 
 
+def _split_parts(leaf, dim: int, n: int) -> list:
+    """``leaf`` cut in ``n`` equal parts along ``dim`` (a QuantizedTensor
+    along its output dimension only)."""
+    if isinstance(leaf, QuantizedTensor):
+        if dim != leaf.codes.dim() - 1:
+            raise ValueError("a QuantizedTensor splits into parts along its "
+                             "output dimension only")
+        w = leaf.codes.shape[-1] // n
+        return [dataclasses.replace(
+            leaf, codes=leaf.codes[..., i * w:(i + 1) * w],
+            scale=leaf.scale[..., i * w:(i + 1) * w],
+            zero=leaf.zero[..., i * w:(i + 1) * w]) for i in range(n)]
+    return list(leaf.chunk(n, dim=dim))
+
+
+def _join_parts(parts: list, dim: int):
+    if isinstance(parts[0], QuantizedTensor):
+        return dataclasses.replace(
+            parts[0], **{k: torch.cat([getattr(p, k) for p in parts], dim=-1)
+                         for k in ("codes", "scale", "zero")})
+    return torch.cat(parts, dim=dim)
+
+
 def shard_leaf(leaf, axes, mesh, rules: Optional[dict] = None):
     """This rank's shard of one tensor or QuantizedTensor leaf annotated
     ``axes`` (``None``: the leaf itself, replicated)."""
     if axes is None or leaf is None:
         return leaf
+    ndim = (leaf.codes if isinstance(leaf, QuantizedTensor) else leaf).dim()
+    ann = _annotation(axes, ndim)
+    found = _parts_entry(ann)
+    if found is not None:
+        dim, names = found
+        return _join_parts(
+            [shard_leaf(part, a, mesh, rules) for part, a in zip(
+                _split_parts(leaf, dim, len(names)),
+                _part_annotations(ann, dim, names))], dim)
     if isinstance(leaf, QuantizedTensor):
         return _cut_quantized(leaf, axes, mesh, rules)
     spec = logical_to_spec(_annotation(axes, leaf.dim()), shape=leaf.shape,
@@ -309,51 +378,66 @@ def shard_leaf(leaf, axes, mesh, rules: Optional[dict] = None):
     return _cut_tensor(leaf, spec, mesh)
 
 
+def map_tree(tree, axes_tree, fn, path: str = ""):
+    """``tree`` (nested dicts and lists of leaves) with every leaf replaced
+    by ``fn(leaf, annotation, key string)``.  ``axes_tree`` mirrors it: a
+    dict node is read key by key, a list node of ``tree`` beside a list of
+    the same length element by element; otherwise the first tuple (or
+    list) met on a path annotates everything below it (one annotation per
+    stacked site), and a path it lacks, or annotates ``None``, passes
+    ``None``."""
+    if isinstance(tree, dict):
+        if isinstance(axes_tree, dict):
+            return {k: map_tree(v, axes_tree.get(k), fn, f"{path}[{k!r}]")
+                    for k, v in tree.items()}
+        return {k: map_tree(v, axes_tree, fn, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        per = (axes_tree if isinstance(axes_tree, list)
+               and len(axes_tree) == len(tree) else [axes_tree] * len(tree))
+        return [map_tree(v, a, fn, f"{path}[{i}]")
+                for i, (v, a) in enumerate(zip(tree, per))]
+    if isinstance(axes_tree, dict):
+        axes_tree = None
+    return fn(tree, axes_tree, path)
+
+
 def shard_tree(tree, axes_tree, mesh, rules: Optional[dict] = None):
     """``tree`` (nested dicts of tensors / QuantizedTensors) with every leaf
-    replaced by this rank's shard.  ``axes_tree`` mirrors it; the first
-    tuple / list met on a path annotates everything below it (one
-    annotation per stacked site), and a path it lacks, or annotates
-    ``None``, replicates.  Annotations shorter or longer than a leaf's rank
-    are padded / truncated with ``None``."""
-    if isinstance(axes_tree, (tuple, list)) or axes_tree is None:
-        if isinstance(tree, dict):
-            return {k: shard_tree(v, axes_tree, mesh, rules)
-                    for k, v in tree.items()}
-        return shard_leaf(tree, axes_tree, mesh, rules)
-    if isinstance(tree, dict):
-        return {k: shard_tree(v, axes_tree.get(k), mesh, rules)
-                for k, v in tree.items()}
-    return tree
+    replaced by this rank's shard, ``axes_tree`` read as :func:`map_tree`
+    reads it.  Annotations shorter or longer than a leaf's rank are padded
+    / truncated with ``None``.  A leaf that cannot be cut (an input split
+    that falls neither on whole groups nor inside one) raises a
+    ``ValueError`` naming it, before anything is placed."""
+    def cut(leaf, axes, path):
+        try:
+            return shard_leaf(leaf, axes, mesh, rules)
+        except ValueError as err:
+            raise ValueError(f"{path} on a mesh of {dict(mesh.shape)}: "
+                             f"{err}") from None
+
+    return map_tree(tree, axes_tree, cut)
 
 
-def tree_specs(tree, axes_tree, mesh, rules: Optional[dict] = None,
-               prefix: str = "") -> dict:
+def tree_specs(tree, axes_tree, mesh, rules: Optional[dict] = None) -> dict:
     """``{key: spec}`` for every tensor leaf of ``tree`` (nested dicts of
     logical-shape tensors; meta tensors will do) that :func:`shard_tree`
-    cuts, with ``axes_tree`` read as :func:`shard_tree` reads it: ``key``
+    cuts, with ``axes_tree`` read as :func:`map_tree` reads it: ``key``
     the leaf's key string in a checkpoint manifest (``['blocks']['wq']``),
     ``spec`` its per-dimension mesh axes (:func:`logical_to_spec`).  A
     leaf the table leaves whole has no entry."""
-    if isinstance(axes_tree, (tuple, list)) or axes_tree is None:
-        if isinstance(tree, dict):
-            out = {}
-            for k, v in tree.items():
-                out.update(tree_specs(v, axes_tree, mesh, rules,
-                                      f"{prefix}[{k!r}]"))
-            return out
-        if axes_tree is None or not isinstance(tree, torch.Tensor):
-            return {}
-        spec = logical_to_spec(_annotation(axes_tree, tree.dim()),
-                               shape=tree.shape, mesh=mesh, rules=rules)
-        return {prefix: spec} if spec_axes(spec, mesh) else {}
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(tree_specs(v, axes_tree.get(k), mesh, rules,
-                                  f"{prefix}[{k!r}]"))
-        return out
-    return {}
+    out = {}
+
+    def visit(leaf, axes, path):
+        if axes is not None and isinstance(leaf, torch.Tensor):
+            spec = logical_to_spec(_annotation(axes, leaf.dim()),
+                                   shape=leaf.shape, mesh=mesh, rules=rules)
+            if spec_axes(spec, mesh):
+                out[path] = spec
+        return leaf
+
+    map_tree(tree, axes_tree, visit)
+    return out
 
 
 def spec_axes(spec, mesh) -> tuple:
@@ -390,10 +474,19 @@ def serving_rules(cfg, mesh, base: Optional[dict] = None) -> dict:
     (default :data:`SERVE_DECODE_RULES`) with the weights whole across
     ``data`` (no FSDP split of their input dimension while serving), no
     sequence-sharded cache, and attention replicated where the head counts
-    do not divide ``model`` (the reference's shard_map guard)."""
+    do not divide ``model`` (the reference's shard_map guard).  The ssm
+    family (xLSTM) has no attention: its mLSTM heads are ``ff``'s column
+    blocks, so ``heads`` and ``ff`` are cut together where ``n_heads``
+    divides ``model`` and both replicate otherwise."""
     rules = dict(SERVE_DECODE_RULES if base is None else base,
                  fsdp=None, kv_seq=None)
-    if not attention_splits(cfg, mesh.size("model")):
+    m = mesh.size("model")
+    if cfg.family == "ssm":
+        # the mLSTM's heads are its d_inner columns' blocks: "ff" cuts
+        # whole heads where H divides, else neither is cut
+        if not (m > 1 and cfg.n_heads % m == 0):
+            rules.update(heads=None, ff=None)
+    elif not attention_splits(cfg, m):
         rules.update(heads=None, kv_heads=None)
     return rules
 

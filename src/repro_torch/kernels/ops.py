@@ -26,15 +26,21 @@ from .quant_matmul import quant_matmul as _quant_matmul_kernel
 from .quant_matmul import quant_matmul_experts as _quant_matmul_experts_kernel
 
 
-def quant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """``(x / act_scale) @ dequant(qt)`` for arbitrary leading x dims."""
+def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``(x / act_scale) @ dequant(qt)`` for arbitrary leading x dims, in
+    ``out_dtype`` (default x's dtype; float32: the product's f32 sums
+    before their rounding, the weight as x's dtype takes it)."""
     if qt.act_scale is not None:
         x = x / qt.act_scale.to(x.dtype)
     if not qt.packed or qt.spec.bits > 4:
-        return x @ dequantize_groupwise(qt, dtype=x.dtype)
+        w = dequantize_groupwise(qt, dtype=x.dtype)
+        if out_dtype in (None, x.dtype):
+            return x @ w
+        return x.to(out_dtype) @ w.to(out_dtype)
     lead = x.shape[:-1]
     out = _quant_matmul_kernel(x.reshape(-1, x.shape[-1]), qt.codes,
-                               qt.scale, qt.zero)
+                               qt.scale, qt.zero, out_dtype)
     return out.reshape(lead + (qt.codes.shape[-1],))
 
 

@@ -4,7 +4,9 @@ Wrapper of ``csrc/quant_matmul.cu``, the port of
 ``repro/kernels/quant_matmul.py::quant_matmul_pallas``.  A CPU tensor
 takes the plain version :func:`quant_matmul_ref`; a CUDA tensor launches
 the kernel or raises: bf16 the tensor-core route (one launch for any m),
-f32 the CUDA-core route.
+f32 the CUDA-core route.  ``out_dtype=torch.float32`` with bf16 x takes
+the tensor-core route's f32 sums before their rounding (a row-parallel
+partial product, summed over ranks and rounded once by the caller).
 
 The bf16 kernel's choices are made here, in Python, so that the CPU tests
 can hold them: :func:`plan` picks the tile and whether k is split across
@@ -35,7 +37,7 @@ __all__ = ["KERNEL", "KERNEL_EXPERTS", "quant_matmul",
 
 KERNEL = Kernel("quant_matmul.cu", "quant_matmul_launch",
                 [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                 INT, INT, INT, INT, PTR])
+                 INT, INT, INT, INT, INT, PTR])
 # every expert of a stack in one launch (bf16)
 KERNEL_EXPERTS = Kernel("quant_matmul.cu", "quant_matmul_experts_launch",
                         [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
@@ -163,12 +165,18 @@ def _cached(store: dict, key, numel: int, dtype, device) -> torch.Tensor:
 
 
 def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-                 zero: torch.Tensor) -> torch.Tensor:
+                 zero: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: (m, k) bf16/f32; codes: (k//2, n) packed uint8; scale/zero:
-    (k//g, n) f32.  Returns (m, n) in x's dtype (f32 accumulation)."""
+    (k//g, n) f32.  Returns (m, n) in ``out_dtype`` (default x's dtype;
+    f32 from bf16 x: the f32 accumulation unrounded)."""
     m, k, n, g = _check(x, codes, scale, zero)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"quant_matmul returns {x.dtype} or float32, not "
+                         f"{out_dtype}")
     if x.device.type == "cpu":
-        return quant_matmul_ref(x, codes, scale, zero)
+        return quant_matmul_ref(x, codes, scale, zero, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cpu or cuda, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -181,7 +189,8 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     x, codes = x.contiguous(), codes.contiguous()
     scale, zero = scale.contiguous(), zero.contiguous()
     if x.dtype == torch.bfloat16:
-        return launch_bf16(x, codes, scale, zero)
+        return _launch_tc(x, codes, scale, zero, None,
+                          out_f32=out_dtype == torch.float32)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
@@ -194,8 +203,9 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     KERNEL.launch(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
                   zero.data_ptr(), out.data_ptr(),
                   None if partial is None else partial.data_ptr(), None,
-                  m, k, n, g, 0, 0, 0, 0, 0,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  m, k, n, g, 0, 0, 0, 0, 0, 0,
+                  torch.cuda.current_stream(x.device).cuda_stream,
+                  route=f"f32 k{k} n{n}")
     return out
 
 
@@ -209,20 +219,23 @@ def scratch_sizes(p: Plan, m: int, n: int, experts: int = 1):
 
 
 def _launch_tc(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-               zero: torch.Tensor, experts: Optional[int]) -> torch.Tensor:
+               zero: torch.Tensor, experts: Optional[int],
+               out_f32: bool = False) -> torch.Tensor:
     """One launch of the tensor-core kernel on contiguous CUDA operands
     (x bf16): a single product (``experts`` None, x (m, k)) or a stack of
-    ``experts`` (x (E, m, k))."""
+    ``experts`` (x (E, m, k)); ``out_f32`` (a single product): the f32
+    sums, unrounded."""
     n = codes.shape[-1]
     m = x.shape[-2]
     e = 1 if experts is None else experts
+    dtype = torch.float32 if out_f32 else x.dtype
     if m == 0 or e == 0:
-        return x.new_empty(x.shape[:-1] + (n,))
+        return x.new_empty(x.shape[:-1] + (n,), dtype=dtype)
     g = x.shape[-1] // scale.shape[-2]
     xp, cp, sp, zp = padded(x, codes, scale, zero)
     kp, n_pad = xp.shape[-1], cp.shape[-1]
     p = plan(m, kp, n_pad, g, _multiprocessors(x.device), experts=e)
-    out = torch.empty(x.shape[:-1] + (n_pad,), dtype=x.dtype, device=x.device)
+    out = torch.empty(x.shape[:-1] + (n_pad,), dtype=dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     partial = counters = None
     n_scratch, n_counters = scratch_sizes(p, m, n_pad, e)
@@ -237,18 +250,12 @@ def _launch_tc(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     shape = (m, kp, n_pad, g, sp.shape[-2], p.chunk, p.cfg, p.cpb)
     route = f"k{x.shape[-1]} n{n}"
     if experts is None:
-        KERNEL.launch(*ptrs, *shape, 1, stream, route=route)
+        KERNEL.launch(*ptrs, *shape, 1, 1 if out_f32 else 0, stream,
+                      route=f"f32out {route}" if out_f32 else route)
     else:
         KERNEL_EXPERTS.launch(*ptrs, e, *shape, stream,
                               route=f"E{e} {route}")
     return out if n_pad == n else out[..., :n].contiguous()
-
-
-def launch_bf16(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-                zero: torch.Tensor) -> torch.Tensor:
-    """The tensor-core kernel on contiguous CUDA operands (x bf16)."""
-    _check(x, codes, scale, zero)
-    return _launch_tc(x, codes, scale, zero, None)
 
 
 def quant_matmul_experts(x: torch.Tensor, codes: torch.Tensor,

@@ -31,12 +31,14 @@ def dequant_ref(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
 
 
 def quant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
-                     scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
-    """``x @ dequant(codes)`` in f32, cast to x's dtype.
+                     scale: torch.Tensor, zero: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ dequant(codes)`` in f32, cast to ``out_dtype`` (default x's
+    dtype).
 
     x: (m, k) already divided by any act_scale; returns (m, n)."""
     w = dequant_ref(codes, scale, zero, x.shape[-1])
-    return (x.float() @ w).to(x.dtype)
+    return (x.float() @ w).to(x.dtype if out_dtype is None else out_dtype)
 
 
 def quant_matmul_experts_ref(x: torch.Tensor, qt) -> torch.Tensor:

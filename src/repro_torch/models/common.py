@@ -91,16 +91,27 @@ def stack_layer_stats(per_layer: list) -> dict:
 # Linear dispatch (FP or quantized)
 # ---------------------------------------------------------------------------
 
-def qlinear(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` where ``w`` is a tensor or a QuantizedTensor."""
+def qlinear(x: torch.Tensor, w,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w`` where ``w`` is a tensor or a QuantizedTensor, in
+    ``out_dtype`` (default x's dtype; float32 from bf16 x: the f32 sums
+    unrounded, ``w`` as x's dtype takes it)."""
     if isinstance(w, QuantizedTensor):
-        return quant_matmul(x, w)
-    return x @ w.to(x.dtype)
+        return quant_matmul(x, w, out_dtype)
+    w = w.to(x.dtype)
+    if out_dtype in (None, x.dtype):
+        return x @ w
+    return x.to(out_dtype) @ w.to(out_dtype)
 
 
 def out_width(w) -> int:
     """The output columns of ``w`` (a tensor or a QuantizedTensor)."""
     return (w.codes if isinstance(w, QuantizedTensor) else w).shape[-1]
+
+
+def in_width(w) -> int:
+    """The input rows of ``w`` (a tensor or a QuantizedTensor)."""
+    return w.n_in if isinstance(w, QuantizedTensor) else w.shape[-2]
 
 
 def column_input(x: torch.Tensor, w, full: int) -> torch.Tensor:
@@ -300,6 +311,20 @@ def reduce_row_parallel(y: torch.Tensor, local: int,
     whose input dimension is this rank's ``local`` of ``full`` columns is
     a partial sum (one all_reduce); a whole one is ``y`` itself."""
     return all_reduce(y, "model") if local < full else y
+
+
+def row_parallel_f32(x: torch.Tensor, w, full: int) -> torch.Tensor:
+    """``x @ w`` where ``x`` may hold this rank's ``x.shape[-1]`` of
+    ``full`` input columns (``w`` their rows): then the rank's partial
+    product is taken in f32 before its rounding (quant_matmul's f32
+    output), the partials are summed over ``model`` in f32 and the sum is
+    rounded once to ``x``'s dtype, as the single-device product rounds
+    once; else ``qlinear(x, w)``.  A second rounding's error reaches the
+    selective scan's ``exp(dt * A)`` amplified, so the hybrid family takes
+    this where the others take :func:`reduce_row_parallel`."""
+    if x.shape[-1] >= full:
+        return qlinear(x, w)
+    return all_reduce(qlinear(x, w, torch.float32), "model").to(x.dtype)
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import serving_rules
 from repro_torch.kernels.ops import (decode_attention, decode_attention_q8,
                                     paged_decode_attention,
                                     paged_decode_attention_q8,
@@ -136,6 +137,26 @@ class DenseLM:
             "final_norm": (None,),
             "lm_head": ("fsdp", "vocab"),
         }
+
+    def tp_all_reduces(self, mesh, prefill: bool = False) -> int:
+        """The all_reduces of one serving step (a prefill or a decode step)
+        under ``mesh`` and its serving rules, where every cut dimension
+        divides ``model``, beside the step's one logits all_gather: the
+        vocab-cut embedding's one and :meth:`_layers_all_reduces`.  0
+        without a mesh or a ``model`` axis."""
+        m = 1 if mesh is None else mesh.size("model")
+        if m == 1:
+            return 0
+        rules = serving_rules(self.cfg, mesh)
+        a, f = (int(rules[ax] is not None) for ax in ("heads", "ff"))
+        return (self._layers_all_reduces(a, f, prefill)
+                + int(padded_vocab(self.cfg.vocab_size) % m == 0))
+
+    def _layers_all_reduces(self, a: int, f: int, prefill: bool) -> int:
+        """The layers' all_reduces of a serving step, ``a`` / ``f`` 1 where
+        attention is cut on heads / ``ff`` is cut: ``wo`` and ``w_down``
+        in each layer."""
+        return self.cfg.n_layers * (a + f)
 
     def quant_site_map(self) -> dict:
         return {

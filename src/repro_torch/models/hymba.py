@@ -15,6 +15,14 @@ request at a time at its exact length (``SingleAdmission``), from the
 dense cache only (no page store, no speculative verify, no int8 KV
 cache, as in the reference).  Prefill and decode write the cache in
 place.
+
+Tensor parallelism (``ServeEngine(mesh=)``): attention is cut on heads
+where both head counts divide ``model`` and whole on every rank otherwise
+(hymba-1.5b's 25 / 5 heads on 2 ranks), while the MLP and the Mamba branch
+are cut on ``ff`` either way (:func:`~repro_torch.models.ssm.mamba_axes`);
+each branch's row-parallel output is reduced before ``x + 0.5 * (attn +
+mamba)`` adds it, the Mamba branch's and ``w_down``'s in f32
+(:func:`~repro_torch.models.common.row_parallel_f32`).
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import decode_attention
 from . import ssm
 from .common import (apply_rope, embed_tokens, logits_from_hidden, qlinear,
-                     rms_norm, update_cache_at)
+                     reduce_row_parallel, rms_norm, row_parallel_f32,
+                     update_cache_at)
 from .dense import DenseLM, _layer
 
 
@@ -61,6 +70,29 @@ class HymbaLM(DenseLM):
             cfg.dt_rank, cfg.ssm_conv, self.dtype, dev)
         return params
 
+    def param_axes(self) -> dict:
+        """:meth:`DenseLM.param_axes` with the Mamba branch's
+        (:func:`~repro_torch.models.ssm.mamba_axes`) under
+        ``blocks/mamba``."""
+        ax = super().param_axes()
+        ax["blocks"]["mamba"] = ssm.mamba_axes()
+        return ax
+
+    def _layers_all_reduces(self, a: int, f: int, prefill: bool) -> int:
+        """``wo`` where attention is cut; Mamba ``x_proj`` and ``out_proj``
+        and ``w_down`` where ``ff`` is."""
+        return self.cfg.n_layers * (a + 3 * f)
+
+    def cache_axes(self) -> dict:
+        """Logical axes of :meth:`init_cache`'s leaves: the ring K/V on
+        ``kv_heads``, the Mamba state's channels on ``ff`` (the
+        reference's)."""
+        ax = (None, "batch", "kv_heads", "kv_seq", None)
+        return {"k": ax, "v": ax,
+                "mamba": {"h": (None, "batch", "ff", None),
+                          "conv": (None, "batch", None, "ff")},
+                "len": None}
+
     def quant_site_map(self) -> dict:
         m = super().quant_site_map()
         m.update({
@@ -85,13 +117,15 @@ class HymbaLM(DenseLM):
               if collect else None)
         if cache is None:
             attn_out, kv, o_pre = self._attn(p, h, positions)
-            mamba_out = ssm.mamba_scan(p["mamba"], h, collect_cb=cb)
+            mamba_out = ssm.mamba_scan(p["mamba"], h, collect_cb=cb,
+                                       d_inner=self._d_inner)
             new_mamba = None
         else:
             kv_cache, mamba_state = cache
             attn_out, kv, o_pre = self._attn_ring(p, h, positions, kv_cache,
                                                   cache_len)
-            mamba_out, new_mamba = ssm.mamba_step(p["mamba"], h, mamba_state)
+            mamba_out, new_mamba = ssm.mamba_step(p["mamba"], h, mamba_state,
+                                                  self._d_inner)
         if collect:
             stats["attn_out"] = site_stat(o_pre)
             stats.update(collected)
@@ -102,8 +136,12 @@ class HymbaLM(DenseLM):
         hidden = F.silu(qlinear(h, p["w_gate"])) * qlinear(h, p["w_up"])
         if collect:
             stats["mlp_down"] = site_stat(hidden)
-        x = x + qlinear(hidden, p["w_down"])
-        return x, (kv, new_mamba), stats
+        return x + self._down(p, hidden), (kv, new_mamba), stats
+
+    def _down(self, p, hidden):
+        """``w_down`` of ``hidden``, summed over ``model`` in f32 when it
+        holds a rank's ``ff`` columns (as the Mamba branch's products)."""
+        return row_parallel_f32(hidden, p["w_down"], self.cfg.d_ff)
 
     def _attn_ring(self, p, x, positions, kv_cache, cache_len):
         """Decode attention against the ring-buffer window cache: the fresh
@@ -113,9 +151,14 @@ class HymbaLM(DenseLM):
         hd = cfg.head_dim_
         w = cfg.sliding_window
         b, t, _ = x.shape
-        q = qlinear(x, p["wq"]).reshape(b, t, cfg.n_heads, hd)
-        k = qlinear(x, p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
-        v = qlinear(x, p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+        # this rank's heads: all of them, or H/m and KH/m under TP
+        q = qlinear(x, p["wq"])
+        n_h = q.shape[-1] // hd
+        q = q.reshape(b, t, n_h, hd)
+        k = qlinear(x, p["wk"])
+        n_kv = k.shape[-1] // hd
+        k = k.reshape(b, t, n_kv, hd)
+        v = qlinear(x, p["wv"]).reshape(b, t, n_kv, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         k_cache, v_cache = kv_cache                       # (B, KH, W, hd)
@@ -124,8 +167,9 @@ class HymbaLM(DenseLM):
         update_cache_at(v_cache, v.transpose(1, 2), slot)
         valid = torch.clamp(cache_len, max=w)
         o = decode_attention(q, k_cache, v_cache, valid)
-        o = o.reshape(b, t, cfg.n_heads * hd)
-        return qlinear(o, p["wo"]), (k_cache, v_cache), o
+        o = o.reshape(b, t, n_h * hd)
+        out = reduce_row_parallel(qlinear(o, p["wo"]), n_h, cfg.n_heads)
+        return out, (k_cache, v_cache), o
 
     # -- entry points (the cache differs from DenseLM's) ----------------------
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
@@ -156,7 +200,8 @@ class HymbaLM(DenseLM):
         b, t = tokens.shape
         dev = tokens.device
         positions = torch.arange(t, device=dev).expand(b, t)
-        x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x = embed_tokens(params["embed"], tokens,
+                         self.cfg.vocab_size).to(self.dtype)
         w = cache["k"].shape[3]
         blocks, mst = params["blocks"], cache["mamba"]
         eps = self.cfg.norm_eps
@@ -167,13 +212,14 @@ class HymbaLM(DenseLM):
             _ring_store(cache["k"][l], k.transpose(1, 2)[:, :, -w:], t, w)
             _ring_store(cache["v"][l], v.transpose(1, 2)[:, :, -w:], t, w)
             mamba_out, new = ssm.mamba_scan_final(
-                p["mamba"], h, {key: leaf[l] for key, leaf in mst.items()})
+                p["mamba"], h, {key: leaf[l] for key, leaf in mst.items()},
+                self._d_inner)
             for key, leaf in mst.items():
                 leaf[l] = new[key]
             x = x + 0.5 * (attn_out + mamba_out)
             h2 = rms_norm(x, p["mlp_norm"], eps)
             hidden = F.silu(qlinear(h2, p["w_gate"])) * qlinear(h2, p["w_up"])
-            x = x + qlinear(hidden, p["w_down"])
+            x = x + self._down(p, hidden)
         x = rms_norm(x[:, -1:], params["final_norm"], eps)
         logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
         return logits, dict(cache, len=torch.full((b,), t, dtype=torch.int32,
@@ -189,7 +235,8 @@ class HymbaLM(DenseLM):
                              "cache has no span write)")
         new_len = cache["len"].to(torch.int32) + 1
         positions = (new_len - 1)[:, None]
-        x = embed_tokens(params["embed"], token).to(self.dtype)
+        x = embed_tokens(params["embed"], token,
+                         self.cfg.vocab_size).to(self.dtype)
         blocks, mst = params["blocks"], cache["mamba"]
         for l in range(self.cfg.n_layers):
             state = {key: leaf[l] for key, leaf in mst.items()}

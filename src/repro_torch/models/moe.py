@@ -299,6 +299,10 @@ class MoELM(DenseLM):
         return {"embed": embed, "blocks": blocks, "final_norm": ones(d),
                 "lm_head": head}
 
+    def tp_all_reduces(self, mesh, prefill: bool = False) -> int:
+        """Not counted: a MoE step also exchanges tokens (all_to_all)."""
+        raise ValueError("moe: its steps also run all_to_alls")
+
     def param_axes(self) -> dict:
         """Logical axes of :meth:`init`'s tree: the dense attention's, the
         router whole, experts on ``experts``, the shared expert on

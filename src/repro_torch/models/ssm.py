@@ -25,14 +25,56 @@ recurrence multiply fixed-size zero-padded row blocks
 normaliser, whose operands are per-slot states, run one slot at a time
 (:func:`_per_slot`); the Mamba read-out is an elementwise product summed
 over S.
+
+Tensor parallelism (serving under a mesh, :func:`mamba_axes` /
+:func:`mlstm_axes` / :func:`slstm_axes`): the Mamba branch and the mLSTM
+are cut on ``ff`` (d_inner's channels), the sLSTM is whole on every rank.
+A rank's Mamba holds its channels of ``u`` and ``z`` (``in_proj``'s two
+halves cut alike), of the conv, ``A``, the skip and the state;
+``x_proj`` and ``out_proj`` are row-parallel, each followed by one
+all_reduce over ``model`` (the collectives GSPMD inserts for the
+reference), summed in f32 and rounded once
+(:func:`~repro_torch.models.common.row_parallel_f32`): ``dt`` enters
+``exp(dt * A)``, which turns a 1-ulp change of ``dt_low`` into up to 16
+times that change of the decay, so the rank keeps the single-device bits
+there, and ``dt_proj`` runs whole on every rank before the rank takes
+its channels of ``dt``.
+
+A rank's mLSTM computes its heads: q / k / v (``wq`` / ``wk`` / ``wv``
+column shards over the whole ``xi``), their gates and their state; the
+heads' outputs are put together exactly (one all_reduce of the
+zero-padded row), and the output norm over all d_inner, the gate and
+``down_proj`` run whole on every rank.  In bf16 the recurrent state
+carries a rounding's error to every later step and grows it (the
+reference's own decode and forward part within 32 tokens: ROADMAP
+section 3), so the mLSTM keeps the single-device bits outside its heads
+instead of cutting ``down_proj`` (partial sums rounded twice) or summing
+the norm's squares over ranks (in another order).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import (_fixed_rows, _fixed_rows_matmul, dense_init,
-                     normal_init, qlinear, rms_norm)
+from repro_torch.dist.collectives import all_reduce
+from repro_torch.dist.sharding import axis_index
+from .common import (_fixed_rows, _fixed_rows_matmul, dense_init, in_width,
+                     normal_init, out_width, qlinear, rms_norm,
+                     row_parallel_f32)
+
+
+def mamba_axes() -> dict:
+    """Logical axes of :func:`mamba_init`'s leaves: the reference's, with
+    ``in_proj``'s output annotated as its two halves ``u | z`` each cut on
+    ``ff`` (a contiguous cut would give one rank all of ``u``), ``d_skip``
+    cut with the channels it meets (the reference replicates it and GSPMD
+    slices it there), and ``dt_proj`` whole (the reference cuts its
+    output; see the module docstring)."""
+    return {"in_proj": (None, "fsdp", ("ff", "ff")),
+            "conv_w": (None, None, "ff"), "x_proj": (None, "ff", None),
+            "dt_proj": (None, None, None), "dt_bias": (None, None),
+            "a_log": (None, "ff", None), "d_skip": (None, "ff"),
+            "out_proj": (None, "ff", "fsdp")}
 
 
 def mamba_init(gen: torch.Generator, n_layers: int, d_model: int,
@@ -71,11 +113,13 @@ def _float_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def _mamba_gates(p, x, conv_state=None):
+def _mamba_gates(p, x, conv_state=None, d_inner=None):
     """Shared front: projections + causal depthwise conv.
 
     x: (B, T, d_model).  Returns (u, z, dt, B_, C_, new_conv_state) where u
-    is the conv+silu'd SSM input (B, T, d_in)."""
+    is the conv+silu'd SSM input (B, T, d_in): this rank's channels when
+    they are fewer than ``d_inner`` (None: the leaves' own width), whose
+    ``x_proj`` partial sum is then reduced over ``model``."""
     d_state = p["a_log"].shape[1]
     xz = qlinear(x, p["in_proj"])
     u, z = xz.chunk(2, dim=-1)
@@ -89,12 +133,16 @@ def _mamba_gates(p, x, conv_state=None):
     t = u.shape[1]
     u = sum(pad[:, i:i + t, :] * p["conv_w"][i].to(u.dtype) for i in range(k))
     u = F.silu(u)
-    proj = qlinear(u, p["x_proj"])
+    d_in = u.shape[-1]
+    proj = row_parallel_f32(u, p["x_proj"],
+                            d_in if d_inner is None else d_inner)
     dt_rank = proj.shape[-1] - 2 * d_state
     dt_low, b_, c_ = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
-    dt = F.softplus(_float_linear(dt_low, p["dt_proj"])
-                    + p["dt_bias"].to(x.dtype))
-    return u, z, dt, b_, c_, new_conv_state
+    dt = _float_linear(dt_low, p["dt_proj"]) + p["dt_bias"].to(x.dtype)
+    if d_in < dt.shape[-1]:
+        first = axis_index("model") * d_in
+        dt = dt[..., first:first + d_in]
+    return u, z, F.softplus(dt), b_, c_, new_conv_state
 
 
 # time steps whose discretized terms are formed in one go: (B, SCAN_CHUNK,
@@ -130,35 +178,43 @@ def _scan(p, x, u, z, dt, b_, c_, h):
     return y, h
 
 
-def mamba_scan(p, x, collect_cb=None):
+def _mamba_out(p, y, d_inner):
+    """``out_proj`` of this rank's channels ``y``, summed over ``model``
+    where they are fewer than ``d_inner`` (None: whole)."""
+    return row_parallel_f32(y, p["out_proj"],
+                            y.shape[-1] if d_inner is None else d_inner)
+
+
+def mamba_scan(p, x, collect_cb=None, d_inner=None):
     """Full-sequence selective scan.  x: (B, T, d_model) -> (B, T, d_model).
 
     ``collect_cb(site, activation)`` receives the inputs of ``x_proj``
     (``"mamba_x"``, the conv+silu output) and ``out_proj``
-    (``"mamba_out"``) for calibration."""
-    u, z, dt, b_, c_, _ = _mamba_gates(p, x)
+    (``"mamba_out"``) for calibration.  ``d_inner`` is the model's whole
+    width when ``p`` holds a rank's channels (see the module docstring)."""
+    u, z, dt, b_, c_, _ = _mamba_gates(p, x, d_inner=d_inner)
     b, _, d_in = u.shape
     h0 = torch.zeros((b, d_in, p["a_log"].shape[1]), device=x.device)
     y, _ = _scan(p, x, u, z, dt, b_, c_, h0)
     if collect_cb is not None:
         collect_cb("mamba_x", u)
         collect_cb("mamba_out", y)
-    return qlinear(y, p["out_proj"])
+    return _mamba_out(p, y, d_inner)
 
 
-def mamba_scan_final(p, x, state):
+def mamba_scan_final(p, x, state, d_inner=None):
     """:func:`mamba_scan` seeded with ``state`` (dict h, conv), returning
     (out, the final state) (prefill)."""
-    u, z, dt, b_, c_, conv_state = _mamba_gates(p, x,
-                                                conv_state=state["conv"])
+    u, z, dt, b_, c_, conv_state = _mamba_gates(
+        p, x, conv_state=state["conv"], d_inner=d_inner)
     y, h = _scan(p, x, u, z, dt, b_, c_, state["h"])
-    return qlinear(y, p["out_proj"]), {"h": h, "conv": conv_state}
+    return _mamba_out(p, y, d_inner), {"h": h, "conv": conv_state}
 
 
-def mamba_step(p, x, state):
+def mamba_step(p, x, state, d_inner=None):
     """Single decode step.  x: (B, 1, d_model); state dict(h, conv).
     Returns (out (B, 1, d_model), the new state)."""
-    return mamba_scan_final(p, x, state)
+    return mamba_scan_final(p, x, state, d_inner)
 
 
 def mamba_state_init(batch: int, d_inner: int, d_state: int, d_conv: int,
@@ -172,8 +228,22 @@ def mamba_state_init(batch: int, d_inner: int, d_state: int, d_conv: int,
 # mLSTM (xLSTM matrix memory), chunked parallel form
 # ---------------------------------------------------------------------------
 
-# time steps per chunk of the parallel form (chunk = min(MLSTM_CHUNK, T))
+# time steps per chunk of the parallel form
 MLSTM_CHUNK = 64
+# the mLSTM output norm's epsilon (the rms_norm default, as the reference's)
+NORM_EPS = 1e-6
+
+
+def mlstm_axes() -> dict:
+    """Logical axes of :func:`mlstm_init`'s leaves: the reference's, with
+    ``up_proj`` and ``down_proj`` whole (the reference cuts their ``ff``
+    dimension): only the heads (``wq`` / ``wk`` / ``wv``'s columns, the
+    state) are cut; see the module docstring."""
+    return {"up_proj": (None, "fsdp", None),
+            "wq": (None, "fsdp", "ff"), "wk": (None, "fsdp", "ff"),
+            "wv": (None, "fsdp", "ff"), "w_gates": (None, None, None),
+            "gate_bias": (None, None), "out_norm": (None, None),
+            "down_proj": (None, None, "fsdp")}
 
 
 def mlstm_init(gen: torch.Generator, n_layers: int, d_model: int,
@@ -203,27 +273,37 @@ def mlstm_init(gen: torch.Generator, n_layers: int, d_model: int,
 
 def _mlstm_qkvg(p, x, n_heads: int):
     """Projections and gates.  x: (B, T, d_model).  Returns q, k, v (B, T,
-    H, hd), logf and logi (B, T, H) f32, z (B, T, d_inner) and xi (the
-    input of wq / wk / wv)."""
-    xz = qlinear(x, p["up_proj"])
-    xi, z = xz.chunk(2, dim=-1)
+    h, hd), logf and logi (B, T, h) f32, z (B, T, d_inner) and xi (the
+    input of wq / wk / wv), where h is this rank's heads: all ``n_heads``,
+    or a block of them when ``wq`` holds a rank's columns."""
+    xi, z = qlinear(x, p["up_proj"]).chunk(2, dim=-1)
+    d_inner = in_width(p["wq"])
     q = qlinear(xi, p["wq"])
     k = qlinear(xi, p["wk"])
     v = qlinear(xi, p["wv"])
     gates = (_float_linear(xi, p["w_gates"])
              + p["gate_bias"].to(xi.dtype)).float()
     fgate, igate = gates.chunk(2, dim=-1)                   # (B, T, H)
+    hd = d_inner // n_heads
+    h = out_width(p["wq"]) // hd
+    if h < n_heads:
+        first = axis_index("model") * h
+        fgate, igate = fgate[..., first:first + h], igate[..., first:first + h]
     logf = F.logsigmoid(fgate)
     logi = torch.clamp(igate, -10.0, 10.0)
     b, t, _ = x.shape
-    shp = (b, t, n_heads, p["wq"].shape[-1] // n_heads)
+    shp = (b, t, h, hd)
     return (q.reshape(shp), k.reshape(shp), v.reshape(shp), logf, logi, z,
             xi)
 
 
 def mlstm_chunked(p, x, n_heads: int, chunk: int = MLSTM_CHUNK,
                   collect_cb=None, state=None, return_state: bool = False):
-    """Exact chunked mLSTM.  x: (B, T, d_model) -> (B, T, d_model).
+    """Exact chunked mLSTM.  x: (B, T, d_model) -> (B, T, d_model), in
+    chunks of ``chunk`` steps on every device (the reference takes
+    ``min(chunk, T)``; a shorter prompt is padded to one chunk, which
+    keeps the products' shapes, and so cuBLAS's choice of f32 kernels,
+    the same for a rank's heads as for all of them).
 
     Optionally seeds from ``state`` (dict C (B, H, hd, hd), n (B, H, hd),
     f32) and returns (out, the final state) with ``return_state`` (prefill).
@@ -235,7 +315,6 @@ def mlstm_chunked(p, x, n_heads: int, chunk: int = MLSTM_CHUNK,
     if collect_cb is not None:
         collect_cb("mlstm_in", xi)
     b, t, h, hd = q.shape
-    chunk = min(chunk, t)
     pad = (-t) % chunk
     if pad:
         q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
@@ -281,16 +360,28 @@ def mlstm_chunked(p, x, n_heads: int, chunk: int = MLSTM_CHUNK,
         n = n * torch.exp(tot)[..., None] + torch.einsum(
             "bshd,bsh->bhd", kw, rdec)
     hs = torch.stack(hs, dim=1).reshape(b, t + pad, h * hd)[:, :t]
-    y = _mlstm_out(p, hs, z, x.dtype, collect_cb)
+    y = _mlstm_out(p, hs, z, x.dtype, n_heads * hd, collect_cb)
     if return_state:
         return y, {"C": C, "n": n}
     return y
 
 
-def _mlstm_out(p, hs, z, dtype, collect_cb=None):
+def _mlstm_out(p, hs, z, dtype, d_inner, collect_cb=None):
     """f32 ``hs`` normalised against ``out_norm`` (the rms_norm kernel on
-    the card, in f32), gated by silu(z), cast, then ``down_proj``."""
-    y = rms_norm(hs.float(), p["out_norm"].float())
+    the card, in f32), gated by silu(z), cast, then ``down_proj``.  When
+    ``hs`` holds a rank's heads (fewer than ``d_inner`` columns), the whole
+    row is put together first, exactly (each rank's heads in their place,
+    zeros elsewhere, one all_reduce over ``model``), so that the norm, the
+    gate and ``down_proj`` run on every rank with the single-device
+    bits."""
+    h32 = hs.float()
+    d_in = h32.shape[-1]
+    if d_in < d_inner:
+        first = axis_index("model") * d_in
+        whole = h32.new_zeros(h32.shape[:-1] + (d_inner,))
+        whole[..., first:first + d_in] = h32
+        h32 = all_reduce(whole, "model")
+    y = rms_norm(h32, p["out_norm"].float(), NORM_EPS)
     y = (y * F.silu(z.float())).to(dtype)
     if collect_cb is not None:
         collect_cb("mlstm_out", y)
@@ -330,7 +421,7 @@ def mlstm_step(p, x, state, n_heads: int):
     num = _per_slot(_readout, qw, C)
     den = torch.abs(_per_slot(_normaliser, qw, n))
     hout = (num / torch.clamp(den, min=1.0)[..., None]).reshape(b, 1, h * hd)
-    return _mlstm_out(p, hout, z, x.dtype), {"C": C, "n": n}
+    return _mlstm_out(p, hout, z, x.dtype, n_heads * hd), {"C": C, "n": n}
 
 
 def mlstm_state_init(batch: int, n_heads: int, head_dim: int,
@@ -346,6 +437,14 @@ def mlstm_state_init(batch: int, n_heads: int, head_dim: int,
 
 # the stabilizer state m starts here (the reference's -1e9)
 SLSTM_M0 = -1e9
+
+
+def slstm_axes() -> dict:
+    """Logical axes of :func:`slstm_init`'s leaves (the reference's): no
+    cut while serving, so the sLSTM runs whole on every rank."""
+    return {"w_in": (None, "fsdp", None), "r": (None, None, None, None, None),
+            "bias": (None, None), "out_norm": (None, None),
+            "out_proj": (None, "fsdp", None)}
 
 
 def slstm_init(gen: torch.Generator, n_layers: int, d_model: int,

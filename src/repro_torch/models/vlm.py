@@ -11,7 +11,10 @@ standard RoPE, which is Qwen2-VL's behaviour for text tokens.
 admits a VLM one request at a time at its exact length (``SingleAdmission``)
 and serves it from the dense cache; decode is :class:`DenseLM`'s.  The KV
 cache stays in the model's dtype: the reference's VLM prefill writes only
-``k`` / ``v``, so an int8 cache is refused.
+``k`` / ``v``, so an int8 cache is refused.  Under a mesh it is
+:class:`DenseLM`'s tensor-parallel path (qwen2-vl-2b's 12 / 2 heads give
+each of 2 ranks 6 query heads on 1 KV head), with the patches, whole on
+every rank, prepended to the vocab-sharded embedding's rows.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ class VLM(DenseLM):
         """Token embeddings with the patch embeddings prepended; returns
         (x (B, P + T, d), P, positions over all P + T)."""
         b, t = tokens.shape
-        x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x = embed_tokens(params["embed"], tokens,
+                         self.cfg.vocab_size).to(self.dtype)
         n_patch = 0
         if patches is not None:
             n_patch = patches.shape[1]

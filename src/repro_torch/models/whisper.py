@@ -20,6 +20,15 @@ holds self ``k`` / ``v`` (L, B, KH, max_len, hd), cross ``xk`` / ``xv`` (L, B,
 KH, encoder_len, hd) and ``len``; ``prefill(frames=)`` writes them in
 place.  The serving engine passes no ``frames`` (neither does the
 reference's), so whisper is driven through ``prefill`` / ``decode_step``.
+
+Tensor parallelism (an engine's mesh: its ``place`` cuts the weights,
+``new_cache`` the caches, and ``prefill`` / ``decode_step`` run under its
+``_mesh_ctx()``): every attention is cut on heads (``wk`` / ``wv``
+column-parallel, so each rank computes its heads of the whole K/V, and
+the self and cross caches hold them), every MLP on ``ff`` (``b1`` with
+``w1``'s columns); ``wo``'s and ``w2``'s row-parallel outputs are each
+reduced over ``model`` (one all_reduce), ``b2`` is added after that
+reduction, and the logits are gathered once.
 """
 from __future__ import annotations
 
@@ -29,10 +38,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import serving_rules
 from repro_torch.kernels.ops import decode_attention
 from .common import (chunked_attention, dense_init, embed_tokens, layer_norm,
                      logits_from_hidden, normal_init, padded_vocab, qlinear,
-                     run_block, stack_layer_stats, update_cache_at)
+                     reduce_row_parallel, run_block, stack_layer_stats,
+                     update_cache_at)
 from .dense import _layer
 
 MAX_DEC_POS = 36864  # learned positional table (covers 32k prefill + decode)
@@ -97,6 +108,61 @@ class WhisperLM:
             "lm_head": dense_init(gen, d, v_pad, self.dtype, dev),
         }
 
+    def param_axes(self) -> dict:
+        """Logical axes of :meth:`init`'s tree: the reference's, with
+        ``wk`` / ``wv`` column-parallel on ``kv_heads`` (the reference
+        replicates them and cuts K/V after the product; each rank here
+        computes its heads' columns) and ``b1`` cut on ``ff`` with ``w1``'s
+        columns."""
+        def attn_ax():
+            return {"wq": (None, "fsdp", "heads"),
+                    "wk": (None, "fsdp", "kv_heads"),
+                    "wv": (None, "fsdp", "kv_heads"),
+                    "wo": (None, "heads", "fsdp")}
+
+        def block_ax(cross):
+            ax = {"ln1_w": (None, None), "ln1_b": (None, None),
+                  "attn": attn_ax(),
+                  "ln2_w": (None, None), "ln2_b": (None, None),
+                  "w1": (None, "fsdp", "ff"), "b1": (None, "ff"),
+                  "w2": (None, "ff", "fsdp"), "b2": (None, None)}
+            if cross:
+                ax.update(lnx_w=(None, None), lnx_b=(None, None),
+                          cross=attn_ax())
+            return ax
+
+        return {
+            "enc_pos": (None, None), "enc_blocks": block_ax(False),
+            "enc_norm_w": (None,), "enc_norm_b": (None,),
+            "embed": ("vocab", "fsdp"), "dec_pos": (None, None),
+            "dec_blocks": block_ax(True),
+            "dec_norm_w": (None,), "dec_norm_b": (None,),
+            "lm_head": ("fsdp", "vocab"),
+        }
+
+    def tp_all_reduces(self, mesh, prefill: bool = False) -> int:
+        """The all_reduces of one step (``prefill``: with the encoder)
+        under ``mesh`` and its serving rules, where every cut dimension
+        divides ``model``, beside the one logits all_gather: the vocab-cut
+        embedding's one; a decoder layer's self and cross ``wo`` where
+        attention is cut on heads and ``w2`` where ``ff`` is; an encoder
+        layer's ``wo`` and ``w2``.  0 without a mesh or a ``model``
+        axis."""
+        m = 1 if mesh is None else mesh.size("model")
+        if m == 1:
+            return 0
+        rules = serving_rules(self.cfg, mesh)
+        a, f = (int(rules[ax] is not None) for ax in ("heads", "ff"))
+        enc = self.cfg.n_encoder_layers * (a + f) if prefill else 0
+        return (self.cfg.n_layers * (2 * a + f) + enc
+                + int(padded_vocab(self.cfg.vocab_size) % m == 0))
+
+    def cache_axes(self) -> dict:
+        """Logical axes of :meth:`init_cache`'s leaves (the reference's):
+        self and cross K/V on ``kv_heads``."""
+        ax = (None, "batch", "kv_heads", "kv_seq", None)
+        return {"k": ax, "v": ax, "xk": ax, "xv": ax, "len": None}
+
     def quant_site_map(self) -> dict:
         m = {}
         for w in ("wq", "wk", "wv"):
@@ -126,7 +192,10 @@ class WhisperLM:
         cfg = self.cfg
         hd = cfg.head_dim_
         b, tq, _ = xq.shape
-        q = qlinear(xq, p["wq"]).reshape(b, tq, cfg.n_heads, hd)
+        # this rank's heads: all of them, or H/m and KH/m under TP
+        q = qlinear(xq, p["wq"])
+        n_h = q.shape[-1] // hd
+        q = q.reshape(b, tq, n_h, hd)
         if cache is not None and not append:
             k_c, v_c = cache
             enc_len = torch.full((b,), k_c.shape[2], dtype=torch.int32,
@@ -136,8 +205,10 @@ class WhisperLM:
         else:
             src = xq if xkv is None else xkv
             tk = src.shape[1]
-            k = qlinear(src, p["wk"]).reshape(b, tk, cfg.n_kv_heads, hd)
-            v = qlinear(src, p["wv"]).reshape(b, tk, cfg.n_kv_heads, hd)
+            k = qlinear(src, p["wk"])
+            n_kv = k.shape[-1] // hd
+            k = k.reshape(b, tk, n_kv, hd)
+            v = qlinear(src, p["wv"]).reshape(b, tk, n_kv, hd)
             if cache is not None:
                 k_c, v_c = cache
                 update_cache_at(k_c, k.transpose(1, 2), cache_len - 1)
@@ -147,17 +218,19 @@ class WhisperLM:
             else:
                 o = chunked_attention(q, k, v, causal=causal)
                 kv = (k, v)
-        o = o.reshape(b, tq, cfg.n_heads * hd)
+        o = o.reshape(b, tq, n_h * hd)
         if stats is not None:
             stats[prefix + "_out"] = site_stat(o)
-        return qlinear(o, p["wo"]), kv
+        return reduce_row_parallel(qlinear(o, p["wo"]), n_h, cfg.n_heads), kv
 
     def _mlp(self, p, x, stats, prefix):
         h = qlinear(x, p["w1"]) + p["b1"].to(x.dtype)
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
         if stats is not None:
             stats[prefix + "_down"] = site_stat(h)
-        return qlinear(h, p["w2"]) + p["b2"].to(x.dtype)
+        y = reduce_row_parallel(qlinear(h, p["w2"]), h.shape[-1],
+                                self.cfg.d_ff)
+        return y + p["b2"].to(x.dtype)
 
     # -- encoder -------------------------------------------------------------
     def _enc_block(self, p, x, collect):
@@ -209,7 +282,8 @@ class WhisperLM:
         return x, new_self, new_cross, stats or {}
 
     def _embed(self, params, tokens, positions):
-        x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x = embed_tokens(params["embed"], tokens,
+                         self.cfg.vocab_size).to(self.dtype)
         return x + params["dec_pos"][positions]
 
     def _head(self, params, x):

@@ -18,6 +18,15 @@ The mLSTM head is d_inner / H wide, the sLSTM head d_model / H.
 request at a time at its exact length (``SingleAdmission``), from the
 dense cache only (no page store, no speculative verify).  Prefill and
 decode write the state in place.
+
+Tensor parallelism (``ServeEngine(mesh=)``): each rank runs its block of
+the mLSTM heads (their state ``C`` / ``n`` cut on ``heads``) and the whole
+sLSTM (its state whole on every rank); see
+:mod:`~repro_torch.models.ssm`.  The collectives of a step: the
+embedding's all_reduce, one all_reduce per mLSTM layer (the heads'
+outputs put together, each rank's in its place and zeros elsewhere,
+before a whole output norm and ``down_proj``) and the logits'
+all_gather.
 """
 from __future__ import annotations
 
@@ -70,6 +79,33 @@ class XLSTMLM(DenseLM):
             "lm_head": dense_init(gen, d, v_pad, self.dtype, dev),
         }
 
+    def param_axes(self) -> dict:
+        """Logical axes of :meth:`init`'s tree (the reference's)."""
+        return {
+            "embed": ("vocab", "fsdp"),
+            "blocks": {"norm": (None, None),
+                       "mlstm": ssm.mlstm_axes(),
+                       "slstm": ssm.slstm_axes()},
+            "final_norm": (None,),
+            "lm_head": ("fsdp", "vocab"),
+        }
+
+    def _layers_all_reduces(self, a: int, f: int, prefill: bool) -> int:
+        """One in each mLSTM layer where its heads are cut (the heads'
+        outputs put together); the sLSTM layers run whole."""
+        n = self.cfg.n_layers
+        return f * (n - n // self.cfg.slstm_every)
+
+    def cache_axes(self) -> dict:
+        """Logical axes of :meth:`init_cache`'s leaves: the mLSTM state on
+        ``heads`` (the reference's); the sLSTM state, a list of four, whole
+        (the reference cuts it on ``heads``, but the port's ranks run the
+        whole sLSTM)."""
+        return {"mlstm": {"C": (None, "batch", "heads", None, None),
+                          "n": (None, "batch", "heads", None)},
+                "slstm": [(None, "batch", None, None)] * 4,
+                "len": None}
+
     def quant_site_map(self) -> dict:
         return {
             ("blocks", "mlstm", "up_proj"): "xin",
@@ -104,7 +140,8 @@ class XLSTMLM(DenseLM):
         "moe_aux": 0}.  Differentiable; ``cfg.remat`` recomputes each
         block in the backward."""
         tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x = embed_tokens(params["embed"], tokens,
+                         self.cfg.vocab_size).to(self.dtype)
         blocks = params["blocks"]
         per_layer = []
         for l in range(self.cfg.n_layers):
@@ -163,7 +200,8 @@ class XLSTMLM(DenseLM):
         V), cache) with ``len`` = T."""
         b, t = tokens.shape
         n_heads = self.cfg.n_heads
-        x = embed_tokens(params["embed"], tokens).to(self.dtype)
+        x = embed_tokens(params["embed"], tokens,
+                         self.cfg.vocab_size).to(self.dtype)
         x = self._layers(params, x, cache, (
             lambda p, h, st: ssm.mlstm_chunked(p, h, n_heads, state=st,
                                                return_state=True),
@@ -181,7 +219,8 @@ class XLSTMLM(DenseLM):
             raise ValueError("xLSTM decodes one token per step (its "
                              "recurrent state has no span write)")
         n_heads = self.cfg.n_heads
-        x = embed_tokens(params["embed"], token).to(self.dtype)
+        x = embed_tokens(params["embed"], token,
+                         self.cfg.vocab_size).to(self.dtype)
         x = self._layers(params, x, cache, (
             lambda p, h, st: ssm.mlstm_step(p, h, st, n_heads),
             lambda p, h, st: ssm.slstm_step(p, h, st, n_heads)))

@@ -63,9 +63,15 @@ slots per data row where that divides, and gathers the step's logits over
 row (the page store is replicated over ``data``, as the reference's
 paged axes say).  The weights stay whole across ``data`` (the reference
 splits their input dimension there, FSDP; the tokens do not change).
-The clock is rank 0's, broadcast at every read, so deadlines decide alike
-on every rank.  Dense and MoE models only; ``slo=``, ``faults=`` and
-``serve(feed=)`` are refused under a mesh.
+The clock is rank 0's, broadcast at every read, and every rank holds the
+same seeded streams, so the host loop decides alike on every rank:
+deadlines, ``slo=`` sheds, retries and quotas, ``faults=`` vetoes, forced
+preemptions and stalls, and the arrivals of ``serve(feed=)`` (the idle
+loop reads the clock as often on every rank).  Every family serves on a
+``model`` axis (the exact-length admission of the vlm, hybrid and ssm
+families runs on every rank; whisper is driven through ``prefill(frames=)``
+/ ``decode_step`` under :meth:`_mesh_ctx`, with :meth:`place` and
+:meth:`new_cache`); ``data > 1`` is the dense and MoE families' only.
 """
 from __future__ import annotations
 
@@ -80,7 +86,7 @@ import torch
 from repro_torch.bridge import tree_to
 from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import all_gather, broadcast
-from repro_torch.dist.sharding import (axis_rules, local_shape,
+from repro_torch.dist.sharding import (axis_rules, local_shape, map_tree,
                                        serving_rules, shard_tree)
 from repro_torch.obs import MetricsRegistry
 from . import instrument
@@ -95,16 +101,19 @@ from .stepper import DenseStepper, PagedStepper
 __all__ = ["Request", "ServeEngine"]
 
 
-def _check_mesh(model, mesh, device, slo, faults):
+# the families whose engine cuts its slots over ``data``
+_DATA_FAMILIES = ("dense", "moe")
+
+
+def _check_mesh(model, mesh, device):
     """Refuse what tensor-parallel serving does not carry yet."""
     family = model.cfg.family
-    if family not in ("dense", "moe"):
-        raise NotImplementedError(f"ServeEngine(mesh=) serves the dense and "
-                                  f"MoE families; {model.cfg.name} is "
-                                  f"{family}")
-    if slo is not None or faults is not None:
-        raise NotImplementedError("slo= and faults= are not ported to a "
-                                  "mesh")
+    if mesh.size("data") > 1 and family not in _DATA_FAMILIES:
+        raise NotImplementedError(
+            f"ServeEngine(mesh=) runs {model.cfg.name} ({family}) on "
+            f"model-axis meshes only; data > 1 for the vlm, hybrid, ssm and "
+            f"audio families is ROADMAP's 'data-parallel serving of the "
+            f"non-dense families' item")
     if mesh.device.type != device.type:
         raise ValueError(f"the mesh's rank runs on {mesh.device}, the engine "
                          f"was asked for {device}")
@@ -156,7 +165,7 @@ class ServeEngine:
         self.mesh = mesh
         self.clock = clock if clock is not None else time.time
         if mesh is not None:
-            _check_mesh(model, mesh, self.device, slo, faults)
+            _check_mesh(model, mesh, self.device)
             self.device = mesh.device
             self._rules = serving_rules(model.cfg, mesh)
             params = self.place(params, model)
@@ -259,27 +268,42 @@ class ServeEngine:
                                   serving_rules(model.cfg, self.mesh)),
                        self.device)
 
-    def _zeros(self, meta: dict, axes: dict, rules: dict) -> dict:
-        """Zeros of this rank's block of every leaf of ``meta`` (a cache
-        tree on the meta device), allocated at the block's shape."""
+    def _local(self, build, axes: dict, rules: dict) -> dict:
+        """This rank's block of every leaf of the cache tree ``build(batch,
+        length, device)`` makes (nested dicts and lists, as
+        :mod:`.cache_ops` walks), allocated at the block's shape and filled
+        with the leaf's initial value: each cache leaf starts at one value
+        (zeros; the sLSTM stabilizer's -1e9), read from a one-slot,
+        one-position build on the host."""
         rules = dict(rules, batch=None)    # slots are cut by self._rows
-        out = {}
-        for key, leaf in meta.items():
-            ax = axes.get(key)
+        fills = {}
+
+        def fill(leaf, _ax, path):
+            first = leaf.reshape(-1)[0]
+            if not bool((leaf == first).all()):
+                raise ValueError(f"cache leaf {path} does not start at one "
+                                 f"value")
+            fills[path] = first.item()
+
+        map_tree(build(1, 1, "cpu"), axes, fill)
+
+        def local(leaf, ax, path):
             shape = (tuple(leaf.shape) if ax is None else
                      local_shape(leaf.shape, ax, self.mesh, rules))
-            out[key] = torch.zeros(shape, dtype=leaf.dtype,
-                                   device=self.device)
-        return out
+            return torch.full(shape, fills[path], dtype=leaf.dtype,
+                              device=self.device)
+
+        return map_tree(build(None, None, "meta"), axes, local)
 
     def new_cache(self, model, batch: int, max_len: int) -> dict:
         """``model.init_cache(batch, max_len)`` on the engine's device, at
         this rank's KV heads under a mesh."""
         if self.mesh is None:
             return model.init_cache(batch, max_len, device=self.device)
-        return self._zeros(model.init_cache(batch, max_len, device="meta"),
-                           model.cache_axes(),
-                           serving_rules(model.cfg, self.mesh))
+        return self._local(
+            lambda b, s, dev: model.init_cache(b or batch, s or max_len,
+                                               device=dev),
+            model.cache_axes(), serving_rules(model.cfg, self.mesh))
 
     def new_paged_cache(self, n_pages: int, page_size: int) -> dict:
         """The model's page store, at this rank's KV heads under a mesh."""
@@ -287,9 +311,11 @@ class ServeEngine:
         if self.mesh is None:
             return model.init_paged_cache(n_pages, page_size,
                                           device=self.device)
-        return self._zeros(model.init_paged_cache(n_pages, page_size,
-                                                  device="meta"),
-                           model.paged_cache_axes(), self._rules)
+        return self._local(
+            lambda n, ps, dev: model.init_paged_cache(n or n_pages,
+                                                      ps or page_size,
+                                                      device=dev),
+            model.paged_cache_axes(), self._rules)
 
     @property
     def n_local_slots(self) -> int:
@@ -503,9 +529,6 @@ class ServeEngine:
         bind (more pages than the whole pool, or more tokens than its
         tenant's whole quota) is shed once no slot is active.
         """
-        if feed is not None and self.mesh is not None:
-            raise NotImplementedError("open-loop arrivals (serve(feed=)) "
-                                      "are not ported to a mesh")
         with self._mesh_ctx():
             return self._serve(requests, feed)
 

@@ -1740,3 +1740,175 @@ def test_ranks_on_the_card_serve_single_device_tokens(dev, tmp_path, shape,
     got = spawn(_tp_rank, shape, backend, str(tmp_path), device="cuda",
                 timeout=600)
     assert got == _tp_tiny(dev)
+
+
+# -- tensor-parallel serving of the vlm / hybrid / ssm / audio families ------
+
+def _family_columns(k, n, r):
+    """The whole product's columns that rank r's column shard (k -> n) of
+    a family at model 2 holds: Mamba in_proj's blocks of its u and z
+    halves, else a contiguous block; and the whole width."""
+    if (k, n) == (1600, 3200):
+        cols = (list(range(r * 1600, (r + 1) * 1600))
+                + list(range(3200 + r * 1600, 3200 + (r + 1) * 1600)))
+        return cols, 6400
+    return list(range(r * n, (r + 1) * n)), 2 * n
+
+
+@pytest.mark.parametrize("k,n", [(1600, 3200), (2048, 1024), (768, 1536)])
+def test_quant_matmul_family_column_shard_is_its_columns(dev, k, n):
+    """A rank's column shard of the families at model 2 (Mamba in_proj's
+    two halves, mLSTM wq / wk / wv, whisper w1): the plain version's
+    within the exact limit, and its columns of the whole product bit for
+    bit."""
+    gen = torch.Generator(device=dev).manual_seed(k + 7 * n)
+    cols, width = _family_columns(k, n, 0)
+    codes, scale, zero = _packed(k, width, 64, gen)
+    x = torch.randn(4, k, generator=gen, device=dev).bfloat16()
+    whole = qm.quant_matmul(x, codes, scale, zero)
+    for r in range(2):
+        sel = torch.tensor(_family_columns(k, n, r)[0], device=dev)
+        part = [t[:, sel].contiguous() for t in (codes, scale, zero)]
+        got = qm.quant_matmul(x, *part)
+        _bf16_close(got, qm.quant_matmul_ref(x, *part),
+                    rel_tol=EXACT_REL_TOL)
+        assert torch.equal(got, whole[:, sel]), r
+
+
+@pytest.mark.parametrize("k,n,out,m", [(1536, 768, torch.bfloat16, 4),
+                                       (1600, 132, torch.float32, 4),
+                                       (1600, 1600, torch.float32, 4),
+                                       (2752, 1600, torch.float32, 4),
+                                       (1600, 1600, torch.float32, 512)])
+def test_quant_matmul_family_row_shards_sum_to_the_product(dev, k, n, out,
+                                                           m):
+    """A rank's row shard of the families at model 2: whisper w2 on bf16
+    partials (the two summed are the whole product up to one more bf16
+    rounding), and hymba's Mamba x_proj and out_proj and w_down with f32
+    output (``models.common.row_parallel_f32``: the tensor-core route's
+    f32 sums, which round to its bf16 output bit for bit; the two summed
+    and rounded once are the single-device bf16 product within the exact
+    limit), at decode (split k) and prefill rows.  Each partial is the
+    plain version's within the exact limit."""
+    gen = torch.Generator(device=dev).manual_seed(5 * k + n + m)
+    codes, scale, zero = _packed(2 * k, n, 64, gen)
+    x = torch.randn(m, 2 * k, generator=gen, device=dev).bfloat16()
+    total = 0
+    for r in range(2):
+        args = (x[:, r * k:(r + 1) * k].contiguous(),
+                codes[r * k // 2:(r + 1) * k // 2].contiguous(),
+                scale[r * k // 64:(r + 1) * k // 64].contiguous(),
+                zero[r * k // 64:(r + 1) * k // 64].contiguous())
+        got = qm.quant_matmul(*args, out_dtype=out)
+        assert got.dtype == out
+        _bf16_close(got, qm.quant_matmul_ref(*args, out_dtype=out),
+                    rel_tol=EXACT_REL_TOL)
+        if out == torch.float32:
+            assert torch.equal(got.bfloat16(), qm.quant_matmul(*args)), r
+        total = total + got.float()
+    if out == torch.float32:
+        _bf16_close(total.bfloat16(), qm.quant_matmul(x, codes, scale, zero),
+                    rel_tol=EXACT_REL_TOL)
+    else:
+        _bf16_close(total.bfloat16(),
+                    qm.quant_matmul_ref(x, codes, scale, zero))
+
+
+@pytest.mark.parametrize("route", ["vlm prefill", "whisper encoder",
+                                   "vlm decode", "whisper cross"])
+def test_family_attention_on_a_ranks_heads_is_its_part(dev, route):
+    """Attention on one rank's heads at model 2: qwen2-vl's prefill at G 6
+    on 1 of 2 KV heads (causal, T 512) and its decode at H 6 / KH 1;
+    whisper's encoder on 6 of 12 heads (not causal, T 1536) and its cross
+    decode on 6 heads over 1536 keys: the plain version's within the bf16
+    limit, and the same heads of the single-device launch bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b = 4
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    if route in ("vlm prefill", "whisper encoder"):
+        kh, g, t, hd, causal = ((2, 6, 512, 128, True) if route == "vlm "
+                                "prefill" else (12, 1, 1536, 64, False))
+        q, k, v = rand(b * kh, g, t, hd), rand(b * kh, t, hd), rand(
+            b * kh, t, hd)
+        whole = fa.flash_attention(q, k, v, causal=causal)
+        per = kh // 2
+
+        def mine(w, r):
+            return w.reshape(b, kh, *w.shape[1:])[:, r * per:(r + 1) * per] \
+                .reshape(b * per, *w.shape[1:])
+
+        for r in range(2):
+            a = tuple(mine(w, r).contiguous() for w in (q, k, v))
+            got = fa.flash_attention(*a, causal=causal)
+            _bf16_close(got, fa.flash_attention_ref(*a, causal=causal))
+            assert torch.equal(got, mine(whole, r)), r
+        return
+    h, kh, s, hd, lens = ((12, 2, 1024, 128, [44, 140, 332, 732])
+                          if route == "vlm decode"
+                          else (12, 12, 1536, 64, [1536] * 4))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q, kc, vc = rand(b, 1, h, hd), rand(b, kh, s, hd), rand(b, kh, s, hd)
+    whole = fd.flash_decode(q, kc, vc, cl)
+    hr, kr = h // 2, kh // 2
+    for r in range(2):
+        a = (q[:, :, r * hr:(r + 1) * hr].contiguous(),
+             kc[:, r * kr:(r + 1) * kr].contiguous(),
+             vc[:, r * kr:(r + 1) * kr].contiguous(), cl)
+        got = fd.flash_decode(*a)
+        _bf16_close(got, fd.decode_attention_ref(*a))
+        assert torch.equal(got, whole[:, :, r * hr:(r + 1) * hr]), r
+
+
+def _family_tiny(dev, mesh=None):
+    """qwen2-vl, hymba and xlstm tiny (f32, RTN int4) served on 2 slots,
+    and whisper tiny's prefill(frames=) + 6 greedy decode steps through an
+    engine's placed weights: tokens."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    gen = torch.Generator().manual_seed(4)
+    res = {}
+    for arch in ("qwen2-vl-2b", "hymba-1.5b", "xlstm-350m", "whisper-small"):
+        cfg = ARCHS[arch].tiny()
+        model = build_model(cfg)
+        qp, _ = quantize_model(model.init(0, device=dev),
+                               model.quant_site_map(), None, method="rtn",
+                               spec=QuantSpec(4, 64), mode="packed")
+        eng = ServeEngine(model, qp, n_slots=2, max_len=48, mesh=mesh,
+                          device=dev)
+        if arch != "whisper-small":
+            out = eng.serve([Request(rid=i, prompt=torch.randint(
+                1, cfg.vocab_size, (n,), generator=gen).numpy(),
+                max_new_tokens=8) for i, n in enumerate((5, 19, 12))])
+            res[arch] = {r: out[r].tolist() for r in out}
+            continue
+        toks = torch.randint(1, cfg.vocab_size, (2, 9), generator=gen)
+        frames = torch.randn(2, cfg.encoder_len, cfg.d_model,
+                             generator=gen) * 0.1
+        with eng._mesh_ctx():
+            cache = eng.new_cache(model, 2, 48)
+            logits, cache = model.prefill(eng.params, toks.to(dev), cache,
+                                          frames=frames.to(dev))
+            seq = [logits[:, 0, :cfg.vocab_size].argmax(-1)]
+            for _ in range(6):
+                logits, cache = model.decode_step(
+                    eng.params, cache, seq[-1][:, None].int())
+                seq.append(logits[:, 0, :cfg.vocab_size].argmax(-1))
+        res[arch] = torch.stack(seq, 1).tolist()
+    return res
+
+
+def _family_rank(mesh):
+    return _family_tiny(mesh.device, mesh)
+
+
+def test_family_ranks_on_the_card_serve_single_device_tokens(dev, tmp_path):
+    """Two ranks sharing the card over gloo serve the tiny vlm, hybrid and
+    ssm families (and drive whisper's prefill(frames=) / decode) with the
+    single-device tokens (f32: row-parallel sums part from the single
+    product by float rounding only, far from a tie here)."""
+    from repro_torch.launch.mesh import spawn
+    got = spawn(_family_rank, (1, 2), "gloo", str(tmp_path), device="cuda",
+                timeout=600)
+    assert got == _family_tiny(dev)

@@ -25,7 +25,8 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.models.common import (LM_HEAD_ROWS, chunked_attention,
-                                       logits_from_hidden, update_cache_at)
+                                       logits_from_hidden, qlinear,
+                                       update_cache_at)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -68,6 +69,30 @@ def test_ops_quant_matmul_applies_act_scale_and_leading_dims():
     expect = (torch.as_tensor(x) / torch.as_tensor(s)) @ deq
     assert got.shape == (2, 5, 96)
     torch.testing.assert_close(got, expect, **TOL)
+
+
+def test_quant_matmul_f32_out_is_the_sum_before_rounding():
+    """``out_dtype=float32`` from bf16 x (a row-parallel partial product):
+    on the CPU the plain version's f32 product, which rounds to the
+    default bf16 output; ops.quant_matmul divides by act_scale in x's
+    dtype first, and qlinear on a float weight takes it as x's dtype."""
+    rng = np.random.default_rng(11)
+    w = rng.normal(size=(128, 96)).astype(np.float32)
+    s = (np.abs(rng.normal(size=128)) + 0.5).astype(np.float32)
+    x = torch.as_tensor(rng.normal(size=(2, 5, 128)) / 11.0).bfloat16()
+    qt = quantize_groupwise(torch.as_tensor(w), QuantSpec(4, 64),
+                            act_scale=torch.as_tensor(s), pack=True)
+    got = ops.quant_matmul(x, qt, torch.float32)
+    xs = x / torch.as_tensor(s).bfloat16()
+    deq = qm.dequant_ref(qt.codes, qt.scale, qt.zero, 128)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 96)
+    torch.testing.assert_close(got, xs.float() @ deq, **TOL)
+    assert torch.equal(got.bfloat16(), ops.quant_matmul(x, qt))
+    wf = torch.as_tensor(w)
+    assert torch.equal(qlinear(x, wf, torch.float32),
+                       x.float() @ wf.bfloat16().float())
+    with pytest.raises(ValueError, match="float32"):
+        qm.quant_matmul(x[0], qt.codes, qt.scale, qt.zero, torch.float16)
 
 
 @pytest.mark.parametrize("window", [None, 48])

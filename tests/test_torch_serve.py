@@ -179,19 +179,27 @@ def test_deadlines_and_zero_budget_follow_the_clock(slice_run):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_unported_engine_options_raise(slice_run, option):
-    """``mesh=`` serves (tests/test_torch_tp_serve.py); what it does not
-    carry yet raises: ``slo=`` / ``faults=`` and open-loop ``feed=``
-    under a mesh."""
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.serve import SLOConfig
+    """``mesh=`` serves (tests/test_torch_tp_serve.py), with ``slo=`` and
+    open-loop ``feed=`` too (tests/test_torch_tp_families.py): on a 1 x 1
+    mesh they give the plain engine's tokens.  What it does not carry yet
+    raises: a ``data`` axis for a family other than dense and MoE."""
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    from repro_torch.serve import ArrivalFeed, SLOConfig
     meshes = {"mesh": make_local_mesh}
+    reqs = lambda: [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(slice_run["prompts"])]
+    kw = dict(n_slots=2, max_len=64, device="cpu")
+    plain = ServeEngine(slice_run["tm"], slice_run["tq"], **kw).serve(reqs())
+    eng = ServeEngine(slice_run["tm"], slice_run["tq"], slo=SLOConfig(seed=0),
+                      **kw, **{option: meshes[option]()})
+    fed = eng.serve(feed=ArrivalFeed([(0.0, r) for r in reqs()]))
+    for rid in plain:
+        np.testing.assert_array_equal(fed[rid], plain[rid])
+    hymba = build_model(ARCHS["hymba-1.5b"].tiny())
     with pytest.raises(NotImplementedError, match=option):
-        ServeEngine(slice_run["tm"], slice_run["tq"], device="cpu",
-                    slo=SLOConfig(seed=0), **{option: meshes[option]()})
-    eng = ServeEngine(slice_run["tm"], slice_run["tq"], device="cpu",
-                      **{option: meshes[option]()})
-    with pytest.raises(NotImplementedError, match=option):
-        eng.serve(feed=object())
+        ServeEngine(hymba, hymba.init(0, device="cpu"), device="cpu",
+                    **{option: Mesh({"data": 2, "model": 1}, 0, "gloo", {},
+                                    torch.device("cpu"))})
 
 
 def _serve_with(slice_run, **option):
