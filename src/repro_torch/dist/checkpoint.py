@@ -57,7 +57,7 @@ import torch
 from repro_torch.device import resolve_device
 from . import _tree
 from .collectives import all_gather
-from .sharding import axis_rules, cut_tensor
+from .sharding import Parts, axis_rules, cut_tensor
 
 _STEP_RE = re.compile(r"^step_(\d{8,})$")   # 8+: steps >= 1e8 grow digits
 # writer tmps are step_XXXXXXXX.<host>-<pid>-<n>.tmp; <host> is sanitized
@@ -116,9 +116,15 @@ def gather_to_host(tree, mesh=None, specs: Optional[dict] = None):
 def _gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The logical tensor of this rank's block ``x`` under ``spec``: each
     cut dimension all-gathered over its axes, the minor axis first (blocks
-    are numbered row-major over an entry's axes)."""
+    are numbered row-major over an entry's axes); a dimension of parts
+    (:class:`~repro_torch.dist.sharding.Parts`) part by part."""
     with axis_rules(mesh):
         for dim, entry in enumerate(spec):
+            if isinstance(entry, Parts):
+                x = torch.cat([_gather_leaf(p, (None,) * dim + (e,), mesh)
+                               for p, e in zip(x.chunk(len(entry), dim),
+                                               entry)], dim=dim)
+                continue
             for axis in reversed((entry,) if isinstance(entry, str)
                                  else entry or ()):
                 if mesh.size(axis) > 1:

@@ -10,14 +10,17 @@ over the process group of one axis of the active mesh
 (:func:`repro_torch.dist.sharding.axis_rules`; ``axis=None`` is the whole
 mesh) and returns a new tensor.
 
-Under autograd (grad enabled and an input that requires it) three of them
+Under autograd (grad enabled and an input that requires it) four of them
 carry gradients, each backward the adjoint collective over the same group:
 :func:`all_reduce` (sum) passes its output gradient through;
 :func:`all_gather` hands each rank its own block of the gradient, or, with
 ``reduce_grad`` (a weight shard gathered for ranks that see different
 rows), sums the gradient over the axis first (a reduce_scatter);
 :func:`copy_to` (the identity, placed where a column-parallel product reads
-a replicated input) sums its gradient over the axis.  The backward takes
+a replicated input, or where a replicated weight meets this rank's part of
+the work) sums its gradient over the axis; :func:`all_to_all` sends each
+block of the gradient back to the rank its rows came from (the inverse
+exchange, itself an all_to_all).  The backward takes
 the mesh it saw in the forward: autograd may run it in another thread,
 which has no active mesh.  Without grad every collective is the same call
 as ever.
@@ -48,6 +51,20 @@ KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
 COUNTS = {k: {"calls": 0, "elements": 0, "max_elements": 0,
              "last_shape": None} for k in KINDS}
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def step_totals(per_microbatch: dict, mesh_shape, *, microbatches: int = 1,
+                grad_compress: bool = False) -> dict:
+    """Collective calls per kind of one train step on a ``(data, model)``
+    mesh of ``mesh_shape`` from those of one microbatch's forward and
+    backward: ``microbatches`` of them, and once per step the all_reduces
+    of the data sums of the leaves whole across ``data`` and of the metrics
+    (one each where ``data`` has more than one rank), of the clip norm
+    (one) and of the compression scales (one with ``grad_compress``)."""
+    d = int(mesh_shape[0] > 1)
+    out = {k: microbatches * per_microbatch.get(k, 0) for k in KINDS}
+    out["all_reduce"] += 2 * d + 1 + int(grad_compress)
+    return out
 
 
 def reset_counts():
@@ -122,6 +139,18 @@ def _reduce_scatter(x, mesh, axis, dim):
     return out.movedim(0, dim).contiguous().to(x.device)
 
 
+def _all_to_all(x, mesh, axis):
+    n = mesh.size(axis)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: leading axis {x.shape[0]} does not "
+                         f"split in {n}")
+    buf = _staged(x, mesh)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=mesh.group(axis))
+    _count("all_to_all", x.numel(), x.shape)
+    return out.to(x.device)
+
+
 def _block(x, mesh, axis, dim):
     """This rank's block of ``x`` cut in equal parts along ``dim``."""
     n = x.shape[dim] // _size(mesh, axis)
@@ -160,6 +189,20 @@ class _AllGather(torch.autograd.Function):
         else:
             g = _block(grad, ctx.mesh, ctx.axis, ctx.dim)
         return g, None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block j to rank j; backward: the inverse exchange of the gradient
+    (block j, the rows rank j sent, goes back to rank j)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.mesh, ctx.axis), None, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -221,17 +264,13 @@ def copy_to(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
 
 def all_to_all(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     """Block j of ``x``'s leading axis (cut in ``axis``-size equal blocks)
-    goes to rank j; block j of the result came from rank j."""
+    goes to rank j; block j of the result came from rank j.  Under
+    autograd the gradient takes the inverse exchange (one all_to_all in
+    the backward)."""
     mesh = _mesh()
-    n = mesh.size(axis)
-    if x.shape[0] % n:
-        raise ValueError(f"all_to_all: leading axis {x.shape[0]} does not "
-                         f"split in {n}")
-    buf = _staged(x, mesh)
-    out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=mesh.group(axis))
-    _count("all_to_all", x.numel(), x.shape)
-    return out.to(x.device)
+    if _grad_wanted(x):
+        return _AllToAll.apply(x, mesh, axis)
+    return _all_to_all(x, mesh, axis)
 
 
 def broadcast(x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:

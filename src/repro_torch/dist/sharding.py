@@ -39,7 +39,9 @@ as Mamba's ``in_proj`` (``u | z``), is annotated ``("ff", "ff")``, so that
 each rank gets matching columns of both halves; ``(None, "ff")`` keeps the
 first part whole and cuts the second.  :func:`logical_to_spec` (one spec
 per leaf) refuses such an entry; :func:`shard_leaf` and :func:`local_shape`
-cut it part by part.
+cut it part by part, and :func:`tree_specs` records that dimension as a
+:class:`Parts` entry (each part's own entry), which :func:`cut_tensor`,
+:func:`spec_axes` and the checkpoints' gather read part by part.
 
 Serving places weights with :func:`serving_rules` (whole across
 ``data``), training with :func:`training_rules` (:data:`DEFAULT_RULES`:
@@ -229,6 +231,12 @@ def logical_to_spec(axes: Sequence[Optional[str]], *, shape: Sequence[int],
     return tuple(entries)
 
 
+class Parts(tuple):
+    """A spec entry of a dimension laid out as ``len(self)`` equal parts
+    end to end, part ``i`` cut as ``self[i]`` (a mesh axis, a tuple of
+    them, or None): the spec of a dimension annotated as parts."""
+
+
 def _parts(entry, mesh):
     """(number of shards, this rank's shard index) of a spec entry: the
     product of its axes' sizes, and the rank's coordinates on them read
@@ -285,6 +293,14 @@ def local_shape(shape, axes, mesh, rules: Optional[dict] = None) -> tuple:
 def _cut_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     out, cut = x, False
     for dim, entry in enumerate(spec):
+        if isinstance(entry, Parts):
+            part = [None] * len(spec)
+            out = torch.cat([_cut_tensor(p, tuple(part[:dim]) + (e,)
+                                         + tuple(part[dim + 1:]), mesh)
+                             for p, e in zip(out.chunk(len(entry), dim),
+                                             entry)], dim=dim)
+            cut = True
+            continue
         n, i = _parts(entry, mesh)
         if n > 1:
             out, cut = _block(out, dim, n, i), True
@@ -430,8 +446,8 @@ def tree_specs(tree, axes_tree, mesh, rules: Optional[dict] = None) -> dict:
 
     def visit(leaf, axes, path):
         if axes is not None and isinstance(leaf, torch.Tensor):
-            spec = logical_to_spec(_annotation(axes, leaf.dim()),
-                                   shape=leaf.shape, mesh=mesh, rules=rules)
+            spec = _leaf_spec(_annotation(axes, leaf.dim()), leaf.shape,
+                              mesh, rules)
             if spec_axes(spec, mesh):
                 out[path] = spec
         return leaf
@@ -440,14 +456,37 @@ def tree_specs(tree, axes_tree, mesh, rules: Optional[dict] = None) -> dict:
     return out
 
 
+def _leaf_spec(ann, shape, mesh, rules) -> tuple:
+    """:func:`logical_to_spec` of a leaf annotated ``ann``, with a dimension
+    annotated as parts given as a :class:`Parts` entry (the parts must
+    agree on every other dimension)."""
+    found = _parts_entry(ann)
+    if found is None:
+        return logical_to_spec(ann, shape=shape, mesh=mesh, rules=rules)
+    dim, names = found
+    part = tuple(shape[:dim]) + (shape[dim] // len(names),) \
+        + tuple(shape[dim + 1:])
+    specs = [logical_to_spec(a, shape=part, mesh=mesh, rules=rules)
+             for a in _part_annotations(ann, dim, names)]
+    if any(s[:dim] + s[dim + 1:] != specs[0][:dim] + specs[0][dim + 1:]
+           for s in specs):
+        raise ValueError(f"the parts of {tuple(ann)} cut the other "
+                         f"dimensions differently")
+    return specs[0][:dim] + (Parts(s[dim] for s in specs),) \
+        + specs[0][dim + 1:]
+
+
 def spec_axes(spec, mesh) -> tuple:
     """The mesh axes of more than one rank that cut a leaf of ``spec``
-    (None: a whole leaf), in dimension order."""
+    (None: a whole leaf), in dimension order (a :class:`Parts` entry: the
+    axes of any of its parts, once each)."""
     out = []
     for entry in spec or ():
-        for a in (entry,) if isinstance(entry, str) else (entry or ()):
-            if mesh.size(a) > 1:
-                out.append(a)
+        parts = entry if isinstance(entry, Parts) else (entry,)
+        for part in parts:
+            for a in (part,) if isinstance(part, str) else (part or ()):
+                if mesh.size(a) > 1 and a not in out:
+                    out.append(a)
     return tuple(out)
 
 
@@ -457,14 +496,39 @@ def cut_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x if spec is None else _cut_tensor(x, spec, mesh)
 
 
+class MeshShape:
+    """A ``(data, model)`` mesh's sizes as the rule tables read a mesh
+    (every coordinate 0): what a collectives formula cuts by."""
+
+    def __init__(self, mesh_shape):
+        self.shape = dict(zip(("data", "model"), mesh_shape))
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return 0
+
+
 def training_rules(cfg, mesh) -> dict:
     """The table training places weights, AdamW moments and the EF buffer
-    with: :data:`DEFAULT_RULES` (FSDP over ``data``, heads / ff / vocab over
-    ``model``), with attention replicated where the head counts do not
-    divide ``model`` (every rank then runs every head, as
-    :func:`serving_rules` does)."""
-    rules = dict(DEFAULT_RULES)
-    if not attention_splits(cfg, mesh.size("model")):
+    with: :data:`DEFAULT_RULES` (FSDP over ``data``, heads / ff / vocab /
+    experts over ``model``), with the head splits of :func:`serving_rules`:
+    attention replicated where the head counts do not divide ``model``
+    (every rank then runs every head), and for the ssm family (xLSTM),
+    whose mLSTM heads are ``ff``'s column blocks, ``heads`` and ``ff`` cut
+    together where ``n_heads`` divides ``model`` and neither otherwise."""
+    return _head_splits(cfg, mesh, dict(DEFAULT_RULES))
+
+
+def _head_splits(cfg, mesh, rules: dict) -> dict:
+    m = mesh.size("model")
+    if cfg.family == "ssm":
+        # the mLSTM's heads are its d_inner columns' blocks: "ff" cuts
+        # whole heads where H divides, else neither is cut
+        if not (m > 1 and cfg.n_heads % m == 0):
+            rules.update(heads=None, ff=None)
+    elif not attention_splits(cfg, m):
         rules.update(heads=None, kv_heads=None)
     return rules
 
@@ -478,17 +542,9 @@ def serving_rules(cfg, mesh, base: Optional[dict] = None) -> dict:
     family (xLSTM) has no attention: its mLSTM heads are ``ff``'s column
     blocks, so ``heads`` and ``ff`` are cut together where ``n_heads``
     divides ``model`` and both replicate otherwise."""
-    rules = dict(SERVE_DECODE_RULES if base is None else base,
-                 fsdp=None, kv_seq=None)
-    m = mesh.size("model")
-    if cfg.family == "ssm":
-        # the mLSTM's heads are its d_inner columns' blocks: "ff" cuts
-        # whole heads where H divides, else neither is cut
-        if not (m > 1 and cfg.n_heads % m == 0):
-            rules.update(heads=None, ff=None)
-    elif not attention_splits(cfg, m):
-        rules.update(heads=None, kv_heads=None)
-    return rules
+    return _head_splits(cfg, mesh, dict(
+        SERVE_DECODE_RULES if base is None else base, fsdp=None,
+        kv_seq=None))
 
 
 def attention_splits(cfg, m: int) -> bool:

@@ -154,7 +154,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True):
                           scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                           dv.data_ptr(), bkh, g, t, width, int(causal),
                           hd ** -0.5, int(bf16),
-                          torch.cuda.current_stream(q.device).cuda_stream)
+                          torch.cuda.current_stream(q.device).cuda_stream,
+                          route=f"G{g} hd{hd} "
+                                f"{'' if causal else 'not '}causal")
     if width != hd:
         dq, dk, dv = (x[..., :hd].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

@@ -49,7 +49,8 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
         return out
     KERNEL.launch(x2.data_ptr(), w.contiguous().data_ptr(), out.data_ptr(),
                   rows, d, eps, x.dtype == torch.bfloat16,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  torch.cuda.current_stream(x.device).cuda_stream,
+                  route=_route(x))
     return out
 
 
@@ -97,8 +98,15 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                       dy2.data_ptr(), dx.data_ptr(), dw.data_ptr(),
                       part.data_ptr(), rows, d, eps,
                       x.dtype == torch.bfloat16,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+                      torch.cuda.current_stream(x.device).cuda_stream,
+                      route=_route(x))
     return dx, dw
+
+
+def _route(x: torch.Tensor) -> str:
+    """The route a launch names (:attr:`Kernel.routes`): the row width and
+    the dtype."""
+    return f"d{x.shape[-1]} {str(x.dtype)[6:]}"
 
 
 class _RmsNorm(torch.autograd.Function):

@@ -14,9 +14,11 @@ reference's checkpoint format (``repro_torch.launch.serve --ckpt-dir``
 serves the result).  On the card the forward and backward run the
 flash-attention and rms_norm kernels.
 
-``--mesh DATA,MODEL`` trains the dense family on ``DATA * MODEL`` ranks
-(FSDP over ``data``, tensor parallelism over ``model``;
-:mod:`repro_torch.train.trainer`).  ``--batch`` is the global batch: data
+``--mesh DATA,MODEL`` trains on ``DATA * MODEL`` ranks (FSDP over
+``data``, tensor parallelism over ``model``, MoE's experts over ``model``;
+:mod:`repro_torch.train.trainer`), every architecture the CLI takes
+(whisper, whose batches need frame embeddings, is not one of them: its
+``--arch`` is refused before any rank starts).  ``--batch`` is the global batch: data
 rank ``d`` draws ``batch // DATA`` rows as host ``d`` of ``DATA``, whose
 rows interleave into the same global sample stream at any mesh
 (``dist.elastic.resume_batch_indices``), so a checkpoint of one mesh
@@ -44,9 +46,8 @@ from repro_torch.launch.mesh import spawn
 from repro_torch.launch.serve import (RANK_TIMEOUT_S, TOKEN_ARCHS, data_for,
                                       parse_mesh)
 from repro_torch.models.registry import build_model
-from repro_torch.train.trainer import (TrainConfig, check_mesh_model,
-                                       make_train_step, shard_params,
-                                       state_specs)
+from repro_torch.train.trainer import (TrainConfig, make_train_step,
+                                       shard_params, state_specs)
 
 
 def main(argv=None):
@@ -82,8 +83,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.mesh is None:
         return train_main(args, device)
-    cfg = ARCHS[args.arch].tiny() if args.tiny else ARCHS[args.arch]
-    check_mesh_model(build_model(cfg))
     data = args.mesh[0]
     if args.batch % data:
         raise ValueError(f"--batch {args.batch} does not split over "

@@ -17,10 +17,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantizer import QuantizedTensor
-from repro_torch.dist.collectives import all_gather, all_reduce, copy_to
-from repro_torch.dist.sharding import (active_mesh, active_rules, axis_index,
-                                       axis_rules, axis_size,
-                                       logical_to_spec, spec_axes)
+from repro_torch.dist.collectives import (all_gather, all_reduce, copy_to,
+                                          step_totals)
+from repro_torch.dist.sharding import (MeshShape, active_mesh, active_rules,
+                                       axis_index, axis_rules, axis_size,
+                                       logical_to_spec, spec_axes,
+                                       training_rules, tree_specs)
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
 from repro_torch.kernels.ops import quant_matmul
 # the row kernel on a CUDA tensor (a row's bits do not depend on how many
@@ -33,6 +35,14 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 # Init helpers
 # ---------------------------------------------------------------------------
+
+def make_generator(dev: torch.device, seed: int):
+    """``torch.Generator(dev).manual_seed(seed)``; None on the meta device,
+    whose init gives the tree's shapes alone (nothing is drawn)."""
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)
+
 
 def dense_init(gen: torch.Generator, n_in: int, n_out: int, dtype, device,
                scale: Optional[float] = None,
@@ -140,6 +150,85 @@ def fsdp_gather(w, dim: int, full: int):
     if not cut:
         return w
     return all_gather(w, "data", dim=dim, reduce_grad=True)
+
+
+def fsdp_leaf(w, axes, full: int):
+    """``w`` annotated ``axes`` (its logical axes; a layer's view of a
+    stacked leaf lacks the leading layer axis, so dimensions count from the
+    end), gathered over ``data`` where the rules cut its ``fsdp`` dimension
+    of logical size ``full`` (:func:`fsdp_gather`); ``w`` itself where
+    ``axes`` names no ``fsdp``."""
+    if not isinstance(axes, tuple) or "fsdp" not in axes:
+        return w
+    return fsdp_gather(w, axes.index("fsdp") - len(axes), full)
+
+
+def gather_layer(p: dict, axes, shapes: dict) -> dict:
+    """A layer's view ``p`` (nested dicts of its leaves) with every float
+    leaf whose annotation in ``axes`` (the stacked leaves' logical axes,
+    :meth:`param_axes`'s subtree) names ``fsdp`` gathered over ``data``
+    (:func:`fsdp_leaf`, the dimension's logical size read from ``shapes``,
+    the stacked leaves' logical tree: :func:`meta_tree`)."""
+    out = {}
+    for key, w in p.items():
+        ax = axes.get(key) if isinstance(axes, dict) else None
+        if isinstance(w, dict):
+            out[key] = gather_layer(w, ax, shapes[key])
+        elif isinstance(ax, tuple) and "fsdp" in ax:
+            full = shapes[key].shape[ax.index("fsdp") - len(ax)]
+            out[key] = fsdp_leaf(w, ax, full)
+        else:
+            out[key] = w
+    return out
+
+
+def meta_tree(model) -> dict:
+    """``model.init``'s tree on the meta device (shapes alone), made once
+    and kept on the model (``model._meta``): the logical sizes the FSDP
+    gathers and the collectives formulas read."""
+    if model._meta is None:
+        model._meta = model.init(device="meta")
+    return model._meta
+
+
+def mesh_cuts(model, mesh):
+    """(cut, gathered) under ``mesh``'s training rules for ``model``:
+    ``cut(key, axis)`` 1 where ``axis`` cuts the leaf of checkpoint key
+    ``key``, ``gathered(prefix)`` the leaves under ``prefix`` cut on
+    ``data`` (one FSDP gather each per use)."""
+    specs = tree_specs(meta_tree(model), model.param_axes(), mesh,
+                       training_rules(model.cfg, mesh))
+
+    def cut(key, axis):
+        return int(axis in spec_axes(specs.get(key), mesh))
+
+    def gathered(prefix):
+        return sum("data" in spec_axes(s, mesh) for k, s in specs.items()
+                   if k.startswith(prefix))
+    return cut, gathered
+
+
+def collectives_per_step(model, mesh_shape, *, remat: bool = False,
+                         microbatches: int = 1,
+                         grad_compress: bool = False) -> dict:
+    """Collective calls per kind of one train step of ``model``
+    (``make_train_step(mesh=)``) on a ``(data, model)`` mesh of
+    ``mesh_shape``: the model's ``_microbatch_collectives`` per microbatch
+    and the step's own (:func:`~repro_torch.dist.collectives.
+    step_totals`)."""
+    return step_totals(model._microbatch_collectives(MeshShape(mesh_shape),
+                                                     remat),
+                       mesh_shape, microbatches=microbatches,
+                       grad_compress=grad_compress)
+
+
+def for_part(x: torch.Tensor, part: bool) -> torch.Tensor:
+    """``x`` (a weight or an activation, the same on every rank of
+    ``model``) where it meets only this rank's part of the work
+    (``part``: the rank's channels, heads or tokens): it passes
+    :func:`copy_to`, so its gradient, a partial sum on each rank, arrives
+    summed over ``model``; ``x`` itself otherwise."""
+    return copy_to(x, "model") if part else x
 
 
 # ---------------------------------------------------------------------------

@@ -52,11 +52,13 @@ from repro_torch.kernels.ops import (decode_attention, decode_attention_q8,
                                     paged_verify_attention,
                                     paged_verify_attention_q8,
                                     verify_attention, verify_attention_q8)
-from .common import (apply_rope, chunked_attention, column_input, dense_init,
-                     embed_tokens, fsdp_gather, last_valid_hidden,
-                     logits_from_hidden, padded_vocab, qlinear, quantize_kv,
-                     reduce_row_parallel, rms_norm, run_block,
-                     stack_layer_stats, update_cache_at, update_pages_at)
+from .common import (apply_rope, chunked_attention, collectives_per_step,
+                     column_input, dense_init, embed_tokens, fsdp_leaf,
+                     gather_layer, mesh_cuts, meta_tree,
+                     last_valid_hidden, logits_from_hidden, make_generator,
+                     padded_vocab, qlinear, quantize_kv, reduce_row_parallel,
+                     rms_norm, run_block, stack_layer_stats, update_cache_at,
+                     update_pages_at)
 
 
 def _layer(blocks: dict, l: int) -> dict:
@@ -67,12 +69,10 @@ def _layer(blocks: dict, l: int) -> dict:
 
 
 class DenseLM:
-    # make_train_step(mesh=) runs this forward on a training mesh
-    mesh_training = True
-
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        self._meta = None
 
     # -- params ------------------------------------------------------------
     @torch.no_grad()
@@ -84,9 +84,7 @@ class DenseLM:
         layer's matrix.  ``device="meta"`` gives the shapes alone."""
         cfg = self.cfg
         dev = resolve_device(device)
-        # the meta device gives the tree's shapes alone (no draws)
-        gen = (None if dev.type == "meta"
-               else torch.Generator(device=dev).manual_seed(seed))
+        gen = make_generator(dev, seed)
         hd = cfg.head_dim_
         v_pad = padded_vocab(cfg.vocab_size)
         n_layers = cfg.n_layers
@@ -157,6 +155,48 @@ class DenseLM:
         attention is cut on heads / ``ff`` is cut: ``wo`` and ``w_down``
         in each layer."""
         return self.cfg.n_layers * (a + f)
+
+    # -- collectives of a train step on a mesh -------------------------------
+    def train_collectives(self, mesh_shape, *, remat: bool = False,
+                          microbatches: int = 1,
+                          grad_compress: bool = False) -> dict:
+        """Collective calls per kind of one train step
+        (``make_train_step(mesh=)``) on a ``(data, model)`` mesh of
+        ``mesh_shape``: :meth:`_microbatch_collectives` per microbatch and
+        the step's own (:func:`~repro_torch.models.common.
+        collectives_per_step`); :func:`~repro_torch.train.trainer.
+        step_collectives` is llama3-8b's."""
+        return collectives_per_step(self, mesh_shape, remat=remat,
+                                    microbatches=microbatches,
+                                    grad_compress=grad_compress)
+
+    def _microbatch_collectives(self, mesh, remat: bool) -> dict:
+        """One microbatch's forward and backward: all_gather, the FSDP
+        gathers of each layer's cut leaves and of the embedding and the
+        head (``remat``: each layer's again in its recompute) and, with the
+        vocabulary cut, the logits' columns; reduce_scatter, the gathers'
+        backward; all_reduce, the vocab-cut embedding's and the logits'
+        input's backward sum and :meth:`_train_layer_all_reduces` per
+        layer."""
+        cut, gathered = mesh_cuts(self, mesh)
+        n, g = self.cfg.n_layers, gathered("['blocks']")
+        a = cut("['blocks']['wq']", "model")
+        f = cut("['blocks']['w_gate']", "model")
+        v = cut("['embed']", "model")
+        gathers = n * g + gathered("['embed']") + gathered("['lm_head']")
+        return {"all_gather": gathers + v + remat * n * g,
+                "reduce_scatter": gathers,
+                "all_reduce": 2 * v + n * self._train_layer_all_reduces(
+                    a, f, remat)}
+
+    def _train_layer_all_reduces(self, a: int, f: int, remat: bool) -> int:
+        """A layer's all_reduces in a train step, ``a`` / ``f`` 1 where
+        attention is cut on heads / ``ff`` is cut: ``wo``'s and
+        ``w_down``'s sums and their inputs' backward sums (``copy_to``);
+        under ``remat`` the recompute's ``wo`` sum again (torch's
+        non-reentrant checkpoint stops before ``w_down``'s, whose output
+        the backward does not need)."""
+        return 2 * a + 2 * f + remat * a
 
     def quant_site_map(self) -> dict:
         return {
@@ -279,25 +319,15 @@ class DenseLM:
         if positions is None:
             positions = self._maybe_mrope(
                 torch.arange(t, device=tokens.device).expand(b, t))
-        axes = self.param_axes()
-        x = embed_tokens(self._fsdp(params["embed"], axes["embed"]), tokens,
+        axes, d = self.param_axes(), self.cfg.d_model
+        x = embed_tokens(fsdp_leaf(params["embed"], axes["embed"], d), tokens,
                          self.cfg.vocab_size).to(self.dtype)
         x, stacked, moe_aux = self._forward_layers(params, x, positions,
                                                    collect_stats)
         logits = logits_from_hidden(
-            x, self._fsdp(params["lm_head"], axes["lm_head"]),
+            x, fsdp_leaf(params["lm_head"], axes["lm_head"], d),
             self.cfg.vocab_size)
         return logits, {"stats": stacked, "moe_aux": moe_aux}
-
-    def _fsdp(self, w, axes):
-        """``w`` annotated ``axes`` (:meth:`param_axes`; a layer's view of a
-        stacked leaf lacks the leading layer axis, so dims count from the
-        end), gathered over ``data`` where the rules cut its ``fsdp`` dim
-        (:func:`fsdp_gather`; that dim's logical size is d_model)."""
-        if not isinstance(axes, tuple) or "fsdp" not in axes:
-            return w
-        return fsdp_gather(w, axes.index("fsdp") - len(axes),
-                           self.cfg.d_model)
 
     def _forward_layers(self, params, x, positions, collect_stats):
         """The layer stack of :meth:`forward` over the embedded input ``x``
@@ -316,15 +346,21 @@ class DenseLM:
                    if layer_aux[0] is None else torch.stack(layer_aux).mean())
         return x, stacked, moe_aux
 
+    def _gathered(self, p, stack: str = "blocks") -> dict:
+        """Layer view ``p`` of the stacked leaves under ``stack`` with its
+        FSDP shards gathered (:func:`~repro_torch.models.common.
+        gather_layer`; nested dicts, such as hymba's ``mamba`` branch,
+        alike)."""
+        return gather_layer(p, self.param_axes()[stack],
+                            meta_tree(self)[stack])
+
     def _forward_block(self, p, x, positions, collect):
         """One layer of :meth:`forward`: (x, stats, aux), aux the layer's
         load-balance loss (None for a dense block).  The layer's FSDP
         shards are gathered here as it starts (the products keep them for
         the backward; under ``cfg.remat`` they are dropped and gathered
         again in the backward's recompute)."""
-        axes = self.param_axes()["blocks"]
-        p = {k: self._fsdp(w, axes.get(k)) for k, w in p.items()}
-        x, _, stats = self._block(p, x, positions, collect)
+        x, _, stats = self._block(self._gathered(p), x, positions, collect)
         return x, stats, None
 
     @torch.no_grad()

@@ -22,7 +22,10 @@ where both head counts divide ``model`` and whole on every rank otherwise
 are cut on ``ff`` either way (:func:`~repro_torch.models.ssm.mamba_axes`);
 each branch's row-parallel output is reduced before ``x + 0.5 * (attn +
 mamba)`` adds it, the Mamba branch's and ``w_down``'s in f32
-(:func:`~repro_torch.models.common.row_parallel_f32`).
+(:func:`~repro_torch.models.common.row_parallel_f32`).  Training on a mesh
+cuts the same way under ``training_rules`` (plus FSDP over ``data``,
+gathered in :meth:`DenseLM._forward_block`, the Mamba branch's leaves
+too); the windowed attention runs plain PyTorch there too.
 """
 from __future__ import annotations
 
@@ -34,17 +37,14 @@ from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import decode_attention
 from . import ssm
-from .common import (apply_rope, embed_tokens, logits_from_hidden, qlinear,
+from .common import (apply_rope, column_input, embed_tokens,
+                     logits_from_hidden, make_generator, qlinear,
                      reduce_row_parallel, rms_norm, row_parallel_f32,
                      update_cache_at)
 from .dense import DenseLM, _layer
 
 
 class HymbaLM(DenseLM):
-    # this family's own layers take no FSDP gather or copy_to: no training
-    # on a mesh yet (ROADMAP: mesh training of the non-dense families)
-    mesh_training = False
-
     def __init__(self, cfg: ModelConfig):
         if cfg.kv_cache_bits == 8:
             raise NotImplementedError("the hybrid family keeps its ring KV "
@@ -64,7 +64,7 @@ class HymbaLM(DenseLM):
         params = super().init(seed, device)
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        gen = make_generator(dev, seed + 1)
         params["blocks"]["mamba"] = ssm.mamba_init(
             gen, cfg.n_layers, cfg.d_model, self._d_inner, cfg.ssm_state,
             cfg.dt_rank, cfg.ssm_conv, self.dtype, dev)
@@ -82,6 +82,15 @@ class HymbaLM(DenseLM):
         """``wo`` where attention is cut; Mamba ``x_proj`` and ``out_proj``
         and ``w_down`` where ``ff`` is."""
         return self.cfg.n_layers * (a + 3 * f)
+
+    def _train_layer_all_reduces(self, a: int, f: int, remat: bool) -> int:
+        """:meth:`DenseLM._train_layer_all_reduces` with the Mamba branch's
+        where ``ff`` is cut: ``x_proj``'s and ``out_proj``'s sums, and the
+        backward sums of ``in_proj``'s input, the reduced ``x_proj``
+        output, ``dt_proj`` and ``dt_bias`` (used on the rank's channels);
+        under ``remat`` the recompute's ``wo``, ``x_proj`` and ``out_proj``
+        sums again."""
+        return 2 * a + 8 * f + remat * (a + 2 * f)
 
     def cache_axes(self) -> dict:
         """Logical axes of :meth:`init_cache`'s leaves: the ring K/V on
@@ -133,6 +142,7 @@ class HymbaLM(DenseLM):
         h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         if collect:
             stats["mlp_in"] = site_stat(h)
+        h = column_input(h, p["w_gate"], cfg.d_ff)
         hidden = F.silu(qlinear(h, p["w_gate"])) * qlinear(h, p["w_up"])
         if collect:
             stats["mlp_down"] = site_stat(hidden)

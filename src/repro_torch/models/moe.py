@@ -34,6 +34,13 @@ dispatch buffer with one all_to_all, runs the local experts'
 back with a second.  Capacity is per (rank, expert) sub-batch, so the
 result equals the local path where nothing drops.  Calibration
 (``collect``) runs the local path on whole weights, as in the reference.
+
+Training on a mesh (``make_train_step(mesh=)``): each layer gathers its
+FSDP shards over ``data`` as it starts, the expert stacks on their
+``fsdp`` dimension (d_model) too, and runs :func:`moe_ffn` under
+autograd (see there); the aux loss is each rank's own on its tokens,
+averaged over ``model`` here and over ``data`` by the train step, the
+reference's ``pmean`` over ``model`` and the FSDP axes.
 """
 from __future__ import annotations
 
@@ -44,11 +51,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
-from repro_torch.dist.collectives import all_gather, all_reduce, all_to_all
+from repro_torch.dist.collectives import (all_gather, all_reduce, all_to_all,
+                                         copy_to)
 from repro_torch.dist.sharding import axis_index, axis_size
 from repro_torch.kernels.ops import quant_matmul_experts
-from .common import (NEG_INF, normal_init, padded_vocab, qlinear,
-                     reduce_row_parallel, rms_norm)
+from .common import (NEG_INF, column_input, make_generator, mesh_cuts,
+                     normal_init, padded_vocab, qlinear, reduce_row_parallel,
+                     rms_norm)
 from .dense import DenseLM
 
 
@@ -211,21 +220,36 @@ def moe_ffn(x, router_w, wg, wu, wd, cfg: ModelConfig,
     """The MoE FFN: expert-parallel when the expert weights are this
     rank's E/m of them, local otherwise (and for ``collect``).  Tokens
     split over ``model`` on the sequence where T divides; the ranks' rows
-    are gathered back.  Returns (y, aux, stats)."""
+    are gathered back.  Returns (y, aux, stats); aux is the mean over
+    ``model`` of the ranks' own (the mean over ``data`` is the train
+    step's, which averages the data ranks' losses and their gradients).
+
+    Under autograd the split is the rank's part of the work: ``x`` passes
+    ``copy_to`` before its tokens are sliced and the router (whole on
+    every rank, used on the rank's tokens) passes it too, so both
+    gradients arrive summed over ``model``; the two all_to_alls and the
+    rows' all_gather carry the gradients back.  A sequence that ``model``
+    does not split (every rank routes every token) is refused there: each
+    expert would take every rank's copy of a token's gradient."""
     m = axis_size("model")
     if m == 1 or _n_experts(wg) == router_w.shape[-1]:
         return moe_ffn_local(x, router_w, wg, wu, wd, cfg, collect)
     if collect:
         raise ValueError("statistics are collected on whole expert weights "
                          "(the local path)")
-    data_axes = ("data",) if axis_size("data") > 1 else ()
     t = x.shape[1]
-    if t % m == 0:
+    split = t % m == 0
+    if not split and torch.is_grad_enabled() and (
+            x.requires_grad or router_w.requires_grad):
+        raise ValueError(f"moe: training on {m} expert-parallel ranks "
+                         f"splits the sequence, and {t} tokens do not "
+                         f"split in {m}")
+    if split:
         part = t // m
-        x = x[:, axis_index("model") * part:][:, :part]
-    y, aux = _moe_body_sharded(x, router_w, wg, wu, wd, cfg=cfg,
-                               data_axes=data_axes)
-    if t % m == 0:
+        x = copy_to(x, "model")[:, axis_index("model") * part:][:, :part]
+        router_w = copy_to(router_w, "model")
+    y, aux = _moe_body_sharded(x, router_w, wg, wu, wd, cfg=cfg)
+    if split:
         y = all_gather(y, "model", dim=1)
     return y, aux, {}
 
@@ -237,10 +261,6 @@ class MoELM(DenseLM):
     as in the reference, whose MoE overrides the dense prefill / decode
     pair: :meth:`supports_paged` is False and the engine's ``paged=True``
     serves from the dense cache.  Speculative decoding is supported."""
-
-    # this family's own layers take no FSDP gather or copy_to: no training
-    # on a mesh yet (ROADMAP: mesh training of the non-dense families)
-    mesh_training = False
 
     def __init__(self, cfg: ModelConfig):
         if cfg.kv_cache_bits == 8:
@@ -259,7 +279,7 @@ class MoELM(DenseLM):
         layer's expert stack is drawn in f32 and cast."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = make_generator(dev, seed)
         hd = cfg.head_dim_
         n_layers = cfg.n_layers
         e_pad = padded_experts(cfg.n_experts)
@@ -376,6 +396,7 @@ class MoELM(DenseLM):
             y, aux, moe_stats = moe_ffn(h, *experts, cfg, collect)
             stats.update(moe_stats)
         if cfg.n_shared_experts:
+            h = column_input(h, p["wg_sh"], cfg.shared_expert_ff)
             hidden = F.silu(qlinear(h, p["wg_sh"])) * qlinear(h, p["wu_sh"])
             if collect:
                 stats["shared_down"] = site_stat(hidden)
@@ -395,8 +416,35 @@ class MoELM(DenseLM):
         return x, kv, stats
 
     def _forward_block(self, p, x, positions, collect):
-        x, _, stats, aux = self._moe_block(p, x, positions, collect)
+        """One layer of :meth:`forward` on its FSDP-gathered weights (the
+        expert stacks on their ``fsdp`` dimension too): (x, stats, aux)."""
+        x, _, stats, aux = self._moe_block(self._gathered(p), x, positions,
+                                           collect)
         return x, stats, aux
+
+    def _microbatch_collectives(self, mesh, remat: bool) -> dict:
+        """:meth:`DenseLM._microbatch_collectives` of the MoE stack: per
+        layer the FSDP gathers of its cut leaves (the expert stacks
+        included), the attention's sums where it is cut on heads (``a``),
+        and where the experts are cut over ``model`` (``e``) the aux
+        loss's all_reduce, the backward sums of the block input and the
+        router (``copy_to``), two all_to_alls each way and the rows'
+        all_gather; the shared expert's two sums where ``ff`` cuts it
+        (``f``).  ``remat`` recomputes the gathers, ``wo``'s sum, the aux
+        all_reduce, the forward all_to_alls and the rows' all_gather
+        (torch's checkpoint stops before the shared expert's sum)."""
+        cut, gathered = mesh_cuts(self, mesh)
+        n, g = self.cfg.n_layers, gathered("['blocks']")
+        a = cut("['blocks']['wq']", "model")
+        e = cut("['blocks']['wg_exp']", "model")
+        f = cut("['blocks']['wg_sh']", "model")
+        v = cut("['embed']", "model")
+        gathers = n * g + gathered("['embed']") + gathered("['lm_head']")
+        return {"all_gather": gathers + v + n * e + remat * n * (g + e),
+                "reduce_scatter": gathers,
+                "all_reduce": 2 * v + n * (2 * a + 3 * e + 2 * f
+                                           + remat * (a + e)),
+                "all_to_all": n * (4 * e + remat * 2 * e)}
 
     # -- entry points --------------------------------------------------------
     # The reference's MoE overrides the dense prefill / decode pair (same

@@ -40,6 +40,15 @@ times that change of the decay, so the rank keeps the single-device bits
 there, and ``dt_proj`` runs whole on every rank before the rank takes
 its channels of ``dt``.
 
+Training on a mesh (``make_train_step(mesh=)``) runs the same cuts under
+autograd: the leaves annotated ``fsdp`` arrive gathered over ``data``
+(the models' blocks gather them), a rank's channels or heads are its part
+of the work, so the replicated inputs of its column products and the
+whole weights it uses on its part only pass ``copy_to`` (their gradients
+summed over ``model``), and ``row_parallel_f32``'s f32 sum is
+differentiated through its all_reduce (the gradient reaches a bf16
+weight in bf16 through the casts).
+
 A rank's mLSTM computes its heads: q / k / v (``wq`` / ``wk`` / ``wv``
 column shards over the whole ``xi``), their gates and their state; the
 heads' outputs are put together exactly (one all_reduce of the
@@ -58,8 +67,8 @@ import torch.nn.functional as F
 
 from repro_torch.dist.collectives import all_reduce
 from repro_torch.dist.sharding import axis_index
-from .common import (_fixed_rows, _fixed_rows_matmul, dense_init, in_width,
-                     normal_init, out_width, qlinear, rms_norm,
+from .common import (_fixed_rows, _fixed_rows_matmul, dense_init, for_part,
+                     in_width, normal_init, out_width, qlinear, rms_norm,
                      row_parallel_f32)
 
 
@@ -119,9 +128,16 @@ def _mamba_gates(p, x, conv_state=None, d_inner=None):
     x: (B, T, d_model).  Returns (u, z, dt, B_, C_, new_conv_state) where u
     is the conv+silu'd SSM input (B, T, d_in): this rank's channels when
     they are fewer than ``d_inner`` (None: the leaves' own width), whose
-    ``x_proj`` partial sum is then reduced over ``model``."""
+    ``x_proj`` partial sum is then reduced over ``model``.
+
+    Under autograd a rank's channels are its part of the work: ``x``
+    passes ``copy_to`` before ``in_proj``'s columns, and the reduced
+    ``x_proj`` output, ``dt_proj`` and ``dt_bias`` (whole on every rank,
+    used on the rank's channels only) pass it too, so that each gradient
+    arrives summed over ``model``."""
     d_state = p["a_log"].shape[1]
-    xz = qlinear(x, p["in_proj"])
+    part = d_inner is not None and out_width(p["in_proj"]) < 2 * d_inner
+    xz = qlinear(for_part(x, part), p["in_proj"])
     u, z = xz.chunk(2, dim=-1)
     k = p["conv_w"].shape[0]
     if conv_state is None:
@@ -134,11 +150,12 @@ def _mamba_gates(p, x, conv_state=None, d_inner=None):
     u = sum(pad[:, i:i + t, :] * p["conv_w"][i].to(u.dtype) for i in range(k))
     u = F.silu(u)
     d_in = u.shape[-1]
-    proj = row_parallel_f32(u, p["x_proj"],
-                            d_in if d_inner is None else d_inner)
+    proj = for_part(row_parallel_f32(
+        u, p["x_proj"], d_in if d_inner is None else d_inner), part)
     dt_rank = proj.shape[-1] - 2 * d_state
     dt_low, b_, c_ = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
-    dt = _float_linear(dt_low, p["dt_proj"]) + p["dt_bias"].to(x.dtype)
+    dt = (_float_linear(dt_low, for_part(p["dt_proj"], part))
+          + for_part(p["dt_bias"], part).to(x.dtype))
     if d_in < dt.shape[-1]:
         first = axis_index("model") * d_in
         dt = dt[..., first:first + d_in]
@@ -278,11 +295,16 @@ def _mlstm_qkvg(p, x, n_heads: int):
     or a block of them when ``wq`` holds a rank's columns."""
     xi, z = qlinear(x, p["up_proj"]).chunk(2, dim=-1)
     d_inner = in_width(p["wq"])
-    q = qlinear(xi, p["wq"])
-    k = qlinear(xi, p["wk"])
-    v = qlinear(xi, p["wv"])
-    gates = (_float_linear(xi, p["w_gates"])
-             + p["gate_bias"].to(xi.dtype)).float()
+    # a rank's heads are its part of the work: under autograd xi (the
+    # replicated input of wq / wk / wv's columns and of the gates) and the
+    # whole gate weights, used for the rank's heads only, pass copy_to
+    part = out_width(p["wq"]) < d_inner
+    xi_in = for_part(xi, part)
+    q = qlinear(xi_in, p["wq"])
+    k = qlinear(xi_in, p["wk"])
+    v = qlinear(xi_in, p["wv"])
+    gates = (_float_linear(xi_in, for_part(p["w_gates"], part))
+             + for_part(p["gate_bias"], part).to(xi.dtype)).float()
     fgate, igate = gates.chunk(2, dim=-1)                   # (B, T, H)
     hd = d_inner // n_heads
     h = out_width(p["wq"]) // hd

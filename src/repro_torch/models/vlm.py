@@ -14,22 +14,22 @@ cache stays in the model's dtype: the reference's VLM prefill writes only
 ``k`` / ``v``, so an int8 cache is refused.  Under a mesh it is
 :class:`DenseLM`'s tensor-parallel path (qwen2-vl-2b's 12 / 2 heads give
 each of 2 ranks 6 query heads on 1 KV head), with the patches, whole on
-every rank, prepended to the vocab-sharded embedding's rows.
+every rank, prepended to the vocab-sharded embedding's rows.  Training on
+a mesh runs the same layers (:meth:`DenseLM._forward_block`: FSDP
+gathers, ``copy_to`` before the column products); the embedding and the
+head are gathered over ``data`` as :meth:`DenseLM.forward` gathers them,
+and a data rank's batch carries its rows of the patches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .common import embed_tokens, logits_from_hidden, rms_norm
+from .common import embed_tokens, fsdp_leaf, logits_from_hidden, rms_norm
 from .dense import DenseLM, _layer
 
 
 class VLM(DenseLM):
-    # this family's own layers take no FSDP gather or copy_to: no training
-    # on a mesh yet (ROADMAP: mesh training of the non-dense families)
-    mesh_training = False
-
     def __init__(self, cfg: ModelConfig):
         if cfg.kv_cache_bits == 8:
             raise NotImplementedError("the VLM family keeps its KV cache in "
@@ -41,8 +41,9 @@ class VLM(DenseLM):
         """Token embeddings with the patch embeddings prepended; returns
         (x (B, P + T, d), P, positions over all P + T)."""
         b, t = tokens.shape
-        x = embed_tokens(params["embed"], tokens,
-                         self.cfg.vocab_size).to(self.dtype)
+        embed = fsdp_leaf(params["embed"], self.param_axes()["embed"],
+                          self.cfg.d_model)
+        x = embed_tokens(embed, tokens, self.cfg.vocab_size).to(self.dtype)
         n_patch = 0
         if patches is not None:
             n_patch = patches.shape[1]
@@ -60,8 +61,9 @@ class VLM(DenseLM):
                                             batch.get("patches"))
         x, stacked, moe_aux = self._forward_layers(params, x, positions,
                                                    collect_stats)
-        logits = logits_from_hidden(x[:, n_patch:], params["lm_head"],
-                                    self.cfg.vocab_size)
+        head = fsdp_leaf(params["lm_head"], self.param_axes()["lm_head"],
+                         self.cfg.d_model)
+        logits = logits_from_hidden(x[:, n_patch:], head, self.cfg.vocab_size)
         return logits, {"stats": stacked, "moe_aux": moe_aux}
 
     @torch.no_grad()

@@ -28,7 +28,13 @@ column-parallel, so each rank computes its heads of the whole K/V, and
 the self and cross caches hold them), every MLP on ``ff`` (``b1`` with
 ``w1``'s columns); ``wo``'s and ``w2``'s row-parallel outputs are each
 reduced over ``model`` (one all_reduce), ``b2`` is added after that
-reduction, and the logits are gathered once.
+reduction, and the logits are gathered once.  Training on a mesh
+(``make_train_step(mesh=)``, batches with ``frames``) cuts the same way
+with FSDP over ``data``: each encoder and decoder block gathers its
+shards (cross attention's included) as it starts, the embedding and the
+head as the forward reads them; the replicated inputs of the column
+products (the memory, for cross attention's ``wk`` / ``wv``) pass
+``copy_to``; the positional tables stay whole.
 """
 from __future__ import annotations
 
@@ -40,10 +46,12 @@ from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import serving_rules
 from repro_torch.kernels.ops import decode_attention
-from .common import (chunked_attention, dense_init, embed_tokens, layer_norm,
-                     logits_from_hidden, normal_init, padded_vocab, qlinear,
-                     reduce_row_parallel, run_block, stack_layer_stats,
-                     update_cache_at)
+from .common import (chunked_attention, collectives_per_step, column_input,
+                     dense_init, embed_tokens, fsdp_leaf, gather_layer,
+                     layer_norm, make_generator, logits_from_hidden,
+                     mesh_cuts, meta_tree, normal_init, padded_vocab,
+                     qlinear, reduce_row_parallel, run_block,
+                     stack_layer_stats, update_cache_at)
 from .dense import _layer
 
 MAX_DEC_POS = 36864  # learned positional table (covers 32k prefill + decode)
@@ -53,6 +61,42 @@ class WhisperLM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        self._meta = None
+
+    def train_collectives(self, mesh_shape, *, remat: bool = False,
+                          microbatches: int = 1,
+                          grad_compress: bool = False) -> dict:
+        """Collective calls per kind of one train step on a ``(data,
+        model)`` mesh of ``mesh_shape`` (:meth:`DenseLM.
+        train_collectives`'s, from :meth:`_microbatch_collectives`)."""
+        return collectives_per_step(self, mesh_shape, remat=remat,
+                                    microbatches=microbatches,
+                                    grad_compress=grad_compress)
+
+    def _microbatch_collectives(self, mesh, remat: bool) -> dict:
+        """One microbatch's collectives (as :meth:`DenseLM.
+        _microbatch_collectives`) of the encoder-decoder:
+        FSDP gathers per layer of each stack (and of the embedding and the
+        head); where attention is cut on heads (``a``) an encoder layer's
+        ``wo`` sum and its input's backward sum, a decoder layer's self
+        attention's two and its cross attention's ``wo`` sum and the
+        backward sums of its query input and of the memory; where ``ff``
+        is cut (``f``) each layer's ``w2`` sum and ``w1``'s input's backward
+        sum; under ``remat`` the recompute's ``wo`` sums again (torch's
+        non-reentrant checkpoint stops before ``w2``'s)."""
+        cut, gathered = mesh_cuts(self, mesh)
+        n_e, n_d = self.cfg.n_encoder_layers, self.cfg.n_layers
+        a = cut("['dec_blocks']['attn']['wq']", "model")
+        f = cut("['dec_blocks']['w1']", "model")
+        v = cut("['embed']", "model")
+        layers = (n_e * gathered("['enc_blocks']")
+                  + n_d * gathered("['dec_blocks']"))
+        gathers = layers + gathered("['embed']") + gathered("['lm_head']")
+        return {"all_gather": gathers + v + remat * layers,
+                "reduce_scatter": gathers,
+                "all_reduce": (2 * v + n_e * (2 * a + 2 * f)
+                               + n_d * (5 * a + 2 * f)
+                               + remat * (n_e * a + 2 * n_d * a))}
 
     # -- params ------------------------------------------------------------
     def _blocks_init(self, gen, n_layers, cross: bool, dev) -> dict:
@@ -89,7 +133,7 @@ class WhisperLM:
         0.02, LayerNorms at (1, 0), biases 0."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = make_generator(dev, seed)
         d = cfg.d_model
         v_pad = padded_vocab(cfg.vocab_size)
         ones = lambda: torch.ones((d,), dtype=self.dtype, device=dev)
@@ -192,7 +236,10 @@ class WhisperLM:
         cfg = self.cfg
         hd = cfg.head_dim_
         b, tq, _ = xq.shape
-        # this rank's heads: all of them, or H/m and KH/m under TP
+        # this rank's heads: all of them, or H/m and KH/m under TP (under
+        # autograd the replicated inputs of the column products then pass
+        # copy_to)
+        xq = column_input(xq, p["wq"], cfg.n_heads * hd)
         q = qlinear(xq, p["wq"])
         n_h = q.shape[-1] // hd
         q = q.reshape(b, tq, n_h, hd)
@@ -203,7 +250,8 @@ class WhisperLM:
             o = decode_attention(q, k_c, v_c, enc_len)
             kv = cache
         else:
-            src = xq if xkv is None else xkv
+            src = (xq if xkv is None else
+                   column_input(xkv, p["wk"], cfg.n_kv_heads * hd))
             tk = src.shape[1]
             k = qlinear(src, p["wk"])
             n_kv = k.shape[-1] // hd
@@ -224,6 +272,7 @@ class WhisperLM:
         return reduce_row_parallel(qlinear(o, p["wo"]), n_h, cfg.n_heads), kv
 
     def _mlp(self, p, x, stats, prefix):
+        x = column_input(x, p["w1"], self.cfg.d_ff)
         h = qlinear(x, p["w1"]) + p["b1"].to(x.dtype)
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
         if stats is not None:
@@ -232,8 +281,16 @@ class WhisperLM:
                                 self.cfg.d_ff)
         return y + p["b2"].to(x.dtype)
 
+    def _gathered(self, p, stack: str) -> dict:
+        """Layer view ``p`` of the stacked leaves under ``stack`` with its
+        FSDP shards gathered (:func:`~repro_torch.models.common.
+        gather_layer`)."""
+        return gather_layer(p, self.param_axes()[stack],
+                            meta_tree(self)[stack])
+
     # -- encoder -------------------------------------------------------------
     def _enc_block(self, p, x, collect):
+        p = self._gathered(p, "enc_blocks")
         stats = {} if collect else None
         h = layer_norm(x, p["ln1_w"], p["ln1_b"])
         if collect:
@@ -260,6 +317,7 @@ class WhisperLM:
     def _dec_block(self, p, x, memory, collect, self_cache=None,
                    cross_cache=None, cache_len=None):
         """Returns (x, self (k, v), cross (k, v), stats)."""
+        p = self._gathered(p, "dec_blocks")
         stats = {} if collect else None
         h = layer_norm(x, p["ln1_w"], p["ln1_b"])
         if collect:
@@ -282,13 +340,17 @@ class WhisperLM:
         return x, new_self, new_cross, stats or {}
 
     def _embed(self, params, tokens, positions):
-        x = embed_tokens(params["embed"], tokens,
-                         self.cfg.vocab_size).to(self.dtype)
+        embed = fsdp_leaf(params["embed"], ("vocab", "fsdp"),
+                          self.cfg.d_model)
+        x = embed_tokens(embed, tokens, self.cfg.vocab_size).to(self.dtype)
         return x + params["dec_pos"][positions]
 
     def _head(self, params, x):
         x = layer_norm(x, params["dec_norm_w"], params["dec_norm_b"])
-        return logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
+        return logits_from_hidden(
+            x, fsdp_leaf(params["lm_head"], ("fsdp", "vocab"),
+                         self.cfg.d_model),
+            self.cfg.vocab_size)
 
     def forward(self, params, batch, collect_stats: bool = False):
         """Teacher-forced decoder over the encoder's memory.  batch:

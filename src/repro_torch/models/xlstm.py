@@ -26,7 +26,8 @@ sLSTM (its state whole on every rank); see
 embedding's all_reduce, one all_reduce per mLSTM layer (the heads'
 outputs put together, each rank's in its place and zeros elsewhere,
 before a whole output norm and ``down_proj``) and the logits'
-all_gather.
+all_gather.  Training on a mesh runs the same cuts under autograd with
+FSDP over ``data``: each layer gathers the branch it runs as it starts.
 """
 from __future__ import annotations
 
@@ -35,16 +36,14 @@ import torch
 from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
 from . import ssm
-from .common import (dense_init, embed_tokens, logits_from_hidden,
-                     padded_vocab, rms_norm, run_block, stack_layer_stats)
+from .common import (dense_init, embed_tokens, fsdp_leaf, gather_layer,
+                     logits_from_hidden, make_generator, mesh_cuts,
+                     meta_tree, padded_vocab, rms_norm, run_block,
+                     stack_layer_stats)
 from .dense import DenseLM, _layer
 
 
 class XLSTMLM(DenseLM):
-    # this family's own layers take no FSDP gather or copy_to: no training
-    # on a mesh yet (ROADMAP: mesh training of the non-dense families)
-    mesh_training = False
-
     @property
     def _d_inner(self) -> int:
         return self.cfg.ssm_expand * self.cfg.d_model
@@ -62,7 +61,7 @@ class XLSTMLM(DenseLM):
         slstm_init`)}, ``final_norm``, ``lm_head``."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = make_generator(dev, seed)
         v_pad = padded_vocab(cfg.vocab_size)
         d, n_layers = cfg.d_model, cfg.n_layers
         return {
@@ -96,6 +95,25 @@ class XLSTMLM(DenseLM):
         n = self.cfg.n_layers
         return f * (n - n // self.cfg.slstm_every)
 
+    def _microbatch_collectives(self, mesh, remat: bool) -> dict:
+        """:meth:`DenseLM._microbatch_collectives` of the xLSTM stack: each
+        layer gathers its running branch's cut leaves; an mLSTM layer whose
+        heads are cut (``f``) sums its heads' outputs (one all_reduce) and,
+        in the backward, ``xi``'s, ``w_gates``' and ``gate_bias``' partial
+        gradients (``copy_to``); ``remat`` recomputes the first."""
+        cut, gathered = mesh_cuts(self, mesh)
+        n_s = self.cfg.n_layers // self.cfg.slstm_every
+        n_m = self.cfg.n_layers - n_s
+        f = cut("['blocks']['mlstm']['wq']", "model")
+        v = cut("['embed']", "model")
+        g_m = gathered("['blocks']['mlstm']")
+        g_s = gathered("['blocks']['slstm']")
+        gathers = (n_m * g_m + n_s * g_s + gathered("['embed']")
+                   + gathered("['lm_head']"))
+        return {"all_gather": gathers + v + remat * (n_m * g_m + n_s * g_s),
+                "reduce_scatter": gathers,
+                "all_reduce": 2 * v + n_m * (4 * f + remat * f)}
+
     def cache_axes(self) -> dict:
         """Logical axes of :meth:`init_cache`'s leaves: the mLSTM state on
         ``heads`` (the reference's); the sLSTM state, a list of four, whole
@@ -119,13 +137,20 @@ class XLSTMLM(DenseLM):
 
     # -- forward -------------------------------------------------------------
     def _forward_block(self, p, x, is_s, collect):
-        """One layer of :meth:`forward`: (x, stats)."""
+        """One layer of :meth:`forward`: (x, stats).  Without statistics
+        only the branch that runs is gathered over ``data`` (its FSDP
+        shards, as it starts)."""
         n_heads = self.cfg.n_heads
-        h = rms_norm(x, p["norm"], self.cfg.norm_eps)
         if not collect:
+            kind = "slstm" if is_s else "mlstm"
+            branch = gather_layer(p[kind], self.param_axes()["blocks"][kind],
+                                  meta_tree(self)["blocks"][kind])
+            h = rms_norm(x, p["norm"], self.cfg.norm_eps)
             if is_s:
-                return x + ssm.slstm_scan(p["slstm"], h, n_heads), {}
-            return x + ssm.mlstm_chunked(p["mlstm"], h, n_heads), {}
+                return x + ssm.slstm_scan(branch, h, n_heads), {}
+            return x + ssm.mlstm_chunked(branch, h, n_heads), {}
+        p = self._gathered(p)
+        h = rms_norm(x, p["norm"], self.cfg.norm_eps)
         seen = {}
         cb = lambda name, val: seen.__setitem__(name, site_stat(val))
         y_m = ssm.mlstm_chunked(p["mlstm"], h, n_heads, collect_cb=cb)
@@ -140,7 +165,8 @@ class XLSTMLM(DenseLM):
         "moe_aux": 0}.  Differentiable; ``cfg.remat`` recomputes each
         block in the backward."""
         tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens,
+        axes, d = self.param_axes(), self.cfg.d_model
+        x = embed_tokens(fsdp_leaf(params["embed"], axes["embed"], d), tokens,
                          self.cfg.vocab_size).to(self.dtype)
         blocks = params["blocks"]
         per_layer = []
@@ -150,7 +176,9 @@ class XLSTMLM(DenseLM):
                                  collect_stats)
             per_layer.append(stats)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        logits = logits_from_hidden(x, params["lm_head"], self.cfg.vocab_size)
+        logits = logits_from_hidden(
+            x, fsdp_leaf(params["lm_head"], axes["lm_head"], d),
+            self.cfg.vocab_size)
         stacked = stack_layer_stats(per_layer) if collect_stats else {}
         return logits, {"stats": stacked,
                         "moe_aux": torch.zeros((), device=x.device)}

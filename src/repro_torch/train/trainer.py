@@ -11,20 +11,27 @@ same storage with ``requires_grad``); the update runs under
 backward run the flash-attention and rms_norm kernels (their autograd
 Functions).
 
-On a mesh (the reference's training under ``DEFAULT_RULES``; the dense
+On a mesh (the reference's training under ``DEFAULT_RULES``; every
 family) every rank holds its shards of the parameters, both AdamW moments
 and the EF buffer (:func:`shard_params`, cut by
 :func:`~repro_torch.dist.sharding.training_rules`: FSDP over ``data``,
-heads / ff / vocab over ``model``) and takes its ``data`` coordinate's
-share of the global batch.  The forward gathers each layer's FSDP shards
-over ``data`` and runs tensor parallelism over ``model``
-(:mod:`repro_torch.models.dense`); the collectives carry the gradients
-back, so an FSDP leaf's gradient arrives summed over ``data`` and cut to
-the shard (a reduce_scatter).  The step scales those by ``1 / data``,
-all-reduces the leaves whole across ``data`` (the norms) once, and so
-holds the gradient of the global mean loss; the metrics are global means,
-the same on every rank; the clip norm and the compression scales are the
-logical tensors'.
+heads / ff / vocab / experts over ``model``) and takes its ``data``
+coordinate's share of the global batch.  The forward gathers each layer's
+FSDP shards over ``data`` and runs tensor parallelism over ``model`` (the
+models' own layers: :mod:`repro_torch.models.dense` and the families);
+the collectives carry the gradients back, so an FSDP leaf's gradient
+arrives summed over ``data`` and cut to the shard (a reduce_scatter), and
+a leaf whole across ``model`` that meets only a rank's part of the work
+(MoE's router on the rank's tokens, Mamba's ``dt_proj`` on its channels)
+arrives summed over ``model`` (the models pass it through ``copy_to``).
+The step scales the data sums by ``1 / data``, all-reduces the leaves
+whole across ``data`` (the norms) once, and so holds the gradient of the
+global mean loss; the metrics are global means, the same on every rank
+(MoE's aux loss is each rank's mean over ``model``, whose mean over
+``data`` the step takes with the loss's); the clip norm and the
+compression scales are the logical tensors'.  Each model's
+``train_collectives(mesh_shape, ...)`` is the collectives per step of
+that run (:data:`~repro_torch.dist.collectives.COUNTS`).
 """
 from __future__ import annotations
 
@@ -32,11 +39,13 @@ import dataclasses
 
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.dist._tree import (leaves, leaves_with_keys, map_with_keys,
                                     tree_map)
 from repro_torch.dist.collectives import all_reduce
 from repro_torch.dist.sharding import (axis_rules, shard_tree, spec_axes,
                                        training_rules, tree_specs)
+from repro_torch.models.dense import DenseLM
 from .grad_compress import compress_grads
 from .optimizer import AdamW, cosine_schedule
 
@@ -89,23 +98,14 @@ def value_and_grad(loss_fn, params, batch):
             map_with_keys(lambda key, _: grads[key], params))
 
 
-def check_mesh_model(model):
-    """Refuse to train ``model`` on a mesh unless its forward runs on one
-    (its class's ``mesh_training``)."""
-    if not getattr(model, "mesh_training", False):
-        raise NotImplementedError(
-            f"training on a mesh runs the dense family (DenseLM); "
-            f"{model.cfg.name} is {model.cfg.family} (ROADMAP section 1, "
-            f"'Mesh training of the non-dense families')")
-
-
 def step_collectives(n_layers: int, mesh_shape, *, remat: bool = False,
                      microbatches: int = 1,
                      grad_compress: bool = False) -> dict:
     """Collective calls per kind (:data:`~repro_torch.dist.collectives.
     COUNTS`) of one dense train step of ``n_layers`` layers on a ``(data,
-    model)`` mesh; ``d`` / ``m`` below are 1 where that axis has more than
-    one rank, else 0.  Per microbatch:
+    model)`` mesh: :meth:`DenseLM.train_collectives` of llama3-8b's widths
+    at that depth, where every cut divides the mesh.  ``d`` / ``m`` below
+    are 1 where that axis has more than one rank, else 0.  Per microbatch:
 
     - all_gather: the FSDP gathers of each layer's 7 weights, the
       embedding and the head (``d``; under ``remat`` the recompute gathers
@@ -120,15 +120,10 @@ def step_collectives(n_layers: int, mesh_shape, *, remat: bool = False,
     Per step, all_reduce: the data sums of the leaves whole across
     ``data`` and of the metrics (``d``, one each), the clip norm's (one),
     and the compression scales' (one with ``grad_compress``)."""
-    d, m = (int(s > 1) for s in mesh_shape)
-    gathers = 7 * n_layers + 2
-    return {"all_gather": microbatches * (d * gathers + m
-                                          + remat * d * 7 * n_layers),
-            "reduce_scatter": microbatches * d * gathers,
-            "all_reduce": (microbatches * m * (2 + 4 * n_layers
-                                               + remat * n_layers)
-                           + 2 * d + 1 + int(grad_compress)),
-            "all_to_all": 0, "broadcast": 0}
+    model = DenseLM(ARCHS["llama3-8b"].scaled(n_layers=n_layers))
+    return model.train_collectives(mesh_shape, remat=remat,
+                                   microbatches=microbatches,
+                                   grad_compress=grad_compress)
 
 
 def param_specs(model, mesh) -> dict:
@@ -204,7 +199,6 @@ def make_train_step(model, tcfg: TrainConfig, mesh=None):
     T, host=mesh.index("data"), n_hosts=data)``).  ``mesh=None`` is the
     single-device step."""
     if mesh is not None:
-        check_mesh_model(model)
         if mesh.size("pod") > 1:
             raise NotImplementedError("training on a mesh takes (data, "
                                       "model) meshes; a pod axis is not "

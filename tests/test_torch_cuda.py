@@ -995,17 +995,20 @@ def test_rms_norm_bwd_refuses_rows_past_its_width(dev):
 
 
 class _PlainKernels:
-    """The model's attention and rms_norm swapped for their plain versions
-    (autograd through plain PyTorch) for the duration of a with-block."""
+    """The models' attention and rms_norm swapped for their plain versions
+    (autograd through plain PyTorch) for the duration of a with-block, in
+    every model module that imported rms_norm."""
 
     def __init__(self, monkeypatch):
-        from repro_torch.models import common, dense
+        from repro_torch.models import (common, dense, hymba, moe, ssm, vlm,
+                                        xlstm)
         monkeypatch.setattr(common, "flash_attention",
                             lambda q, k, v, causal=True, kv_lens=None:
                             fa.flash_attention_ref(q, k, v, causal=causal,
                                                    kv_lens=kv_lens))
-        monkeypatch.setattr(common, "rms_norm", rn.rms_norm_ref)
-        monkeypatch.setattr(dense, "rms_norm", rn.rms_norm_ref)
+        for mod in (common, dense, hymba, moe, ssm, vlm, xlstm):
+            if hasattr(mod, "rms_norm"):
+                monkeypatch.setattr(mod, "rms_norm", rn.rms_norm_ref)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1031,6 +1034,142 @@ def test_tiny_train_step_on_the_card(dev, dtype, monkeypatch):
     assert rn.KERNEL_BWD.launches == counts[1] + 2 * cfg.n_layers + 1
     with monkeypatch.context() as mp:
         _PlainKernels(mp)
+        (plain_loss, _), plain = value_and_grad(loss_fn, params, batch)
+    plain = dict(leaves_with_keys(plain))
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    assert abs(float(loss) - float(plain_loss)) <= tol * float(plain_loss)
+    for key, g in leaves_with_keys(grads):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), key
+        rel = float((g.float() - plain[key].float()).norm()
+                    / plain[key].float().norm())
+        assert rel <= tol, (key, rel)
+
+
+# -- the families' training routes and train steps ---------------------------
+
+# (KV heads, G, T, hd, causal) of the families' attention backward at B 2:
+# qwen2-vl-2b's 12 / 2 heads, whisper-small's decoder and encoder, qwen2-moe
+# -a2.7b's 16 heads
+FAMILY_BWD = [(2, 6, 512, 128, True), (12, 1, 256, 64, True),
+              (12, 1, 1536, 64, False), (16, 1, 512, 128, True)]
+
+
+@pytest.mark.parametrize("kh,g,t,hd,causal", FAMILY_BWD,
+                         ids=["vlm_g6", "whisper_g1", "whisper_noncausal_g1",
+                              "moe_g1"])
+def test_flash_attention_bwd_family_routes(dev, kh, g, t, hd, causal):
+    """The families' backward routes in bf16 (B 2): dq, dk, dv against the
+    plain version, the same bits twice, and each of 2 ranks' launch on its
+    half of the KV heads (model 2) bit for bit against its heads of the
+    whole launch."""
+    b = 2
+    q, k, v, dout = _attention_inputs(dev, g, t, hd, torch.bfloat16,
+                                      kh * g + t, bkh=b * kh)
+    _bwd_held(q, k, v, dout, causal=causal)
+    o, lse = fa._forward(q, k, v, causal, None, with_lse=True)
+    whole = fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)
+    half = kh // 2
+
+    def heads(w, r):
+        return w.reshape(b, kh, *w.shape[1:])[:, r * half:(r + 1) * half] \
+            .reshape(b * half, *w.shape[1:]).contiguous()
+
+    for r in range(2):
+        qr, kr, vr, dr = (heads(w, r) for w in (q, k, v, dout))
+        o_r, lse_r = fa._forward(qr, kr, vr, causal, None, with_lse=True)
+        got = fa.flash_attention_bwd(qr, kr, vr, o_r, lse_r, dr,
+                                     causal=causal)
+        for a, full in zip(got, whole):
+            assert torch.equal(a, heads(full, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [1536, 1600, 1024, 2048])
+def test_rms_norm_family_widths(dev, d, dtype):
+    """rms_norm forward and backward at the families' widths (qwen2-vl-2b,
+    hymba-1.5b, xlstm-350m, qwen2-moe-a2.7b; xlstm's mLSTM / sLSTM output
+    norms at 2048 / 1024 in f32) over 2048 rows against the plain
+    versions; the backward twice gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = (torch.randn(2048, d, generator=gen, device=dev) * 3).to(dtype)
+    w = torch.randn(d, generator=gen, device=dev).to(dtype)
+    dy = torch.randn(2048, d, generator=gen, device=dev).to(dtype)
+    close = (_bf16_close if dtype == torch.bfloat16 else
+             lambda a, b: torch.testing.assert_close(a, b, atol=1e-4,
+                                                     rtol=1e-4))
+    close(rn.rms_norm(x, w, 1e-5), rn.rms_norm_ref(x, w, 1e-5))
+    got = rn.rms_norm_bwd(x, w, dy, 1e-5)
+    for a, b in zip(got, rn.rms_norm_bwd_ref(x, w, dy, 1e-5)):
+        close(a, b)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, rn.rms_norm_bwd(x, w, dy, 1e-5)))
+
+
+# the kernels each family's train step launches (hymba's windowed attention
+# and whisper's cross attention run plain PyTorch; whisper has no rms_norm)
+FAMILY_TRAIN_KERNELS = {
+    "qwen2-vl-2b": (fa.KERNEL, fa.KERNEL_BWD, rn.KERNEL, rn.KERNEL_BWD),
+    "hymba-1.5b": (rn.KERNEL, rn.KERNEL_BWD),
+    "xlstm-350m": (rn.KERNEL, rn.KERNEL_BWD),
+    "whisper-small": (fa.KERNEL, fa.KERNEL_BWD),
+    "qwen2-moe-a2.7b": (fa.KERNEL, fa.KERNEL_BWD, rn.KERNEL,
+                        rn.KERNEL_BWD)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", sorted(FAMILY_TRAIN_KERNELS))
+def test_family_train_step_on_the_card(dev, arch, dtype, monkeypatch):
+    """One family's value_and_grad of the train loss at tiny width, 2
+    layers (xlstm 4: its sLSTM block is layer 3), on the card: the
+    family's kernels launch, every gradient is finite and non-zero, and
+    each leaf is within a relative norm of 1e-4 (f32) / 5e-2 (bf16) of the
+    same step through the plain versions (MoE: on the kernel run's expert
+    choices)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.dist._tree import leaves_with_keys
+    from repro_torch.models import moe
+    from repro_torch.train.trainer import make_loss_fn, value_and_grad
+
+    cfg = ARCHS[arch].tiny()
+    cfg = cfg.scaled(dtype=dtype, moe_capacity_factor=16.0,
+                     n_layers=4 if cfg.family == "ssm" else 2)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(0, 4, 64).items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    extra = {"vlm": ("patches", cfg.patch_len),
+             "audio": ("frames", cfg.encoder_len)}.get(cfg.family)
+    if extra is not None:
+        batch[extra[0]] = torch.randn((4, extra[1], cfg.d_model),
+                                      generator=gen, device=dev)
+    loss_fn = make_loss_fn(model, 0.01)
+    before = [k.launches for k in FAMILY_TRAIN_KERNELS[arch]]
+    # the plain run takes the kernel run's expert choices: a bf16 router
+    # near a tie picks another expert for another rounding of its input
+    routes = []
+    route = moe._route
+
+    def recorded(x, w, n_real, k):
+        out = route(x, w, n_real, k)
+        routes.append(out[1])
+        return out
+
+    def replayed(x, w, n_real, k):
+        _, _, aux = route(x, w, n_real, k)
+        topi = routes.pop(0)
+        logits = (x @ w.to(x.dtype)).float()
+        return torch.softmax(logits.gather(1, topi), dim=-1), topi, aux
+
+    with monkeypatch.context() as mp:
+        mp.setattr(moe, "_route", recorded)
+        (loss, _), grads = value_and_grad(loss_fn, params, batch)
+    for kern, n in zip(FAMILY_TRAIN_KERNELS[arch], before):
+        assert kern.launches > n, kern.symbol
+    with monkeypatch.context() as mp:
+        _PlainKernels(mp)
+        mp.setattr(moe, "_route", replayed)
         (plain_loss, _), plain = value_and_grad(loss_fn, params, batch)
     plain = dict(leaves_with_keys(plain))
     tol = 1e-4 if dtype == "float32" else 5e-2

@@ -331,6 +331,20 @@ def _rank_collectives(mesh):
         (gc,) = torch.autograd.grad((collectives.copy_to(c, "model")
                                      * (mm + 1)).sum(), c)
         out["copy_to"] = gc.tolist()
+        # all_to_all: row j of rank (d, i) goes to model rank j; the
+        # whole-mesh computation: out row j = rank (d, j)'s row mm, and the
+        # gradient of a loss weighting received row j by w(d, mm, j) comes
+        # back to rank (d, j) as that weight
+        a = (torch.arange(2.0) + 10 * mm + 100 * dm)[:, None].repeat(1, 3)
+        a.requires_grad_()
+        got = collectives.all_to_all(a, "model")
+        weight = (torch.arange(2.0) + 2 * mm + 4 * dm + 1)[:, None]
+        (ga,) = torch.autograd.grad((got * weight).sum(), a)
+        out["all_to_all"] = (
+            got[:, 0].tolist() == [mm + 100 * dm, 10 + mm + 100 * dm],
+            ga[:, 0].tolist() == [2 * j + mm + 4 * dm + 1
+                                  for j in range(2)],
+            collectives.counts()["all_to_all"]["calls"])
         with torch.no_grad():
             out["max"] = float(collectives.all_reduce(
                 torch.tensor(float(r)), None, op="max"))
@@ -348,13 +362,16 @@ def test_collectives_carry_gradients(tmp_path):
     """On (2, 2): all_reduce's backward passes the output gradient;
     all_gather hands back the rank's block, or with reduce_grad the
     block of the gradient summed over the axis; copy_to sums its gradient
-    over the axis; max over the mesh; reduce_scatter on dim 1; without
-    grad a call is counted once and carries no graph."""
+    over the axis; all_to_all exchanges rows and sends each row's
+    gradient back to its source rank (two calls, one each way); max over
+    the mesh; reduce_scatter on dim 1; without grad a call is counted once
+    and carries no graph."""
     got = spawn(_rank_collectives, (2, 2), "gloo", str(tmp_path), **SPAWN)
     assert got["all_reduce"] == ([[3.0] * 3] * 2, True)   # ranks 0 + 1
     assert got["fsdp_gather"] == ((2, 6), True)
     assert got["all_gather"] is True
     assert got["copy_to"] == [3.0, 3.0, 3.0]              # 1 + 2
+    assert got["all_to_all"] == (True, True, 2)
     assert got["max"] == 3.0
     assert got["reduce_scatter"] == [[0.0, 3.0], [12.0, 15.0]]
     assert got["no_grad"] == (False, 1)
