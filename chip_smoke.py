@@ -32,8 +32,9 @@ Phases (any failure exits non-zero; nothing is caught):
               verify variant at T 4 with each row bit for bit against the
               single-position launch at base + t + 1, timed beside those
               4 launches and, dense, one masked scaled_dot_product_attention;
-              rms_norm at 4 and 16 rows of 4096 beside
-              ``torch.nn.functional.rms_norm``; flash_attention also with
+              rms_norm at 4, 16, 2048 and 8192 rows of 4096 beside
+              ``torch.nn.functional.rms_norm`` (its block and warp
+              routes); flash_attention also with
               a key length per row, 4 prompts of 300..450 tokens padded to
               512, each prompt's rows bit for bit against the prompt alone
               at its exact length, timed beside a masked
@@ -45,9 +46,13 @@ Phases (any failure exits non-zero; nothing is caught):
               rms_norm at (2048, 4096) beside ``F.rms_norm``'s), each
               against its plain version (at T 4096 against SDPA) and bit
               for bit on a second run; the build phase fails on a
-              register spill in the redesigned backward kernels;
+              register spill in the redesigned backward kernels and in
+              rms_norm's warp route;
 4. reference — a tiny llama3-8b on the card (kernels) against the same
               model on the CPU (plain versions): logits and greedy tokens;
+              the card's forward twice (bit for bit) and both beside an
+              f64 CPU forward of the same weights, so that a failure
+              names the side that moved;
    train    — llama3-8b at full width cut to 2 layers: step 1's gradients
               (every leaf non-zero, held per leaf against the plain
               versions' step), 20 AdamW steps of 4 x 512 tokens, a
@@ -302,7 +307,7 @@ BF16_REL_TOL = 1e-2
 EXACT_REL_TOL = 5e-4
 # kernels whose every instantiation must compile without a register spill
 NO_SPILL = ("fa_bwd_dkdv_tc", "fa_bwd_dq_tc", "fa_bwd_prep",
-            "rms_norm_bwd_rows", "rms_norm_dw")
+            "rms_norm_bwd_rows", "rms_norm_dw", "rms_norm_warp_rows")
 
 
 def fail(msg: str):
@@ -1901,45 +1906,61 @@ def quant_matmul_experts_row(dev, gen, randn):
 
 def rms_norm_row(dev, gen, randn):
     """rms_norm at the decode step's (4, 4096) and a verify pass's
-    (16, 4096) rows, bf16: against its plain version, rows bit for bit
-    whatever rows come with them, then timed beside the plain version and
-    ``torch.nn.functional.rms_norm``."""
+    (16, 4096) rows, and at the train step's (2048, 4096) and
+    calibration's (8192, 4096), bf16: against its plain version, rows bit
+    for bit whatever rows come with them, then timed beside the plain
+    version and ``torch.nn.functional.rms_norm`` (inputs rotated past L2
+    at 2048 rows and more)."""
     from repro_torch.kernels import rms_norm as rn
 
     phase("kernel rms_norm")
     d, eps = 4096, 1e-5
     w = randn(d)
+    lib_fn = getattr(torch.nn.functional, "rms_norm", None)
     out = {}
-    for rows_n in (4, 16):
-        xs = [randn(rows_n, d) * 3 for _ in range(8)]
-        err = held(f"rows={rows_n} d={d} bf16", rn.rms_norm(xs[0], w, eps),
-                   rn.rms_norm_ref(xs[0], w, eps))
+    for rows_n in RMS_NORM_ROWS:
+        xs = (_rotated(lambda: randn(rows_n, d) * 3, rows_n * d * 2)
+              if rows_n >= 2048 else [randn(rows_n, d) * 3 for _ in range(8)])
+        n = len(xs)
         full = rn.rms_norm(xs[0], w, eps)
-        same_bits(f"rows={rows_n}: each row alone == in the batch",
+        err = held(f"rows={rows_n} d={d} bf16", full,
+                   rn.rms_norm_ref(xs[0], w, eps))
+        alone = list(range(rows_n)) if rows_n <= 16 else \
+            [0, 1, 777, rows_n - 1]
+        same_bits(f"rows={rows_n}: "
+                  f"{'each row' if rows_n <= 16 else f'rows {alone}'} alone "
+                  f"== in the batch",
                   torch.cat([rn.rms_norm(xs[0][i:i + 1], w, eps)
-                             for i in range(rows_n)]), full)
-        lib_fn = getattr(torch.nn.functional, "rms_norm", None)
+                             for i in alone]), full[alone])
         out[rows_n] = dict(
-            err=err, ms=time_ms(lambda i: rn.rms_norm(xs[i % 8], w, eps)),
-            plain=time_ms(lambda i: rn.rms_norm_ref(xs[i % 8], w, eps)),
+            err=err, ms=time_ms(lambda i: rn.rms_norm(xs[i % n], w, eps)),
+            plain=time_ms(lambda i: rn.rms_norm_ref(xs[i % n], w, eps)),
             lib=None if lib_fn is None else time_ms(
-                lambda i: lib_fn(xs[i % 8], (d,), w, eps)),
+                lambda i: lib_fn(xs[i % n], (d,), w, eps)),
             bound=bound(2 * rows_n * d * 2 + d * 2, 4 * rows_n * d,
                         F32_FLOPS_PER_S))
         print(f"  rows={rows_n}: {out[rows_n]['ms']:.4f} ms (plain "
               f"{out[rows_n]['plain']:.4f}, F.rms_norm {out[rows_n]['lib']}, "
               f"bound {out[rows_n]['bound'][0]:.6f} by "
               f"{out[rows_n]['bound'][1]})", flush=True)
-    r4, r16 = out[4], out[16]
+        del xs, full
+    torch.cuda.empty_cache()
+    r4 = out[4]
+    more = {}
+    for rows_n in RMS_NORM_ROWS[1:]:
+        o = out[rows_n]
+        more.update({f"rows{rows_n}_ms": o["ms"],
+                     f"rows{rows_n}_plain_ms": o["plain"],
+                     f"rows{rows_n}_library_ms": o["lib"],
+                     f"rows{rows_n}_bound_ms": o["bound"][0],
+                     f"rows{rows_n}_max_abs_err": o["err"]})
     return dict(name="rms_norm", route="cuda",
                 source="src/repro_torch/csrc/rms_norm.cu",
                 replaces="none: a kernel of the port only (repro's rms_norm "
                          "is plain jnp, src/repro/models/common.py:54)",
                 shape=f"x (4,{d}) bf16, w ({d},)", max_abs_err=r4["err"],
                 ms=r4["ms"], plain_ms=r4["plain"], bound_ms=r4["bound"][0],
-                bound_by=r4["bound"][1], library_ms=r4["lib"],
-                rows16_ms=r16["ms"], rows16_plain_ms=r16["plain"],
-                rows16_library_ms=r16["lib"], rows16_bound_ms=r16["bound"][0])
+                bound_by=r4["bound"][1], library_ms=r4["lib"], **more)
 
 
 def flash_attention_bwd_row(dev, gen, randn):
@@ -2222,6 +2243,9 @@ FAMILY_NORMS = (("rms_norm_bwd_d1536", "qwen2-vl-2b", 1536, "bfloat16"),
                 ("rms_norm_bwd_d1600", "hymba-1.5b", 1600, "bfloat16"),
                 ("rms_norm_bwd_d1024", "xlstm-350m", 1024, "float32"),
                 ("rms_norm_bwd_d2048", "qwen2-moe-a2.7b", 2048, "bfloat16"))
+# rms_norm's timed rows at 4096: the decode step, a verify pass, the train
+# step (and 4 x 512 prefill rows), calibration's 16 x 512
+RMS_NORM_ROWS = (4, 16, 2048, 8192)
 # bytes of input sets a timed call rotates through (past the 50 MB L2)
 ROTATE_BYTES = 128 * 2**20
 
@@ -2550,6 +2574,8 @@ def quant_error_row(dev, gen, randn):
 # ---------------------------------------------------------------------------
 
 def reference_phase(dev):
+    import torch.utils._pytree as pytree
+
     from repro_torch.bridge import tree_to
     from repro_torch.configs import ARCHS
     from repro_torch.core import QuantSpec, quantize_model, run_calibration
@@ -2566,23 +2592,42 @@ def reference_phase(dev):
               .astype(np.int32)}]
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 17, 40)]
+    tokens = calib[0]["tokens"]
+
+    def forward(mdl, p, device):
+        return mdl.forward(p, {"tokens": torch.as_tensor(tokens, device=device)}
+                           )[0].cpu()
+
     logits, alphas = {}, {}
     for device in (dev, cpu):
-        logits[device] = model.forward(
-            params[device],
-            {"tokens": torch.as_tensor(calib[0]["tokens"], device=device)}
-        )[0].float().cpu()
+        logits[device] = forward(model, params[device], device).float()
         stats = run_calibration(model.forward, params[device], calib)
         qp, report = quantize_model(params[device], model.quant_site_map(),
                                     stats, method="faq",
                                     spec=QuantSpec(bits=4, group_size=64),
                                     mode="packed")
         alphas[device] = {p: r["alpha"].cpu() for p, r in report.items()}
+    # the one-off this phase once read (a card-vs-cpu distance 100x its
+    # usual): a second card run and an f64 forward of the same weights say
+    # which side moved
+    again = forward(model, params[dev], dev).float()
+    f64 = forward(build_model(cfg.scaled(dtype="float64")), pytree.tree_map(
+        lambda t: t.double() if t.is_floating_point() else t, params[cpu]),
+        cpu)
     err = float((logits[dev] - logits[cpu]).abs().max())
+    card_f64 = float((logits[dev].double() - f64).abs().max())
+    cpu_f64 = float((logits[cpu].double() - f64).abs().max())
+    repeat = torch.equal(again, logits[dev])
     print(f"  tiny forward (flash-attention path): card vs cpu logits "
-          f"max_abs_err={err:.3e}", flush=True)
+          f"max_abs_err={err:.3e}; card vs f64 {card_f64:.3e}, cpu vs f64 "
+          f"{cpu_f64:.3e}; a second card run bit for bit {repeat}",
+          flush=True)
+    check(repeat, "tiny forward: two runs on the card differ (the card "
+                  f"moved: {float((again - logits[dev]).abs().max()):.3e})")
+    moved = "the card" if card_f64 > cpu_f64 else "the CPU"
     check(err <= 1e-4 * max(1.0, float(logits[cpu].abs().max())),
-          "tiny forward on the card disagrees with the CPU")
+          f"tiny forward on the card disagrees with the CPU: {moved} moved "
+          f"(card vs f64 {card_f64:.3e}, cpu vs f64 {cpu_f64:.3e})")
     same_alpha = all(torch.equal(alphas[dev][p], alphas[cpu][p])
                      for p in alphas[cpu])
     print(f"  FAQ alpha per site identical card vs cpu: {same_alpha}",

@@ -8,27 +8,53 @@
 // a verify pass over B * (K + 1) rows and the decode step it stands for,
 // rounded the same hidden state differently.
 //
-// x (rows, d) and w (d,) in f32 or bf16, out in x's type.  One block per
-// row.  Thread i owns the 8-element chunks i, i + THREADS, ...; it sums the
-// squares of its elements in order (fmaf, f32), the warps fold by a fixed
-// butterfly, and thread 0 adds the warps' sums in warp order.  That order
-// depends on d alone, never on the number of rows or on the row's address
-// (16-byte loads where the row is aligned, scalar loads of the same
-// elements otherwise), so a row's bits do not depend on the rows around it.
-// The scale is applied as the plain version does: (x * r) * w, rounded to
-// out's type once.
+// x (rows, d) and w (d,) in f32 or bf16, out in x's type.  The summation
+// order is fixed by d alone: logical thread t of 256 sums, with fmaf and in
+// order, the squares of its 8-element chunks t, t + 256, ...; each logical
+// warp of 32 folds by the xor butterfly 16, 8, 4, 2, 1; the 8 warps' sums
+// are added in warp order from 0.f; r = rsqrt(sum / d + eps) and out =
+// (x * r) * w, rounded to out's type once.  Loads are 16 bytes where the
+// row is aligned and scalar otherwise, of the same elements.  So a row's
+// bits depend on neither the rows around it nor its address, and the
+// backward (below) recomputes the forward's r exactly.
 //
-// What bounds it on the H100: each element is read once (twice, the second
-// read from L1/L2) and written once, ~3 flops per element: bytes.  At the
-// decode step's 4 rows of 4096 bf16 it moves 64 KB (~0.02 us at 3.35 TB/s),
-// so in practice it is bound by the launch and one block's latency.
+// Two routes give those bits:
+// - the warp route (rms_norm_warp_rows), for more rows than the card has
+//   SMs, of rows whose chunks fit a warp's registers: d <= 4096 in bf16 (16
+//   chunks a lane), d <= 2048 in f32 (8 chunks a lane);
+// - the block route (rms_norm_rows), a 256-thread block per row: up to one
+//   row per SM (the decode step, a verify pass: a row's latency is the
+//   time there, and 8 warps share it) and wider rows (up to llama3-405b's
+//   16384).
+//
+// What bounds it on the H100: bytes (each element read once and written
+// once, ~3 flops each).  (2048, 4096) bf16 moves 32 MB, 0.010 ms at 3.35
+// TB/s.  The warp route reads x once into registers as stored and needs no
+// barrier: rows up to 2048 wide (at most 8 chunks a lane) keep w in
+// registers across the several rows each warp takes and load the next row
+// before the current row's butterflies (the grid is capped at 2 blocks a
+// SM); rows up to 4096 wide (64 registers of x a lane) take a row per warp,
+// 4 blocks of 128 threads a SM (the train step's 2048 rows in one wave),
+// and copy each lane's own chunks of w to shared memory by cp.async while
+// x loads.  At 4 rows of 4096 (64 KB) the launch and one row's latency are
+// the time: the block route.
 #include "common.cuh"
+
+#include <algorithm>
 
 namespace {
 
 constexpr int RN_THREADS = 256;
 constexpr int RN_CHUNK = 8;
 constexpr int RN_BWD_ROWS = 8;    // rows per block of the backward (256 blocks at 2048)
+constexpr int RN_WARPS = 4;       // warps per block of the warp route
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
 
 // The 8 elements of chunk c (those past d read as 0), as floats.
 template <typename T>
@@ -58,6 +84,8 @@ __device__ __forceinline__ void load_chunk(const T* row, int c, int d, bool vec,
     v[i] = e0 + i < d ? repro::to_f32(row[e0 + i]) : 0.f;
 }
 
+// The block route: a block of RN_THREADS per row, thread i summing its chunks
+// i, i + RN_THREADS, ...; x is read again, from L1, to scale it.
 template <typename T>
 __global__ void __launch_bounds__(RN_THREADS)
 rms_norm_rows(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
@@ -163,6 +191,119 @@ __device__ __forceinline__ void store_chunk(T* row, int c, int d, bool vec,
 #pragma unroll
   for (int i = 0; i < RN_CHUNK; ++i)
     if (e0 + i < d) repro::store_as(row + e0 + i, v[i]);
+}
+
+// Copies 16 bytes from global to shared memory through L1, where the next
+// warp on the SM finds them.
+__device__ __forceinline__ void cp_async_ca16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(repro::smem_u32(dst)),
+               "l"(src));
+}
+
+// The warp route: a warp per row, the block route's sums.  Lane l stands for
+// the block route's threads l + 32 j, j < J (J is 4 where rows of d <= 1024
+// leave threads 128.. without a chunk, else 8): accumulator j sums, in
+// order, the chunks thread l + 32 j owns (l + 32 j + 256 k, k < NK),
+// butterfly j over the lanes is that thread's warp's fold, and every lane
+// adds the folds in warp order from 0.f as thread 0 does there.  A logical
+// warp with no chunk adds +0, which changes nothing, so its butterfly is
+// skipped.  The row is held in registers as stored (Raw): x is read once.
+// No barrier: w's chunks are each lane's own, in registers (NK 1) or in
+// shared memory (NK 2).  Warp g takes rows g, g + (warps in the grid), ...;
+// with NK 1 the next row's loads are issued before the current row's
+// butterflies.
+template <typename T, int J, int NK>
+__global__ void __launch_bounds__(RN_WARPS * 32, NK == 1 ? 2 : 4)
+rms_norm_warp_rows(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                   int rows, int d, float eps, bool vec) {
+  constexpr int AHEAD = NK == 1 ? 1 : 0;      // rows loaded beyond the current one
+  constexpr int Q = sizeof(Raw<T>) / 16;      // 16-byte words of a chunk
+  __shared__ uint4 wsm[NK == 2 ? RN_WARPS : 1][NK == 2 ? NK * J * Q : 1][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_chunks = (d + RN_CHUNK - 1) / RN_CHUNK;
+  const unsigned stride = gridDim.x * RN_WARPS;     // rows < 2^31: r + stride < 2^32
+  unsigned r = blockIdx.x * RN_WARPS + warp;
+  if (r >= static_cast<unsigned>(rows)) return;
+  Raw<T> xr[AHEAD + 1][NK][J];                // slot s: row r + s * stride
+  Raw<T> wr[NK == 1 ? J : 1];
+  uint4 (*ws)[32] = wsm[NK == 2 ? warp : 0];
+  auto chunk = [&](int k, int j) { return lane + 32 * j + RN_THREADS * k; };
+
+  auto load_row = [&](unsigned row, int slot) {
+    const T* xrow = x + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int k = 0; k < NK; ++k)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (chunk(k, j) < n_chunks) xr[slot][k][j] = load_raw(xrow, chunk(k, j), d, vec);
+  };
+  if constexpr (NK == 1) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (chunk(0, j) < n_chunks) wr[j] = load_raw(w, chunk(0, j), d, vec);
+  } else if (vec) {
+#pragma unroll
+    for (int k = 0; k < NK; ++k)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (chunk(k, j) < n_chunks)
+#pragma unroll
+          for (int q = 0; q < Q; ++q)
+            cp_async_ca16(&ws[(k * J + j) * Q + q][lane],
+                          reinterpret_cast<const uint4*>(w + chunk(k, j) * RN_CHUNK) + q);
+    repro::cp_async_commit();
+  }
+  if (AHEAD) load_row(r, 0);
+  for (; r < static_cast<unsigned>(rows); r += stride) {
+    if (!AHEAD) load_row(r, 0);
+    else if (r + stride < static_cast<unsigned>(rows)) load_row(r + stride, AHEAD);
+    float acc[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NK; ++k)
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (chunk(k, j) < n_chunks) {
+          float v[RN_CHUNK];
+          from_raw(xr[0][k][j], v);
+#pragma unroll
+          for (int i = 0; i < RN_CHUNK; ++i) acc[j] = fmaf(v[i], v[i], acc[j]);
+        }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) sum += 32 * j < n_chunks ? repro::warp_sum(acc[j]) : 0.f;
+    const float rs = rsqrtf(sum / static_cast<float>(d) + eps);
+    if constexpr (NK == 2) repro::cp_async_wait_all();
+    T* orow = out + static_cast<size_t>(r) * d;
+#pragma unroll
+    for (int k = 0; k < NK; ++k)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = chunk(k, j);
+        if (c < n_chunks) {
+          float v[RN_CHUNK], g[RN_CHUNK];
+          from_raw(xr[0][k][j], v);
+          if constexpr (NK == 1) {
+            from_raw(wr[j], g);
+          } else if (vec) {
+            Raw<T> raw;
+#pragma unroll
+            for (int q = 0; q < Q; ++q) raw.u[q] = ws[(k * J + j) * Q + q][lane];
+            from_raw(raw, g);
+          } else {
+            load_chunk(w, c, d, false, g);
+          }
+#pragma unroll
+          for (int i = 0; i < RN_CHUNK; ++i) v[i] = (v[i] * rs) * g[i];
+          store_chunk(orow, c, d, vec, v);
+        }
+      }
+    if (AHEAD) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) xr[0][0][j] = xr[AHEAD][0][j];
+    }
+  }
 }
 
 // Backward of one row block: rows [r0, r0 + RN_BWD_ROWS).  For each row,
@@ -318,16 +459,39 @@ rms_norm_dw(const float* __restrict__ part, T* __restrict__ dw, int n_blocks, in
   }
 }
 
+template <typename T, int J, int NK>
+int launch_warp(const T* x, const T* w, T* out, int rows, int d, float eps, bool vec,
+                cudaStream_t stream) {
+  unsigned blocks = (static_cast<unsigned>(rows) + RN_WARPS - 1) / RN_WARPS;
+  if (NK == 1) blocks = std::min(blocks, 2u * sm_count());   // each warp several rows
+  rms_norm_warp_rows<T, J, NK><<<blocks, RN_WARPS * 32, 0, stream>>>(x, w, out, rows, d, eps,
+                                                                     vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* x, const void* w, void* out, int rows, int d, float eps,
            cudaStream_t stream) {
-  // vector loads where every chunk lies inside its row and every row and w
-  // start on 16 bytes
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w);
+  // vector loads and stores where every chunk lies inside its row and every
+  // row, w and out start on 16 bytes
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(out);
   const bool vec = d % RN_CHUNK == 0 && addr % 16 == 0;
-  rms_norm_rows<T><<<rows, RN_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d, eps,
-      vec);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* ot = static_cast<T*>(out);
+  const int n_chunks = (d + RN_CHUNK - 1) / RN_CHUNK;
+  if (rows > sm_count()) {
+    if (n_chunks <= RN_THREADS / 2)
+      return launch_warp<T, 4, 1>(xt, wt, ot, rows, d, eps, vec, stream);
+    if (n_chunks <= RN_THREADS)
+      return launch_warp<T, 8, 1>(xt, wt, ot, rows, d, eps, vec, stream);
+    if constexpr (sizeof(T) == 2) {
+      if (n_chunks <= 2 * RN_THREADS)
+        return launch_warp<T, 8, 2>(xt, wt, ot, rows, d, eps, vec, stream);
+    }
+  }
+  rms_norm_rows<T><<<rows, RN_THREADS, 0, stream>>>(xt, wt, ot, d, eps, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,10 @@ forward and backward.
 
 Wrapper of ``csrc/rms_norm.cu``, a kernel of the port with no TPU
 counterpart (the reference's ``rms_norm`` is plain jnp that XLA fuses):
-one block per row, the squares summed in an order fixed by the row width
-alone.  A CPU tensor takes the plain versions :func:`rms_norm_ref` /
+the squares summed in an order fixed by the row width alone, by a warp per
+row where there are more rows than SMs and a row fits a warp's registers
+(d <= 4096 bf16, 2048 f32), else by a block per row; both give the same
+bits.  A CPU tensor takes the plain versions :func:`rms_norm_ref` /
 :func:`rms_norm_bwd_ref`; a CUDA tensor launches the kernels or raises.
 When grad is enabled and x or w requires it, :func:`rms_norm` runs as a
 ``torch.autograd.Function`` whose backward is the same source's

@@ -668,14 +668,20 @@ def test_flash_verify_f32_matches_plain(dev, variant):
                                plain(q, *args, base), atol=1e-5, rtol=1e-5)
 
 
+# d: the scalar path (36, 100), the warp route's widths (one logical warp at
+# 128, 4 at 1024, 8 at 1536 / 1600 / 2048, two chunks a lane at 4096 bf16)
+# and the block route's (4096 f32, 5120, 16384); 16 rows take the block
+# route, 2048 the warp route where the row fits it
+@pytest.mark.parametrize("n", [16, 2048])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [4096, 100, 36])
+@pytest.mark.parametrize("d", [4096, 100, 36, 128, 1024, 1536, 1600, 2048,
+                               5120, 16384])
 def test_rms_norm_matches_plain_and_rows_do_not_depend_on_the_batch(
-        dev, d, dtype):
+        dev, d, dtype, n):
     gen = torch.Generator(device=dev).manual_seed(d)
-    x = (torch.randn(17 * d + 1, generator=gen, device=dev) * 3).to(dtype)
+    x = (torch.randn((n + 1) * d + 1, generator=gen, device=dev) * 3).to(dtype)
     w = (torch.rand(d, generator=gen, device=dev) + 0.5).to(dtype)
-    rows = x[:16 * d].view(16, d)
+    rows = x[:n * d].view(n, d)
     before = rn.KERNEL.launches
     got = rn.rms_norm(rows, w, 1e-5)
     assert rn.KERNEL.launches == before + 1
@@ -683,12 +689,12 @@ def test_rms_norm_matches_plain_and_rows_do_not_depend_on_the_batch(
     tol = (1e-2 * float(want.float().abs().max()) if dtype == torch.bfloat16
            else 1e-5 * max(1.0, float(want.abs().max())))
     assert float((got.float() - want.float()).abs().max()) <= tol
-    for i in (0, 5, 15):
+    for i in (0, 5, n - 1):
         assert torch.equal(rn.rms_norm(rows[i:i + 1], w, 1e-5)[0], got[i])
     assert torch.equal(rn.rms_norm(rows[:4].reshape(2, 2, d), w, 1e-5),
                        got[:4].reshape(2, 2, d))
     # a row at an address that rules out 16-byte loads: the same bits
-    shifted = x[1:16 * d + 1].view(16, d)
+    shifted = x[1:n * d + 1].view(n, d)
     shifted.copy_(rows.clone())
     assert torch.equal(rn.rms_norm(shifted, w, 1e-5), got)
 

@@ -294,7 +294,11 @@ def test_tma_operands_pad_only_rows_tma_cannot_describe(hd, offsets, bf16,
         assert torch.equal(y[..., :hd], x) and not y[..., hd:].any()
 
 
-@pytest.mark.parametrize("shape", [(3, 128), (2, 5, 100), (1, 36)])
+# the kernel's routes' widths too: one, four and eight logical warps, two
+# chunks a lane (4096), the block route's wider rows (5120)
+@pytest.mark.parametrize("shape", [(3, 128), (2, 5, 100), (1, 36), (4, 1024),
+                                   (3, 1536), (2, 1600), (2, 2048),
+                                   (2, 4096), (1, 5120)])
 def test_rms_norm_plain_matches_reference(shape):
     rng = np.random.default_rng(len(shape))
     x = (rng.normal(size=shape) * 3).astype(np.float32)
