@@ -59,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught):
               save_async of {params, opt} after step 10 restored bit for
               bit and resumed to the same loss bits (the first resumed
               step under torch.profiler: device busy share and the top
-              device operations of a train step), and the trained
+              device operations of a train step; the step's TFLOP/s from
+              the dry-run's model_flops), and the trained
               params' checkpoint served through launch/serve.py's restore
               with the in-memory params' tokens;
    families — qwen2-vl-2b, hymba-1.5b, xlstm-350m, whisper-small and
@@ -75,12 +76,14 @@ Phases (any failure exits non-zero; nothing is caught):
               2048) held and timed in phase 3;
    mesh     — the same 2 layers trained on a (data, model) mesh of 2
               ranks that share the card over gloo, at (1, 2) (tensor
-              parallel) and (2, 1) (FSDP + data parallel), 3 steps each on
-              the train phase's batches: step 1's loss, grad_norm and
-              gathered gradients against the single-device step's, the
-              losses against its losses, collectives per step against the
-              tests' formula, a one-writer mesh save read back bit for
-              bit; the two backward routes (flash_attention_bwd on one
+              parallel) and (2, 1) (FSDP + data parallel), and on the
+              (pod, data, model) mesh (2, 1, 1), 3 steps each on the train
+              phase's batches: step 1's loss, grad_norm and gathered
+              gradients against the single-device step's, the losses
+              against its losses, collectives per step against the tests'
+              formula, each rank's state bytes against the dry-run's
+              prediction, (2, 1, 1) bit for bit with (2, 1), a one-writer
+              mesh save read back bit for bit; the two backward routes (flash_attention_bwd on one
               rank's 4 of 8 KV heads, rms_norm_bwd on a data rank's 1024
               rows) are held and timed in phase 3; then, in the same
               spawn, each family at (1, 2) and (2, 1) (MoE (1, 2); xlstm
@@ -2652,6 +2655,8 @@ def reference_phase(dev):
 # ---------------------------------------------------------------------------
 
 TRAIN_LAYERS = 2                   # the train path's one cut (see train_paths)
+# one H100's dense bf16 peak (NVIDIA's data sheet, SXM part, at 700 W)
+BF16_PEAK_TFLOPS = 989
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 4, 512
 RESUME_AT = 10
 # limit on ||grad - plain grad|| / ||plain grad|| per leaf of one bf16 train
@@ -2734,6 +2739,7 @@ def train_paths(dev, kernels):
     from repro_torch.data.synthetic import calibration_batches
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.dist._tree import leaves_with_keys
+    from repro_torch.launch import dryrun
     from repro_torch.launch.serve import data_for, load_params
     from repro_torch.models.registry import build_model
     from repro_torch.obs import profile_session
@@ -2830,6 +2836,19 @@ def train_paths(dev, kernels):
         check(all(np.isfinite(losses)), "a training loss is not finite")
         check(losses[-1] < losses[0], "the loss did not fall in 20 steps")
         ref["losses"] = losses[:MESH_STEPS]
+        # the step's work from the dry-run (FlopCounterMode over the
+        # port's forward and backward on the meta device), over its time
+        flops = dryrun.model_flops(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+        step_s = run["train_s"] / TRAIN_STEPS
+        rate = flops / step_s / 1e12
+        print(f"  dry-run model_flops of one step ({TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens, {cfg.n_layers} layers): {flops} = "
+              f"{flops / 1e12:.4f} TFLOP; measured {step_s * 1e3:.2f} ms a "
+              f"step (the mean of {TRAIN_STEPS}) = {rate:.2f} TFLOP/s = "
+              f"{100 * rate / BF16_PEAK_TFLOPS:.2f}% of "
+              f"{BF16_PEAK_TFLOPS} TFLOP/s bf16 on {nvidia_smi()}",
+              flush=True)
+        check(flops > 0, "the dry-run counted no work in a train step")
 
         phase(f"main path: checkpoint at step {RESUME_AT}, restore, resume")
         nbytes = os.path.getsize(os.path.join(tmp, f"step_{RESUME_AT:08d}",
@@ -3194,6 +3213,9 @@ def gc_collect():
 # ---------------------------------------------------------------------------
 
 MESH_SHAPES = ((1, TP_RANKS), (TP_RANKS, 1))     # (data, model)
+# (pod, data, model): the same 2 ranks as (TP_RANKS, 1)'s data group, so
+# the same rows, collectives and bits
+POD_SHAPE = (TP_RANKS, 1, 1)
 MESH_STEPS = 3
 MESH_TIMEOUT = 600
 # limit on |mesh - single-device| / |single-device| of each step's loss
@@ -3337,11 +3359,12 @@ def family_mesh_rank(mesh, refs):
 
 
 def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
-    """One rank of the mesh phase: for each of MESH_SHAPES over the same 2
-    ranks, seed-0 params cut to this rank's shards and MESH_STEPS steps on
-    this rank's rows of the train phase's batches (losses, grad_norm,
-    collectives per step, kernel launches, memory: the state after set-up
-    and the peak of each part of a step).  Step 1 runs as
+    """One rank of the mesh phase: for each of MESH_SHAPES and POD_SHAPE
+    over the same 2 ranks, seed-0 params cut to this rank's shards and
+    MESH_STEPS steps on this rank's rows of the train phase's batches
+    (losses, grad_norm, collectives per step, kernel launches, memory: the
+    state after set-up, its bytes beside the dry-run's prediction, and the
+    peak of each part of a step).  Step 1 runs as
     the train step's two halves (``make_grad_fn``, then ``opt.update`` at
     the schedule's first lr), so its gradient can be read: every leaf
     gathered on rank 0 and held against the single-device step's by
@@ -3349,18 +3372,21 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
     it is the mesh save of the gradient (``save_async``: the gather in this
     thread, rank 0's write behind steps 2..3), read back after the steps
     whole on rank 0's card (its cut == rank 0's shards bit for bit) and
-    with the mesh's specs on the other rank (== its shards).  Rank 0's
-    numbers are the phase's."""
+    with the mesh's specs on the other rank (== its shards).  At POD_SHAPE
+    the gather is ``gather_to_host`` again, and rank 0 also holds it bit
+    for bit against (2, 1)'s.  Rank 0's numbers are the phase's."""
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.dist import collectives
     from repro_torch.dist._tree import leaves_with_keys
     from repro_torch.dist.sharding import cut_tensor
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.serve import data_for
     from repro_torch.models.registry import build_model
     from repro_torch.train.optimizer import cosine_schedule
-    from repro_torch.train.trainer import (make_grad_fn, make_train_step,
-                                           param_specs, shard_params)
+    from repro_torch.train.trainer import (data_rank, make_grad_fn,
+                                           make_train_step, param_specs,
+                                           shard_params)
 
     def gib(n):
         return n / 2**30
@@ -3391,11 +3417,15 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
             rels[key] = float((g - w_).norm() / w_.norm())
         return rels
 
-    out = {}
-    for shape in MESH_SHAPES:
-        m = (mesh if shape == tuple(mesh.shape.values())
-             else make_local_mesh(*shape, device=dev))
-        saved = shape == MESH_SHAPES[-1]
+    out, grads_dp = {}, None
+    for shape in MESH_SHAPES + (POD_SHAPE,):
+        if shape == tuple(mesh.shape.values()):
+            m = mesh
+        elif shape == POD_SHAPE:
+            m = make_local_mesh(*shape[1:], device=dev, pod=shape[0])
+        else:
+            m = make_local_mesh(*shape, device=dev)
+        saved = shape == (TP_RANKS, 1)
         gc_collect()
         torch.cuda.reset_peak_memory_stats()
         run = {"ref_read_s": ref_read_s} if mesh.rank == 0 else {}
@@ -3405,7 +3435,7 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
         opt_state = opt.init(params)
         specs = param_specs(model, m)
         g_specs = {f"['grads']{k}": v for k, v in specs.items()}
-        d, n_data = m.index("data"), m.size("data")
+        d, n_data = data_rank(m)
         batches = [{k: torch.as_tensor(v, device=dev) for k, v in
                     data.batch(s, TRAIN_BATCH // n_data, TRAIN_SEQ, host=d,
                                n_hosts=n_data).items()}
@@ -3414,6 +3444,20 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
         run["setup_s"] = time.perf_counter() - t0
         mem = {"state": gib(torch.cuda.memory_allocated()),
                "setup_peak": gib(torch.cuda.max_memory_allocated())}
+        # this rank's state against the dry-run's prediction (a meta run
+        # of the step on rank 0's shards: the ranks' shards are alike)
+        t0 = time.perf_counter()
+        want_mem = dryrun.train_record(
+            cfg, shape, TRAIN_BATCH, TRAIN_SEQ,
+            moment_dtype=tcfg.moment_dtype, remat=cfg.remat)["memory"]
+        run["state_bytes"] = dryrun.tree_bytes({"params": params,
+                                                "opt": opt_state})
+        run["dryrun_state_bytes"] = want_mem["params"] + want_mem["opt"]
+        run["dryrun_s"] = time.perf_counter() - t0
+        check(run["state_bytes"] == run["dryrun_state_bytes"],
+              f"mesh {shape} rank {mesh.rank}: state of "
+              f"{run['state_bytes']} bytes, the dry-run predicts "
+              f"{run['dryrun_state_bytes']}")
         for k in kernels.values():
             k.launches = 0
         collectives.reset_counts()
@@ -3440,6 +3484,10 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
             host = ckpt.gather_to_host(grads, m, specs)
             if host is not None:
                 run["grad_rel"] = against_single(host)
+                if shape == POD_SHAPE:
+                    run["grads_equal_dp"] = all(
+                        torch.equal(g, grads_dp[k])
+                        for k, g in leaves_with_keys(host))
             del host
         run["gather_s"] = time.perf_counter() - t0
         mem["gather_peak"] = gib(torch.cuda.max_memory_allocated())
@@ -3477,6 +3525,9 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
                 run["grad_rel"] = against_single(whole["grads"])
                 run["ckpt_gb"] = os.path.getsize(os.path.join(
                     ckpt_root, "step_00000001", "data.bin")) / 1e9
+                # the pod mesh's gathered gradients are held to these
+                grads_dp = {k: g.to("cpu") for k, g in
+                            leaves_with_keys(whole["grads"])}
                 del whole
             else:
                 back = ckpt.restore(ckpt_root, 1, {"grads": grads},
@@ -3489,6 +3540,7 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
                 del back
         del params, opt_state, batches, grads
         out[shape] = run
+    del grads_dp
     out["families"] = family_mesh_rank(mesh, family_refs)
     return out
 
@@ -3496,8 +3548,13 @@ def mesh_train_rank(mesh, cfg, tcfg, ref_dir, ckpt_root, family_refs):
 def mesh_train_paths(dev, ref, family_refs):
     """Training on a mesh at llama3-8b width (the train phase's 2 layers,
     seed-0 weights, its first MESH_STEPS batches of 4 x 512 tokens) over 2
-    ranks that share the card over gloo: mesh (1, 2) (tensor parallel) and
-    (2, 1) (FSDP + data parallel) in one spawn.  Each of the MESH_STEPS
+    ranks that share the card over gloo: mesh (1, 2) (tensor parallel),
+    (2, 1) (FSDP + data parallel) and the pod mesh (2, 1, 1) (batch and
+    FSDP over pod x data) in one spawn.  The pod mesh's losses, grad_norms
+    and step 1's gathered gradients equal (2, 1)'s bit for bit (its data
+    group has the same 2 ranks in the same order).  On every mesh, each
+    rank's state (params + moments) has exactly the bytes the dry-run
+    predicts (``dryrun.train_record``).  Each of the MESH_STEPS
     losses and grad_norms against the single-device run's (MESH_LOSS_TOL),
     step 1's gathered gradients per leaf against the single-device step's
     (TRAIN_GRAD_TOL), a loss that falls over the steps, collectives per
@@ -3510,8 +3567,9 @@ def mesh_train_paths(dev, ref, family_refs):
     from repro_torch.launch.mesh import spawn
     from repro_torch.train.trainer import TrainConfig, step_collectives
 
-    phase(f"main path: training on a mesh, (1, {TP_RANKS}) and "
-          f"({TP_RANKS}, 1) (2 ranks sharing the card over gloo)")
+    phase(f"main path: training on a mesh, (1, {TP_RANKS}), "
+          f"({TP_RANKS}, 1) and (pod, data, model) {POD_SHAPE} (2 ranks "
+          f"sharing the card over gloo)")
     cfg = ARCHS["llama3-8b"].scaled(n_layers=TRAIN_LAYERS)
     tcfg = TrainConfig(lr=1e-3, warmup=5, total_steps=TRAIN_STEPS)
     store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
@@ -3534,7 +3592,7 @@ def mesh_train_paths(dev, ref, family_refs):
     def rel(a, b):
         return abs(a - b) / abs(b)
 
-    for shape in MESH_SHAPES:
+    for shape in MESH_SHAPES + (POD_SHAPE,):
         run = got[shape]
         worst = max(run["grad_rel"].values())
         key = max(run["grad_rel"], key=run["grad_rel"].get)
@@ -3572,6 +3630,12 @@ def mesh_train_paths(dev, ref, family_refs):
               f"2..{MESH_STEPS} {[round(x['steps_peak'], 2) for x in mem]}; "
               f"peak {[round(max(v for v in x.values()), 2) for x in mem]}",
               flush=True)
+        print(f"    rank 0's state: {run['state_bytes']} bytes of params + "
+              f"AdamW moments, the dry-run's prediction "
+              f"{run['dryrun_state_bytes']} bytes (dryrun.train_record, a "
+              f"meta run of {run['dryrun_s']:.2f} s; every rank checked "
+              f"its own); torch.cuda.memory_allocated after set-up "
+              f"{round(mem[0]['state'] * 2**30)} bytes", flush=True)
         # steps 2..MESH_STEPS through train_step, step 1 through its halves
         later = MESH_STEPS - 1
         run["per_step"] = {k: c["calls"] / later
@@ -3584,8 +3648,8 @@ def mesh_train_paths(dev, ref, family_refs):
               f"formula {step_collectives(cfg.n_layers, shape)}); elements "
               f"per step {elements}; rank 0's launches {run['launches']}",
               flush=True)
-    last = got[MESH_SHAPES[-1]]
-    print(f"  mesh {MESH_SHAPES[-1]} save_async of step 1's gradients "
+    last = got[(TP_RANKS, 1)]
+    print(f"  mesh {(TP_RANKS, 1)} save_async of step 1's gradients "
           f"({last['ckpt_gb']:.2f} GB): the gather {last['gather_s']:.2f} s "
           f"in the caller's thread, rank 0's write then "
           f"{last['save_wait_s']:.2f} s past steps 2..{MESH_STEPS}; "
@@ -3593,8 +3657,23 @@ def mesh_train_paths(dev, ref, family_refs):
           f"{last['restore_s']:.2f} s and cut, bit for bit with rank 0's "
           f"shards {last['restored_bits']} (rank 1: with the mesh's specs, "
           f"checked in the rank)", flush=True)
-    for shape in MESH_SHAPES:
+    pod, dp = got[POD_SHAPE], got[(TP_RANKS, 1)]
+    print(f"  pod mesh {POD_SHAPE} against {(TP_RANKS, 1)}: losses equal "
+          f"bit for bit {pod['losses'] == dp['losses']}, grad_norms "
+          f"{pod['grad_norms'] == dp['grad_norms']}, step 1's "
+          f"{len(pod['grad_rel'])} gathered gradient leaves "
+          f"{pod['grads_equal_dp']}", flush=True)
+    check(pod["losses"] == dp["losses"]
+          and pod["grad_norms"] == dp["grad_norms"],
+          f"pod mesh {POD_SHAPE}: losses / grad_norms differ from "
+          f"{(TP_RANKS, 1)}'s")
+    check(pod["grads_equal_dp"], f"pod mesh {POD_SHAPE}: step 1's "
+          f"gradients differ from {(TP_RANKS, 1)}'s")
+    for shape in MESH_SHAPES + (POD_SHAPE,):
         run = got[shape]
+        check(run["state_bytes"] == run["dryrun_state_bytes"],
+              f"mesh {shape}: rank 0's state bytes differ from the "
+              f"dry-run's")
         check(len(run["loss_rel"]) == len(run["norm_rel"]) == MESH_STEPS
               and max(run["loss_rel"] + run["norm_rel"]) <= MESH_LOSS_TOL,
               f"mesh {shape}: a loss or grad_norm differs from "

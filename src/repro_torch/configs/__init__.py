@@ -2,9 +2,11 @@
 
 The port's own copies of ``repro.configs``: all ten of the reference's
 architectures (dense, MoE, VLM, hybrid, ssm and audio families), and the
-production shape cells (``SHAPE_CELLS``).
+production shape cells (``SHAPE_CELLS``, and ``cell_applicable``, which
+says which architectures run which cell).
 """
-from .base import SHAPE_CELLS, ModelConfig, ShapeCell
+from .base import (SHAPE_CELLS, SUBQUADRATIC_FAMILIES, ModelConfig, ShapeCell,
+                   cell_applicable)
 
 from .stablelm_12b import CONFIG as STABLELM_12B
 from .llama3_405b import CONFIG as LLAMA3_405B
@@ -23,4 +25,5 @@ ARCHS = {
                         QWEN2_VL, HYMBA, XLSTM, WHISPER)
 }
 
-__all__ = ["ARCHS", "ModelConfig", "SHAPE_CELLS", "ShapeCell"]
+__all__ = ["ARCHS", "ModelConfig", "SHAPE_CELLS", "SUBQUADRATIC_FAMILIES",
+           "ShapeCell", "cell_applicable"]

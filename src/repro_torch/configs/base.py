@@ -96,3 +96,15 @@ LONG_500K = ShapeCell("long_500k", 524288, 1, "decode")
 
 SHAPE_CELLS = {c.name: c for c in
                (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+# Families with sub-quadratic sequence mixing: the only ones that run
+# long_500k (the reference's DESIGN.md section 6).
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> bool:
+    """Whether ``cfg`` runs ``cell`` (the reference's rule: long_500k only
+    for the sub-quadratic families)."""
+    if cell.name == "long_500k":
+        return cfg.family in SUBQUADRATIC_FAMILIES
+    return True

@@ -1,4 +1,5 @@
-"""The collectives of the port's meshes, over one mesh axis.
+"""The collectives of the port's meshes, over one mesh axis or a tuple of
+them.
 
 The port's counterparts of what GSPMD and ``shard_map`` insert in the
 reference: :func:`all_reduce` (row-parallel partial sums, the vocab-sharded
@@ -8,7 +9,15 @@ weights), :func:`reduce_scatter` (the FSDP gradients), :func:`all_to_all`
 (the MoE expert exchange) and :func:`broadcast` (rank 0's clock).  Each runs
 over the process group of one axis of the active mesh
 (:func:`repro_torch.dist.sharding.axis_rules`; ``axis=None`` is the whole
-mesh) and returns a new tensor.
+mesh; ``("pod", "data")`` the data-parallel axes together, one group whose
+ranks are read row-major in that order, the order in which
+:func:`~repro_torch.dist.sharding.shard_tree` numbers their blocks) and
+returns a new tensor.
+
+On a :class:`~repro_torch.dist.sharding.MeshShape` (backend ``"meta"``:
+rank 0 of a mesh that has no processes, the dry-run's) a collective talks
+to no one: it returns a tensor of the result's shape and dtype, and counts
+as any other call.
 
 Under autograd (grad enabled and an input that requires it) four of them
 carry gradients, each backward the adjoint collective over the same group:
@@ -32,36 +41,41 @@ they are.
 
 :data:`COUNTS` keeps, per kind, the calls and the elements moved (the
 input's for all_reduce / reduce_scatter / all_to_all / broadcast, the
-gathered output's for all_gather), the most one call moved, and the last
+gathered output's for all_gather), the bytes of the result buffers (a
+reduce_scatter's is its block), the most one call moved, and the last
 call's output shape: the decode-step collective invariant, the training
 step's per-step counts and ``chip_smoke.py`` read it.  A backward's
 collectives count like any other.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from .sharding import active_mesh
+from .sharding import DATA_AXES, MeshShape, active_mesh, entry_blocks
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
          "broadcast")
-COUNTS = {k: {"calls": 0, "elements": 0, "max_elements": 0,
+COUNTS = {k: {"calls": 0, "elements": 0, "bytes": 0, "max_elements": 0,
              "last_shape": None} for k in KINDS}
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# a mesh axis, a tuple of them (their product, row-major), or None (every
+# rank)
+Axis = Optional[Union[str, Tuple[str, ...]]]
 
 
 def step_totals(per_microbatch: dict, mesh_shape, *, microbatches: int = 1,
                 grad_compress: bool = False) -> dict:
     """Collective calls per kind of one train step on a ``(data, model)``
-    mesh of ``mesh_shape`` from those of one microbatch's forward and
-    backward: ``microbatches`` of them, and once per step the all_reduces
-    of the data sums of the leaves whole across ``data`` and of the metrics
-    (one each where ``data`` has more than one rank), of the clip norm
-    (one) and of the compression scales (one with ``grad_compress``)."""
-    d = int(mesh_shape[0] > 1)
+    or ``(pod, data, model)`` mesh of ``mesh_shape`` from those of one
+    microbatch's forward and backward: ``microbatches`` of them, and once
+    per step the all_reduces of the data sums of the leaves whole across
+    the data-parallel axes and of the metrics (one each where ``pod *
+    data`` is more than one rank), of the clip norm (one) and of the
+    compression scales (one with ``grad_compress``)."""
+    d = int(entry_blocks(DATA_AXES, MeshShape(mesh_shape))[0] > 1)
     out = {k: microbatches * per_microbatch.get(k, 0) for k in KINDS}
     out["all_reduce"] += 2 * d + 1 + int(grad_compress)
     return out
@@ -69,7 +83,8 @@ def step_totals(per_microbatch: dict, mesh_shape, *, microbatches: int = 1,
 
 def reset_counts():
     for c in COUNTS.values():
-        c.update(calls=0, elements=0, max_elements=0, last_shape=None)
+        c.update(calls=0, elements=0, bytes=0, max_elements=0,
+                 last_shape=None)
 
 
 def counts() -> dict:
@@ -77,10 +92,11 @@ def counts() -> dict:
     return {k: dict(c) for k, c in COUNTS.items()}
 
 
-def _count(kind: str, elements: int, shape):
+def _count(kind: str, elements: int, shape, result: torch.Tensor):
     c = COUNTS[kind]
     c["calls"] += 1
     c["elements"] += elements
+    c["bytes"] += result.numel() * result.element_size()
     c["max_elements"] = max(c["max_elements"], elements)
     c["last_shape"] = tuple(shape)
 
@@ -101,8 +117,15 @@ def _staged(x: torch.Tensor, mesh) -> torch.Tensor:
     return x.detach().clone(memory_format=torch.contiguous_format)
 
 
-def _size(mesh, axis: Optional[str]) -> int:
-    return mesh.n_ranks if axis is None else mesh.size(axis)
+def _size(mesh, axis) -> int:
+    return mesh.n_ranks if axis is None else entry_blocks(axis, mesh)[0]
+
+
+def _talks(mesh) -> bool:
+    """Whether a collective on ``mesh`` exchanges data (not on a
+    :class:`~repro_torch.dist.sharding.MeshShape`, which has no ranks to
+    talk to)."""
+    return mesh.backend != "meta"
 
 
 def _grad_wanted(x: torch.Tensor) -> bool:
@@ -113,17 +136,19 @@ def _grad_wanted(x: torch.Tensor) -> bool:
 
 def _all_reduce(x, mesh, axis, op="sum"):
     buf = _staged(x, mesh)
-    dist.all_reduce(buf, op=_OPS[op], group=mesh.group(axis))
-    _count("all_reduce", x.numel(), x.shape)
+    if _talks(mesh):
+        dist.all_reduce(buf, op=_OPS[op], group=mesh.group(axis))
+    _count("all_reduce", x.numel(), x.shape, buf)
     return buf.to(x.device)
 
 
 def _all_gather(x, mesh, axis, dim):
     buf = _staged(x, mesh)
     parts = [torch.empty_like(buf) for _ in range(_size(mesh, axis))]
-    dist.all_gather(parts, buf, group=mesh.group(axis))
+    if _talks(mesh):
+        dist.all_gather(parts, buf, group=mesh.group(axis))
     out = torch.cat(parts, dim=dim).to(x.device)
-    _count("all_gather", out.numel(), out.shape)
+    _count("all_gather", out.numel(), out.shape, out)
     return out
 
 
@@ -134,8 +159,9 @@ def _reduce_scatter(x, mesh, axis, dim):
                          f"does not split in {n}")
     buf = _staged(x.movedim(dim, 0), mesh)
     out = buf.new_empty((buf.shape[0] // n,) + tuple(buf.shape[1:]))
-    dist.reduce_scatter_tensor(out, buf, group=mesh.group(axis))
-    _count("reduce_scatter", x.numel(), x.shape)
+    if _talks(mesh):
+        dist.reduce_scatter_tensor(out, buf, group=mesh.group(axis))
+    _count("reduce_scatter", x.numel(), x.shape, out)
     return out.movedim(0, dim).contiguous().to(x.device)
 
 
@@ -146,15 +172,17 @@ def _all_to_all(x, mesh, axis):
                          f"split in {n}")
     buf = _staged(x, mesh)
     out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=mesh.group(axis))
-    _count("all_to_all", x.numel(), x.shape)
+    if _talks(mesh):
+        dist.all_to_all_single(out, buf, group=mesh.group(axis))
+    _count("all_to_all", x.numel(), x.shape, out)
     return out.to(x.device)
 
 
 def _block(x, mesh, axis, dim):
     """This rank's block of ``x`` cut in equal parts along ``dim``."""
-    n = x.shape[dim] // _size(mesh, axis)
-    return x.narrow(dim, mesh.index(axis) * n, n).contiguous()
+    n_blocks, i = entry_blocks(axis, mesh)
+    n = x.shape[dim] // n_blocks
+    return x.narrow(dim, i * n, n).contiguous()
 
 
 # -- autograd -----------------------------------------------------------------
@@ -220,7 +248,7 @@ class _CopyTo(torch.autograd.Function):
 
 # -- the public calls ---------------------------------------------------------
 
-def all_reduce(x: torch.Tensor, axis: Optional[str] = "model",
+def all_reduce(x: torch.Tensor, axis: Axis = "model",
                op: str = "sum") -> torch.Tensor:
     """The sum (``op="max"``: the maximum) of ``x`` over the ranks of
     ``axis`` (``None``: every rank of the mesh).  A sum under autograd
@@ -231,7 +259,7 @@ def all_reduce(x: torch.Tensor, axis: Optional[str] = "model",
     return _all_reduce(x, mesh, axis, op)
 
 
-def all_gather(x: torch.Tensor, axis: str = "model", dim: int = -1,
+def all_gather(x: torch.Tensor, axis: Axis = "model", dim: int = -1,
                reduce_grad: bool = False) -> torch.Tensor:
     """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in rank
     order.  Under autograd the gradient of ``x`` is this rank's block of
@@ -245,7 +273,7 @@ def all_gather(x: torch.Tensor, axis: str = "model", dim: int = -1,
     return _all_gather(x, mesh, axis, dim)
 
 
-def reduce_scatter(x: torch.Tensor, axis: str = "data",
+def reduce_scatter(x: torch.Tensor, axis: Axis = "data",
                    dim: int = 0) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axis``, cut in equal blocks
     along ``dim``: this rank's block (block i on the axis's rank i)."""
@@ -253,7 +281,7 @@ def reduce_scatter(x: torch.Tensor, axis: str = "data",
     return _reduce_scatter(x, mesh, axis, dim % x.dim())
 
 
-def copy_to(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+def copy_to(x: torch.Tensor, axis: Axis = "model") -> torch.Tensor:
     """``x`` (a replicated input about to meet this rank's columns of a
     weight): the identity, whose gradient under autograd is summed over
     ``axis`` (one all_reduce in the backward)."""
@@ -273,13 +301,14 @@ def all_to_all(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
     return _all_to_all(x, mesh, axis)
 
 
-def broadcast(x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+def broadcast(x: torch.Tensor, axis: Axis = None) -> torch.Tensor:
     """Rank 0's ``x`` (of ``axis``'s group; ``None``: of the whole mesh) on
     every rank."""
     mesh = _mesh()
-    group = mesh.group(axis)
     buf = _staged(x, mesh)
-    src = 0 if group is None else dist.get_global_rank(group, 0)
-    dist.broadcast(buf, src=src, group=group)
-    _count("broadcast", x.numel(), x.shape)
+    if _talks(mesh):
+        group = mesh.group(axis)
+        src = 0 if group is None else dist.get_global_rank(group, 0)
+        dist.broadcast(buf, src=src, group=group)
+    _count("broadcast", x.numel(), x.shape, buf)
     return buf.to(x.device)

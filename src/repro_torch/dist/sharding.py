@@ -60,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import math
 import threading
 from typing import Optional, Sequence
 
@@ -96,6 +97,10 @@ DEFAULT_RULES = {
 SERVE_PREFILL_RULES = dict(DEFAULT_RULES, seq="model")
 
 SERVE_DECODE_RULES = dict(DEFAULT_RULES, qin=None)
+
+# the data-parallel mesh axes: "batch" and "fsdp" are cut over their
+# product (a mesh without a pod axis cuts over "data" alone)
+DATA_AXES = ("pod", "data")
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +242,11 @@ class Parts(tuple):
     them, or None): the spec of a dimension annotated as parts."""
 
 
-def _parts(entry, mesh):
-    """(number of shards, this rank's shard index) of a spec entry: the
-    product of its axes' sizes, and the rank's coordinates on them read
-    row-major in the entry's order."""
+def entry_blocks(entry, mesh):
+    """(number of shards, this rank's shard index) of a spec entry (a mesh
+    axis, a tuple of them, or None): the product of its axes' sizes, and
+    the rank's coordinates on them read row-major in the entry's order (an
+    axis the mesh lacks counts as one rank)."""
     if entry is None:
         return 1, 0
     n, idx = 1, 0
@@ -287,7 +293,7 @@ def local_shape(shape, axes, mesh, rules: Optional[dict] = None) -> tuple:
         return blocks[0][:dim] + (sum(b[dim] for b in blocks),) \
             + blocks[0][dim + 1:]
     spec = logical_to_spec(ann, shape=shape, mesh=mesh, rules=rules)
-    return tuple(s // _parts(e, mesh)[0] for s, e in zip(shape, spec))
+    return tuple(s // entry_blocks(e, mesh)[0] for s, e in zip(shape, spec))
 
 
 def _cut_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
@@ -301,7 +307,7 @@ def _cut_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
                                              entry)], dim=dim)
             cut = True
             continue
-        n, i = _parts(entry, mesh)
+        n, i = entry_blocks(entry, mesh)
         if n > 1:
             out, cut = _block(out, dim, n, i), True
     # a copy of its own: a view would keep the whole leaf alive and hand a
@@ -319,7 +325,7 @@ def _cut_quantized(qt: QuantizedTensor, axes, mesh, rules) -> QuantizedTensor:
                            mesh=mesh, rules=rules)
     if all(e is None for e in spec):
         return qt
-    n_in_parts, i_in = _parts(spec[-2], mesh)
+    n_in_parts, i_in = entry_blocks(spec[-2], mesh)
     n_groups = qt.scale.shape[-2]
     g = qt.n_in // n_groups
     rows = qt.n_in // n_in_parts
@@ -446,7 +452,7 @@ def tree_specs(tree, axes_tree, mesh, rules: Optional[dict] = None) -> dict:
 
     def visit(leaf, axes, path):
         if axes is not None and isinstance(leaf, torch.Tensor):
-            spec = _leaf_spec(_annotation(axes, leaf.dim()), leaf.shape,
+            spec = leaf_spec(_annotation(axes, leaf.dim()), leaf.shape,
                               mesh, rules)
             if spec_axes(spec, mesh):
                 out[path] = spec
@@ -456,7 +462,7 @@ def tree_specs(tree, axes_tree, mesh, rules: Optional[dict] = None) -> dict:
     return out
 
 
-def _leaf_spec(ann, shape, mesh, rules) -> tuple:
+def leaf_spec(ann, shape, mesh, rules) -> tuple:
     """:func:`logical_to_spec` of a leaf annotated ``ann``, with a dimension
     annotated as parts given as a :class:`Parts` entry (the parts must
     agree on every other dimension)."""
@@ -497,17 +503,42 @@ def cut_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 
 class MeshShape:
-    """A ``(data, model)`` mesh's sizes as the rule tables read a mesh
-    (every coordinate 0): what a collectives formula cuts by."""
+    """Rank 0 of a mesh of ``mesh_shape`` that has no processes: a
+    ``(data, model)`` or ``(pod, data, model)`` tuple's sizes as the rule
+    tables read a mesh, every coordinate 0.  What a collectives formula
+    cuts by, and the dry-run's mesh: :func:`shard_tree` /
+    :func:`local_shape` give rank 0's blocks on it, and the collectives
+    (backend ``"meta"``) return results of the right shape without talking
+    to anyone (:mod:`repro_torch.dist.collectives`)."""
+
+    backend = "meta"
+    rank = 0
+    device = torch.device("meta")
 
     def __init__(self, mesh_shape):
-        self.shape = dict(zip(("data", "model"), mesh_shape))
+        mesh_shape = tuple(int(s) for s in mesh_shape)
+        if len(mesh_shape) not in (2, 3):
+            raise ValueError(f"a mesh shape is (data, model) or (pod, data, "
+                             f"model), got {mesh_shape}")
+        axes = ("data", "model") if len(mesh_shape) == 2 else \
+            ("pod", "data", "model")
+        self.shape = dict(zip(axes, mesh_shape))
+
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.shape.values())
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
     def index(self, axis: str) -> int:
         return 0
+
+    def group(self, axis):
+        return None
+
+    def __repr__(self):
+        return f"MeshShape({tuple(self.shape.values())})"
 
 
 def training_rules(cfg, mesh) -> dict:

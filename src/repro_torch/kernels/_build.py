@@ -148,3 +148,9 @@ class Kernel:
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+
+# the devices whose tensors take a kernel's plain PyTorch version: the CPU,
+# and the meta device, where the plain version computes shapes alone (the
+# dry-run's FLOP count and per-rank state); a CUDA tensor launches the
+# kernel, any other device raises
+PLAIN_DEVICES = ("cpu", "meta")

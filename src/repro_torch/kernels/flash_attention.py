@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel
+from ._build import FLOAT, INT, PLAIN_DEVICES, PTR, Kernel
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["KERNEL", "KERNEL_BWD", "flash_attention", "flash_attention_bwd",
@@ -75,7 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              "(training never masks keys by length)")
         out = _FlashAttention.apply(q4, k, v, causal)
         return out[:, 0] if q.dim() == 3 else out
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_ref(q, k, v, causal=causal, kv_lens=kv_lens)
     out = _forward(q4, k, v, causal, kv_lens, with_lse=False)[0]
     return out[:, 0] if q.dim() == 3 else out
@@ -84,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _check_cuda(*xs: torch.Tensor) -> None:
     q = xs[0]
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+        raise ValueError(f"flash_attention runs on cpu, meta or cuda, not "
                          f"{q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             any(x.dtype != q.dtype for x in xs):
@@ -131,7 +131,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True):
                          f"<= {MAX_HEAD_DIM}) and k, v (BKH, T, hd); got "
                          f"{tuple(q.shape)}, {tuple(dout.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal)
     _check_cuda(q, k, v, out, dout)
     if out.shape != q.shape or lse.shape != (bkh, g, t) or \
@@ -168,7 +168,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q4, k, v, causal):
-        if q4.device.type == "cpu":
+        if q4.device.type in PLAIN_DEVICES:
             out, lse = flash_attention_ref(q4, k, v, causal=causal), None
         else:
             out, lse = _forward(q4, k, v, causal, None, with_lse=True)

@@ -35,7 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel
+from ._build import FLOAT, INT, PLAIN_DEVICES, PTR, Kernel
 from .ref import (decode_attention_q8_ref, decode_attention_ref,
                   paged_decode_attention_q8_ref, paged_decode_attention_ref,
                   paged_verify_attention_q8_ref, paged_verify_attention_ref,
@@ -87,12 +87,12 @@ def _check_q(q, kh, hd, name, burst=False):
 
 
 def _on_cuda(q, name):
-    """False for a CPU tensor (take the plain version); raises unless q is
-    a CUDA tensor of a type the kernel takes."""
-    if q.device.type == "cpu":
+    """False for a CPU or meta tensor (take the plain version); raises
+    unless q is a CUDA tensor of a type the kernel takes."""
+    if q.device.type in PLAIN_DEVICES:
         return False
     if q.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+        raise ValueError(f"{name} runs on cpu, meta or cuda, not {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: q must be f32 or bf16, got {q.dtype}")
     return True

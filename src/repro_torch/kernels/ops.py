@@ -1,8 +1,9 @@
 """Dispatch entry points the models call.
 
 The kernel is chosen by the tensor's device alone: a CPU tensor takes the
-plain PyTorch version, a CUDA tensor the hand-written kernel (see each
-wrapper).  There is no environment switch and no fallback.
+plain PyTorch version (so does a meta tensor, shapes alone: the dry-run),
+a CUDA tensor the hand-written kernel (see each wrapper), any other device
+raises.  There is no environment switch and no fallback.
 
 Under tensor parallelism the attention entry points take this rank's
 heads as they are: q with H/m query heads and caches / page stores with

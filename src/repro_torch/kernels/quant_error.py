@@ -17,7 +17,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core.quantizer import QuantSpec, effective_group_size
-from ._build import FLOAT, INT, PTR, Kernel
+from ._build import FLOAT, INT, PLAIN_DEVICES, PTR, Kernel
 from .ref import quant_error_ref
 
 __all__ = ["KERNEL", "quant_error", "quant_error_ref", "plan", "Plan"]
@@ -96,10 +96,11 @@ def quant_error(w: torch.Tensor, scales: torch.Tensor, mean_sq: torch.Tensor,
         raise ValueError(f"need w (k, n), scales (A, k), mean_sq (k,); got "
                          f"{tuple(w.shape)}, {tuple(scales.shape)}, "
                          f"{tuple(mean_sq.shape)}")
-    if w.device.type == "cpu":
+    if w.device.type in PLAIN_DEVICES:
         return quant_error_ref(w, scales, mean_sq, spec)
     if w.device.type != "cuda":
-        raise ValueError(f"quant_error runs on cpu or cuda, not {w.device}")
+        raise ValueError(f"quant_error runs on cpu, meta or cuda, not "
+                         f"{w.device}")
     if w.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"quant_error: w must be f32 or bf16, got {w.dtype}")
     if spec.bits > MAX_BITS:

@@ -28,7 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ._build import INT, PTR, Kernel
+from ._build import INT, PLAIN_DEVICES, PTR, Kernel
 from .ref import dequant_ref, quant_matmul_ref
 
 __all__ = ["KERNEL", "KERNEL_EXPERTS", "quant_matmul",
@@ -175,10 +175,11 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     if out_dtype not in (x.dtype, torch.float32):
         raise ValueError(f"quant_matmul returns {x.dtype} or float32, not "
                          f"{out_dtype}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return quant_matmul_ref(x, codes, scale, zero, out_dtype)
     if x.device.type != "cuda":
-        raise ValueError(f"quant_matmul runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"quant_matmul runs on cpu, meta or cuda, not "
+                         f"{x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"quant_matmul takes f32 or bf16 x, not {x.dtype}")
     if scale.dtype != torch.float32 or zero.dtype != torch.float32:

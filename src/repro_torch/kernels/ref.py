@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the CUDA kernels.
 
 Each is what the matching kernel computes, written with ordinary tensor
-ops.  A CPU tensor takes these in the kernel wrappers; on the card they
-are the yardstick each kernel is held against.
+ops.  A CPU or meta tensor takes these in the kernel wrappers; on the
+card they are the yardstick each kernel is held against.
 """
 from __future__ import annotations
 

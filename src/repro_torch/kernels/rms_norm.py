@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import FLOAT, INT, PTR, Kernel
+from ._build import FLOAT, INT, PLAIN_DEVICES, PTR, Kernel
 from .ref import rms_norm_bwd_ref, rms_norm_ref
 
 __all__ = ["KERNEL", "KERNEL_BWD", "rms_norm", "rms_norm_bwd",
@@ -43,7 +43,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
                          f"rows of width {d}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RmsNorm.apply(x, w, eps)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return rms_norm_ref(x, w, eps)
     x2, rows = _check_cuda(x, w)
     out = torch.empty_like(x2)
@@ -59,7 +59,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 def _check_cuda(x, w, *more):
     """x contiguous and its number of rows, after the card's checks."""
     if x.device.type != "cuda":
-        raise ValueError(f"rms_norm runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"rms_norm runs on cpu, meta or cuda, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16) or \
             any(t.dtype != x.dtype for t in (w, *more)):
         raise ValueError(f"rms_norm: x, w (and dy) must share an f32/bf16 "
@@ -79,7 +79,7 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"rms_norm backward: need dy like x and w (d,); got "
                          f"x {tuple(x.shape)}, dy {tuple(dy.shape)}, w "
                          f"{tuple(w.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return rms_norm_bwd_ref(x, w, dy, eps)
     x2, rows = _check_cuda(x, w, dy)
     d = x.shape[-1]

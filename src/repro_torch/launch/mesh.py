@@ -4,8 +4,11 @@ A :class:`Mesh` is this process's view of a ``data x model`` grid (``pod
 x data x model`` for the twin-pod production shape) of ranks, one rank
 per process: the axis sizes, this rank's coordinate on each axis, one
 process group per axis (the ranks that differ from this one on that axis
-only) and this rank's device.  Ranks are laid out row-major over the axes
-in order, as ``jax.make_mesh`` lays out devices.
+only), on a pod mesh one more for the data-parallel axes ``("pod",
+"data")`` together (the ranks that differ from this one on those two
+axes, read row-major in that order), and this rank's device.  Ranks are
+laid out row-major over the axes in order, as ``jax.make_mesh`` lays out
+devices.
 
 :func:`spawn` starts the ranks: one process each, ``spawn`` start method
 (a child inherits no CUDA context), the default group initialised through
@@ -32,6 +35,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.dist.sharding import DATA_AXES
 
 AXES = ("data", "model")
 PRODUCTION_AXES = ("pod", "data", "model")
@@ -68,8 +73,13 @@ class Mesh:
         """This rank's coordinate on ``axis`` (0 for an absent axis)."""
         return self.coords.get(axis, 0)
 
-    def group(self, axis: Optional[str]):
-        """The process group of ``axis``; ``None`` is every rank."""
+    def group(self, axis):
+        """The process group of ``axis``; ``None`` is every rank; a tuple of
+        axes (``DATA_AXES`` is the one a mesh groups) is the group of
+        those of its axes that the mesh has."""
+        if isinstance(axis, tuple):
+            present = tuple(a for a in axis if a in self.shape)
+            axis = present[0] if len(present) == 1 else present
         return self.groups[axis]
 
     def __repr__(self):
@@ -106,6 +116,8 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...], what: str,
         # one process, every axis of size 1: no group to talk to
         groups = {a: None for a in axes}
         groups[None] = None
+        if all(a in axes for a in DATA_AXES):
+            groups[DATA_AXES] = None
         return Mesh(sizes, 0, "none", groups, torch.device("cpu"))
     rank = dist.get_rank()
     backend = dist.get_backend()
@@ -115,17 +127,24 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...], what: str,
     for i in range(len(axes) - 2, -1, -1):
         strides[i] = strides[i + 1] * sizes[axes[i + 1]]
     # every rank creates every group, in the same order (new_group is
-    # collective); each keeps the one that holds it
-    for i, axis in enumerate(axes):
-        others = [range(sizes[a]) for a in axes if a != axis]
+    # collective); each keeps the one that holds it.  A group of several
+    # axes lists its members row-major over them, in their order
+    joint = [DATA_AXES] if all(a in axes for a in DATA_AXES) else []
+    for group_axes in [(a,) for a in axes] + joint:
+        others = [range(sizes[a]) for a in axes if a not in group_axes]
         for fixed in itertools.product(*others):
-            coords = list(fixed)
-            coords.insert(i, 0)
-            base = sum(c * s for c, s in zip(coords, strides))
-            members = [base + j * strides[i] for j in range(sizes[axis])]
+            coords = dict(zip([a for a in axes if a not in group_axes],
+                              fixed))
+            members = []
+            for inner in itertools.product(
+                    *[range(sizes[a]) for a in group_axes]):
+                coords.update(zip(group_axes, inner))
+                members.append(sum(coords[a] * strides[i]
+                                   for i, a in enumerate(axes)))
             g = dist.new_group(members)
             if rank in members:
-                groups[axis] = g
+                groups[group_axes[0] if len(group_axes) == 1
+                       else group_axes] = g
     if rank >= n:
         return None     # a rank past the mesh's (it took part in new_group)
     if device is None:
@@ -137,16 +156,21 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...], what: str,
 
 
 def make_local_mesh(data: int = 1, model: int = 1,
-                    device: Optional[torch.device] = None) -> Mesh:
-    """A ``data x model`` mesh over the first ``data * model`` ranks of the
-    default process group (a single process on the CPU without one, for
-    1 x 1); every rank of the group calls it, and a rank past the mesh
-    gets None.  Refuses, naming both counts, when there are fewer ranks.
-    ``device`` is this rank's (default: its current card on nccl, the CPU
-    on gloo).  (Ranks that :func:`spawn` starts get their mesh from it;
-    they may build another shape over the same ranks, passing
+                    device: Optional[torch.device] = None, *,
+                    pod: Optional[int] = None) -> Mesh:
+    """A ``data x model`` mesh (with ``pod``, a ``pod x data x model``
+    mesh) over the first ``data * model`` (``pod * data * model``) ranks
+    of the default process group (a single process on the CPU without
+    one, for 1 x 1); every rank of the group calls it, and a rank past the
+    mesh gets None.  Refuses, naming both counts, when there are fewer
+    ranks.  ``device`` is this rank's (default: its current card on nccl,
+    the CPU on gloo).  (Ranks that :func:`spawn` starts get their mesh
+    from it; they may build another shape over the same ranks, passing
     ``mesh.device``.)"""
-    return _build((data, model), AXES, "make_local_mesh", device)
+    if pod is None:
+        return _build((data, model), AXES, "make_local_mesh", device)
+    return _build((pod, data, model), PRODUCTION_AXES, "make_local_mesh",
+                  device)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

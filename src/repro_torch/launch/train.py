@@ -1,11 +1,14 @@
 """Training entry point (the reference's ``repro/launch/train.py``): init,
 then the checkpointed training loop with automatic resume, on one device
-or on a ``(data, model)`` mesh of ranks that this command starts.
+or on a ``(data, model)`` or ``(pod, data, model)`` mesh of ranks that
+this command starts.
 
     PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
         --steps 40 --ckpt-every 10 --ckpt-dir /tmp/lt
     PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
         --mesh 2,2 --steps 40 --ckpt-every 10 --ckpt-dir /tmp/lt
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
+        --mesh 2,1,2 --steps 40 --ckpt-every 10 --ckpt-dir /tmp/lt_pod
 
 Resumes from the newest complete step in ``--ckpt-dir``; saves
 ``{"params", "opt"}`` asynchronously every ``--ckpt-every`` steps and once
@@ -18,11 +21,14 @@ flash-attention and rms_norm kernels.
 ``data``, tensor parallelism over ``model``, MoE's experts over ``model``;
 :mod:`repro_torch.train.trainer`), every architecture the CLI takes
 (whisper, whose batches need frame embeddings, is not one of them: its
-``--arch`` is refused before any rank starts).  ``--batch`` is the global batch: data
-rank ``d`` draws ``batch // DATA`` rows as host ``d`` of ``DATA``, whose
-rows interleave into the same global sample stream at any mesh
-(``dist.elastic.resume_batch_indices``), so a checkpoint of one mesh
-resumes on another (or on one device) where it stopped.  Rank 0 finds the
+``--arch`` is refused before any rank starts); ``--mesh POD,DATA,MODEL``
+adds a pod axis, batch and FSDP then cut over ``POD * DATA`` ranks.
+``--batch`` is the global batch: data-parallel rank ``d`` (``pod``
+major, ``data`` minor) draws ``batch // (POD * DATA)`` rows as host
+``d`` of ``POD * DATA``, whose rows interleave into the same global
+sample stream at any mesh (``dist.elastic.resume_batch_indices``), so a
+checkpoint of one mesh resumes on another (or on one device) where it
+stopped.  Rank 0 finds the
 step to resume from, writes the checkpoints (every rank gathers) and
 prints.  ``--shape`` takes batch and sequence length from a production
 shape cell.
@@ -30,6 +36,7 @@ shape cell.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import shutil
 import tempfile
@@ -43,11 +50,28 @@ from repro_torch.dist import checkpoint as ckpt
 from repro_torch.dist.collectives import broadcast
 from repro_torch.dist.sharding import axis_rules
 from repro_torch.launch.mesh import spawn
-from repro_torch.launch.serve import (RANK_TIMEOUT_S, TOKEN_ARCHS, data_for,
-                                      parse_mesh)
+from repro_torch.launch.serve import RANK_TIMEOUT_S, TOKEN_ARCHS, data_for
 from repro_torch.models.registry import build_model
-from repro_torch.train.trainer import (TrainConfig, make_train_step,
-                                       shard_params, state_specs)
+from repro_torch.train.trainer import (TrainConfig, data_rank,
+                                       make_train_step, shard_params,
+                                       state_specs)
+
+
+def parse_train_mesh(arg):
+    """'DATA,MODEL' or 'POD,DATA,MODEL' -> a tuple of ints, with clear
+    errors for bad input."""
+    try:
+        sizes = tuple(int(x) for x in arg.split(","))
+    except ValueError:
+        sizes = ()
+    if len(sizes) not in (2, 3):
+        raise argparse.ArgumentTypeError(
+            f"--mesh expects 'DATA,MODEL' or 'POD,DATA,MODEL' "
+            f"(comma-separated ints), got {arg!r}")
+    if min(sizes) < 1:
+        raise argparse.ArgumentTypeError(
+            f"--mesh sizes must be >= 1, got {arg!r}")
+    return sizes
 
 
 def main(argv=None):
@@ -68,10 +92,11 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--ckpt-dir", default="reports/launch_train_torch")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--mesh", type=parse_mesh, default=None,
-                    metavar="DATA,MODEL",
+    ap.add_argument("--mesh", type=parse_train_mesh, default=None,
+                    metavar="[POD,]DATA,MODEL",
                     help="train on a (data, model) mesh of DATA*MODEL ranks "
-                         "that this command starts, e.g. --mesh 2,2")
+                         "that this command starts, e.g. --mesh 2,2, or on "
+                         "a (pod, data, model) mesh, e.g. --mesh 2,1,2")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
                     help="process-group backend of --mesh (default: nccl "
                          "with --device cuda, gloo with --device cpu)")
@@ -83,14 +108,14 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.mesh is None:
         return train_main(args, device)
-    data = args.mesh[0]
+    n = math.prod(args.mesh)
+    data = n // args.mesh[-1]
     if args.batch % data:
         raise ValueError(f"--batch {args.batch} does not split over "
-                         f"{data} data ranks")
+                         f"{data} data-parallel ranks")
     backend = args.backend or ("gloo" if device.type == "cpu" else "nccl")
     store = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     try:
-        n = args.mesh[0] * args.mesh[1]
         threads = (max(1, (os.cpu_count() or 1) // n)
                    if device.type == "cpu" else None)
         return spawn(_train_rank, args.mesh, backend, store, args,
@@ -113,12 +138,11 @@ def train_main(args, device, mesh=None):
     cfg = ARCHS[args.arch].tiny() if args.tiny else ARCHS[args.arch]
     model = build_model(cfg)
     data = data_for(cfg)
-    n_data = 1 if mesh is None else mesh.size("data")
-    host = 0 if mesh is None else mesh.index("data")
+    host, n_data = data_rank(mesh)
     say(f"{cfg.name}: global batch {args.batch} x seq {args.seq}"
         + ("" if mesh is None else
-           f" on mesh data={n_data} model={mesh.size('model')} "
-           f"({mesh.n_ranks} {device.type} ranks, {mesh.backend})"))
+           " on mesh " + " ".join(f"{a}={s}" for a, s in mesh.shape.items())
+           + f" ({mesh.n_ranks} {device.type} ranks, {mesh.backend})"))
     train_step, opt = make_train_step(model, TrainConfig(
         lr=3e-3, warmup=20, total_steps=args.steps), mesh=mesh)
     params = model.init(args.seed, device=device)

@@ -19,9 +19,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.dist.collectives import (all_gather, all_reduce, copy_to,
                                           step_totals)
-from repro_torch.dist.sharding import (MeshShape, active_mesh, active_rules,
-                                       axis_index, axis_rules, axis_size,
-                                       logical_to_spec, spec_axes,
+from repro_torch.dist.sharding import (DATA_AXES, MeshShape, active_mesh,
+                                       active_rules, axis_index, axis_rules,
+                                       axis_size, logical_to_spec, spec_axes,
                                        training_rules, tree_specs)
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
 from repro_torch.kernels.ops import quant_matmul
@@ -134,22 +134,23 @@ def column_input(x: torch.Tensor, w, full: int) -> torch.Tensor:
 
 def fsdp_gather(w, dim: int, full: int):
     """The FSDP gather of a float ``w`` whose ``dim`` is its ``fsdp`` axis,
-    of logical size ``full``: where the active rules cut that axis over
-    ``data`` (:func:`~repro_torch.dist.sharding.logical_to_spec`, as
-    ``shard_tree`` and ``tree_specs`` read them), ``w`` is this rank's
-    shard, gathered whole (the gradient summed over ``data`` and cut back
-    to the shard: a reduce_scatter); else (no mesh, serving's rules,
-    ``data`` 1 or not dividing ``full``) ``w`` itself.  The gathered weight
-    lives as long as autograd keeps it: without ``remat`` a product saves
-    it for the backward, so every layer's stays until its backward."""
+    of logical size ``full``: where the active rules cut that axis
+    (:func:`~repro_torch.dist.sharding.logical_to_spec`, as ``shard_tree``
+    and ``tree_specs`` read them: over ``data``, or ``("pod", "data")`` on
+    a pod mesh), ``w`` is this rank's shard, gathered whole in one
+    collective over the axes of that cut (the gradient summed over them
+    and cut back to the shard: a reduce_scatter); else (no mesh, serving's
+    rules, those axes of one rank or not dividing ``full``) ``w`` itself.
+    The gathered weight lives as long as autograd keeps it: without
+    ``remat`` a product saves it for the backward, so every layer's stays
+    until its backward."""
     mesh = active_mesh()
     if isinstance(w, QuantizedTensor) or mesh is None:
         return w
-    cut = spec_axes(logical_to_spec(("fsdp",), shape=(full,), mesh=mesh),
-                    mesh)
-    if not cut:
+    spec = logical_to_spec(("fsdp",), shape=(full,), mesh=mesh)
+    if not spec_axes(spec, mesh):
         return w
-    return all_gather(w, "data", dim=dim, reduce_grad=True)
+    return all_gather(w, spec[0], dim=dim, reduce_grad=True)
 
 
 def fsdp_leaf(w, axes, full: int):
@@ -194,8 +195,9 @@ def meta_tree(model) -> dict:
 def mesh_cuts(model, mesh):
     """(cut, gathered) under ``mesh``'s training rules for ``model``:
     ``cut(key, axis)`` 1 where ``axis`` cuts the leaf of checkpoint key
-    ``key``, ``gathered(prefix)`` the leaves under ``prefix`` cut on
-    ``data`` (one FSDP gather each per use)."""
+    ``key``, ``gathered(prefix)`` the leaves under ``prefix`` cut on the
+    data-parallel axes (``data``, ``pod``, or both: one FSDP gather each
+    per use)."""
     specs = tree_specs(meta_tree(model), model.param_axes(), mesh,
                        training_rules(model.cfg, mesh))
 
@@ -203,8 +205,8 @@ def mesh_cuts(model, mesh):
         return int(axis in spec_axes(specs.get(key), mesh))
 
     def gathered(prefix):
-        return sum("data" in spec_axes(s, mesh) for k, s in specs.items()
-                   if k.startswith(prefix))
+        return sum(any(a in DATA_AXES for a in spec_axes(s, mesh))
+                   for k, s in specs.items() if k.startswith(prefix))
     return cut, gathered
 
 
@@ -212,10 +214,10 @@ def collectives_per_step(model, mesh_shape, *, remat: bool = False,
                          microbatches: int = 1,
                          grad_compress: bool = False) -> dict:
     """Collective calls per kind of one train step of ``model``
-    (``make_train_step(mesh=)``) on a ``(data, model)`` mesh of
-    ``mesh_shape``: the model's ``_microbatch_collectives`` per microbatch
-    and the step's own (:func:`~repro_torch.dist.collectives.
-    step_totals`)."""
+    (``make_train_step(mesh=)``) on a ``(data, model)`` or ``(pod, data,
+    model)`` mesh of ``mesh_shape``: the model's
+    ``_microbatch_collectives`` per microbatch and the step's own
+    (:func:`~repro_torch.dist.collectives.step_totals`)."""
     return step_totals(model._microbatch_collectives(MeshShape(mesh_shape),
                                                      remat),
                        mesh_shape, microbatches=microbatches,

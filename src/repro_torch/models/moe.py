@@ -53,11 +53,12 @@ from repro_torch.core.stats import site_stat
 from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import (all_gather, all_reduce, all_to_all,
                                          copy_to)
-from repro_torch.dist.sharding import axis_index, axis_size
+from repro_torch.dist.sharding import (axis_index, axis_size, serving_rules,
+                                       spec_axes, tree_specs)
 from repro_torch.kernels.ops import quant_matmul_experts
 from .common import (NEG_INF, column_input, make_generator, mesh_cuts,
-                     normal_init, padded_vocab, qlinear, reduce_row_parallel,
-                     rms_norm)
+                     meta_tree, normal_init, padded_vocab, qlinear,
+                     reduce_row_parallel, rms_norm)
 from .dense import DenseLM
 
 
@@ -98,8 +99,10 @@ def _dispatch(x_flat, topi, probs, e_pad, capacity):
     flat_e = topi.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=e_pad)
-    offsets = torch.cumsum(counts, 0) - counts
+    # each expert's first entry in the sorted order (a search, not a
+    # bincount: the meta device has no bincount)
+    offsets = torch.searchsorted(sorted_e, torch.arange(
+        e_pad, dtype=sorted_e.dtype, device=sorted_e.device))
     rank = torch.arange(n * k, device=x_flat.device) - offsets[sorted_e]
     kept = rank < capacity
     keep = kept.to(x_flat.dtype)
@@ -320,8 +323,36 @@ class MoELM(DenseLM):
                 "lm_head": head}
 
     def tp_all_reduces(self, mesh, prefill: bool = False) -> int:
-        """Not counted: a MoE step also exchanges tokens (all_to_all)."""
+        """Not counted: a MoE step also exchanges tokens (all_to_all);
+        :meth:`tp_collectives` counts every kind."""
         raise ValueError("moe: its steps also run all_to_alls")
+
+    def tp_collectives(self, mesh, tokens: int) -> dict:
+        """Collective calls per kind of one serving step over ``tokens``
+        positions per row (a prefill's T, a decode step's 1) under ``mesh``
+        and its serving rules.  Where the vocabulary is cut (``v``): the
+        embedding's all_reduce and the logits' all_gather; per layer,
+        ``wo``'s sum where attention is cut on heads (``a``), the shared
+        expert's ``wd_sh`` sum where ``ff`` cuts it (``f``), and where the
+        experts are cut over ``model`` (``e``) the two all_to_alls, the aux
+        loss's all_reduce and, where ``model`` divides ``tokens`` (the
+        sequence split), the rows' all_gather.  Empty without a ``model``
+        axis."""
+        m = mesh.size("model")
+        if m == 1:
+            return {}
+        specs = tree_specs(meta_tree(self), self.param_axes(), mesh,
+                           serving_rules(self.cfg, mesh))
+
+        def cut(key):
+            return int("model" in spec_axes(specs.get(key), mesh))
+
+        n = self.cfg.n_layers
+        a, e = cut("['blocks']['wq']"), cut("['blocks']['wg_exp']")
+        f, v = cut("['blocks']['wg_sh']"), cut("['embed']")
+        return {"all_reduce": v + n * (a + e + f),
+                "all_to_all": 2 * n * e,
+                "all_gather": v + n * e * int(tokens % m == 0)}
 
     def param_axes(self) -> dict:
         """Logical axes of :meth:`init`'s tree: the dense attention's, the

@@ -1,6 +1,6 @@
 """Train-step factory: loss, microbatch accumulation, optional int8
 gradient compression (the reference's ``repro/train/trainer.py``), on one
-device or on a ``(data, model)`` mesh.
+device or on a ``(data, model)`` or ``(pod, data, model)`` mesh.
 
 ``make_train_step(model, tcfg[, mesh])`` returns ``(train_step, opt)``
 with ``train_step(params, opt_state, batch[, ef_state]) -> (params,
@@ -14,21 +14,24 @@ Functions).
 On a mesh (the reference's training under ``DEFAULT_RULES``; every
 family) every rank holds its shards of the parameters, both AdamW moments
 and the EF buffer (:func:`shard_params`, cut by
-:func:`~repro_torch.dist.sharding.training_rules`: FSDP over ``data``,
-heads / ff / vocab / experts over ``model``) and takes its ``data``
-coordinate's share of the global batch.  The forward gathers each layer's
-FSDP shards over ``data`` and runs tensor parallelism over ``model`` (the
-models' own layers: :mod:`repro_torch.models.dense` and the families);
-the collectives carry the gradients back, so an FSDP leaf's gradient
-arrives summed over ``data`` and cut to the shard (a reduce_scatter), and
-a leaf whole across ``model`` that meets only a rank's part of the work
-(MoE's router on the rank's tokens, Mamba's ``dt_proj`` on its channels)
-arrives summed over ``model`` (the models pass it through ``copy_to``).
-The step scales the data sums by ``1 / data``, all-reduces the leaves
-whole across ``data`` (the norms) once, and so holds the gradient of the
-global mean loss; the metrics are global means, the same on every rank
-(MoE's aux loss is each rank's mean over ``model``, whose mean over
-``data`` the step takes with the loss's); the clip norm and the
+:func:`~repro_torch.dist.sharding.training_rules`: FSDP over the
+data-parallel axes ``("pod", "data")``, heads / ff / vocab / experts over
+``model``) and takes its data-parallel coordinate's share of the global
+batch (:func:`data_rank`: ``pod`` major, ``data`` minor).  The forward
+gathers each layer's FSDP shards over the data-parallel axes (one
+collective over their joint group) and runs tensor parallelism over
+``model`` (the models' own layers: :mod:`repro_torch.models.dense` and
+the families); the collectives carry the gradients back, so an FSDP
+leaf's gradient arrives summed over the data-parallel ranks and cut to
+the shard (a reduce_scatter), and a leaf whole across ``model`` that
+meets only a rank's part of the work (MoE's router on the rank's tokens,
+Mamba's ``dt_proj`` on its channels) arrives summed over ``model`` (the
+models pass it through ``copy_to``).  The step scales the data-parallel
+sums by ``1 / (pod * data)``, all-reduces the leaves whole across those
+axes (the norms) once, and so holds the gradient of the global mean
+loss; the metrics are global means, the same on every rank (MoE's aux
+loss is each rank's mean over ``model``, whose data-parallel mean the
+step takes with the loss's); the clip norm and the
 compression scales are the logical tensors'.  Each model's
 ``train_collectives(mesh_shape, ...)`` is the collectives per step of
 that run (:data:`~repro_torch.dist.collectives.COUNTS`).
@@ -43,8 +46,9 @@ from repro_torch.configs import ARCHS
 from repro_torch.dist._tree import (leaves, leaves_with_keys, map_with_keys,
                                     tree_map)
 from repro_torch.dist.collectives import all_reduce
-from repro_torch.dist.sharding import (axis_rules, shard_tree, spec_axes,
-                                       training_rules, tree_specs)
+from repro_torch.dist.sharding import (DATA_AXES, axis_rules, entry_blocks,
+                                       shard_tree, spec_axes, training_rules,
+                                       tree_specs)
 from repro_torch.models.dense import DenseLM
 from .grad_compress import compress_grads
 from .optimizer import AdamW, cosine_schedule
@@ -103,9 +107,10 @@ def step_collectives(n_layers: int, mesh_shape, *, remat: bool = False,
                      grad_compress: bool = False) -> dict:
     """Collective calls per kind (:data:`~repro_torch.dist.collectives.
     COUNTS`) of one dense train step of ``n_layers`` layers on a ``(data,
-    model)`` mesh: :meth:`DenseLM.train_collectives` of llama3-8b's widths
-    at that depth, where every cut divides the mesh.  ``d`` / ``m`` below
-    are 1 where that axis has more than one rank, else 0.  Per microbatch:
+    model)`` or ``(pod, data, model)`` mesh: :meth:`DenseLM.
+    train_collectives` of llama3-8b's widths at that depth, where every
+    cut divides the mesh.  ``d`` / ``m`` below are 1 where ``pod * data``
+    / ``model`` is more than one rank, else 0.  Per microbatch:
 
     - all_gather: the FSDP gathers of each layer's 7 weights, the
       embedding and the head (``d``; under ``remat`` the recompute gathers
@@ -117,8 +122,9 @@ def step_collectives(n_layers: int, mesh_shape, *, remat: bool = False,
       non-reentrant checkpoint stops before ``w_down``'s, whose output the
       backward does not need).
 
-    Per step, all_reduce: the data sums of the leaves whole across
-    ``data`` and of the metrics (``d``, one each), the clip norm's (one),
+    Per step, all_reduce: the data-parallel sums of the leaves whole
+    across ``pod`` and ``data`` and of the metrics (``d``, one each), the
+    clip norm's (one),
     and the compression scales' (one with ``grad_compress``)."""
     model = DenseLM(ARCHS["llama3-8b"].scaled(n_layers=n_layers))
     return model.train_collectives(mesh_shape, remat=remat,
@@ -192,17 +198,24 @@ def make_grad_fn(model, tcfg: TrainConfig, mesh=None):
     return grad_fn
 
 
+def data_rank(mesh) -> tuple:
+    """``(host, n_hosts)``: this rank's coordinate over the data-parallel
+    axes (``pod`` major, ``data`` minor) and their number of ranks, which
+    say which rows of the global batch the rank draws (``(0, 1)`` without
+    a mesh).  At ``(pod, data, model)`` the rows are those of a ``(pod *
+    data, model)`` mesh's ranks."""
+    if mesh is None:
+        return 0, 1
+    n_hosts, host = entry_blocks(DATA_AXES, mesh)
+    return host, n_hosts
+
+
 def make_train_step(model, tcfg: TrainConfig, mesh=None):
     """``(train_step, opt)``; with a ``mesh``, the step on this rank's
-    shards (see the module docstring) and its ``data`` coordinate's rows
-    (``batch`` is this rank's share: ``SyntheticLM.batch(step, B // data,
-    T, host=mesh.index("data"), n_hosts=data)``).  ``mesh=None`` is the
-    single-device step."""
-    if mesh is not None:
-        if mesh.size("pod") > 1:
-            raise NotImplementedError("training on a mesh takes (data, "
-                                      "model) meshes; a pod axis is not "
-                                      "ported")
+    shards (see the module docstring) and its data-parallel coordinate's
+    rows (``batch`` is this rank's share: ``SyntheticLM.batch(step, B //
+    n_hosts, T, host=host, n_hosts=n_hosts)`` with ``host, n_hosts =
+    data_rank(mesh)``).  ``mesh=None`` is the single-device step."""
     opt = AdamW(weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm,
                 moment_dtype=tcfg.moment_dtype)
     lr_fn = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.total_steps)
@@ -230,21 +243,23 @@ def make_train_step(model, tcfg: TrainConfig, mesh=None):
 
 def _over_data(grads, metrics, mesh, specs):
     """Each rank's gradients and metrics of its own rows -> those of the
-    global batch (every data rank holds the same number of rows): FSDP
-    leaves arrive summed over ``data`` and are scaled by ``1 / data``;
-    leaves whole across ``data`` and the metrics are summed in one
-    all_reduce each (in f32) and scaled alike.  Each gradient keeps its
+    global batch (every data-parallel rank holds the same number of rows):
+    FSDP leaves arrive summed over the data-parallel axes ``("pod",
+    "data")`` and are scaled by ``1 / (pod * data)``; leaves whole across
+    them and the metrics are summed in one all_reduce each over their
+    joint group (in f32) and scaled alike.  Each gradient keeps its
     dtype."""
-    d = mesh.size("data")
+    d = entry_blocks(DATA_AXES, mesh)[0]
     if d == 1:
         return grads, metrics
     keyed = leaves_with_keys(grads)
     whole = [key for key, _ in keyed
-             if "data" not in spec_axes(specs.get(key), mesh)]
+             if not any(a in DATA_AXES
+                        for a in spec_axes(specs.get(key), mesh))]
     out = {key: g.float() / d for key, g in keyed}
     if whole:
         flat = all_reduce(torch.cat([out[key].reshape(-1) for key in whole]),
-                          "data")
+                          DATA_AXES)
         for key, part in zip(whole, torch.split(
                 flat, [out[key].numel() for key in whole])):
             out[key] = part.reshape(out[key].shape)
@@ -252,6 +267,6 @@ def _over_data(grads, metrics, mesh, specs):
     dev = keyed[0][1].device
     summed = all_reduce(torch.stack([torch.as_tensor(
         metrics[k], dtype=torch.float32, device=dev) for k in METRICS]),
-        "data") / d
+        DATA_AXES) / d
     metrics = dict(metrics, **dict(zip(METRICS, summed.unbind())))
     return map_with_keys(lambda key, _: out[key], grads), metrics

@@ -68,6 +68,32 @@ def test_port_imports_with_jax_unimportable():
     assert out.stdout.strip() == "ok"
 
 
+def test_dryrun_runs_with_jax_unimportable(tmp_path):
+    """repro_torch.launch.specs and .dryrun import, and a tiny decode cell
+    runs, with jax unimportable: the dry-run needs
+    neither a compiler nor anything of repro."""
+    code = ("import os, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            "before = dict(os.environ)\n"
+            "import repro_torch.launch.specs\n"
+            "from repro_torch.launch import dryrun\n"
+            "assert dict(os.environ) == before, 'the import set the env'\n"
+            "rc = dryrun.main(['--tiny', '--arch', 'llama3-8b', '--cell',\n"
+            f"                 'decode_32k', '--out', {str(tmp_path)!r}])\n"
+            "assert rc == 0, rc\n"
+            "assert not any(m == 'repro' or m.startswith('repro.')\n"
+            "               for m in sys.modules), 'imported repro'\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert "done: 1 ok, 0 skipped-by-design" in out.stdout
+    assert os.listdir(tmp_path) == ["llama3-8b__decode_32k__16x16__tiny.json"]
+
+
 def test_entry_points_refuse_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is usable")
